@@ -4,37 +4,48 @@
 
 Phases, in order; any failure raises and the run exits non-zero:
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A and B from vkrt_tpu_torch/csrc/ (nvcc)
+  2. build    compile kernels A-F from vkrt_tpu_torch/csrc/ into one
+              library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked)
   4. kernel B vs its plain version (shadow segments of phase 3's hits,
               with parked and near-light segments)
-  5. frame    a 64x48 config-4 frame of the small scene vs the numpy
-              brute-force oracle (vkrt_tpu.golden.cpu_tracer)
-  6. main     Renderer.render_async → render_frame_u8 at config 4,
-              1920x1080, full procedural scene (262,267 triangles):
-              one warm-up frame, then 8 timed frames along the
-              fly-through camera path; exactly 2 launches of A and 2 of
-              B per frame
-  7. shapes   kernels A and B vs their plain versions on the inputs one
-              main-path frame gives them (depth 0 and the reflected
-              depth-1 wavefront, recorded from the engine), and their
-              times there
-  then   two profiled main-path frames (device time per engine range,
-         busy share, top kernels)
+  5. C-F      kernels C, D (live-ray pack) and E, F (in-block lane sort)
+              vs their plain versions on probes: liveness 0, 0.1, 0.27,
+              0.9, 1 and clustered; keys with many ties; blocks 512 and
+              1024; bit-equal, dead tail 0
+  6. frame    a 64x48 config-4 frame of the small scene at the shipped
+              defaults vs the numpy brute-force oracle
+              (vkrt_tpu.golden.cpu_tracer)
+  7. main     Renderer.render_async → render_frame_u8 at config 4's
+              shipped defaults (the depth>=1 shadow reorder on),
+              1920x1080, full procedural scene (262,267 triangles): one
+              warm-up frame, then 8 timed frames along the fly-through
+              camera path; exactly A 2, B 2, C 1, D 1, E 1, F 1 launches
+              per frame
+  8. flags off  the same frames with the three reorder flags off (the
+              path before C-F): A 2, B 2 and no C-F launches per frame;
+              its u8 frames and ray counts must equal phase 7's bit for bit
+  9. shapes   kernels A-F vs their plain versions on the inputs one
+              main-path frame gives them (recorded from the engine), and
+              their times there
+  then   two profiled main-path frames, then two flags-off frames (device
+         time per engine range, busy share, top kernels)
 Then the card's nvidia-smi name and power limit, one JSON line with each
-kernel's launches in phase 6, its largest error in phases 3, 4 and 7 and
-its phase-7 times per frame, and, as the last line,
+kernel's launches in phase 7, its largest error in phases 3-5 and 9 and
+its phase-9 times per frame, and, as the last line,
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import itertools
 import json
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -51,8 +62,9 @@ from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.utils import layout as L
+from vkrt_tpu_torch.wavefront import engine, lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (Renderer, camera_ray_blocks,
-                                             ported_config, render_frame_u8)
+                                             render_frame_u8)
 
 SEED = 0
 N_FRAMES = 8
@@ -63,6 +75,15 @@ SLOT_AGREE = 0.999       # kernel A vs plain: slots (t, u, v, attrs
 BLOCK_AGREE = 0.9999     # kernel B vs plain: blocked masks
 T_RTOL = 1e-5            # kernel A vs plain: t where both hit
 GOLDEN_RMSE = 1e-3       # frame vs oracle (BASELINE.json bar)
+                         # C-F vs plain: equal (they move values, no math)
+REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
+                   partition_shadows=False)
+# kernel → wrapper whose `launches` counts its launches
+COUNTED = {"A": trace_dense, "B": occluded_multi, "C": pack.consolidate,
+           "D": pack.scatter_back, "E": lanesort.lane_sort,
+           "F": lanesort.lane_unsort}
+PLAIN = {"C": pack.consolidate_plain, "D": pack.scatter_back_plain,
+         "E": lanesort.lane_sort_plain, "F": lanesort.lane_unsort_plain}
 
 
 def log(*a):
@@ -187,12 +208,126 @@ def compare_occl(tree, lp, sd, st, near: bool = True,
     return out
 
 
+def compare_move(k: str, args, kw, label: str = "") -> float:
+    """Kernel k (one of C-F) vs its plain version on the same inputs: the
+    outputs must be equal (they move f32 values, no arithmetic), and C's
+    output must be 0 past the last live rank. Returns the largest
+    absolute difference (0.0)."""
+    got = COUNTED[k](*args, **kw)
+    want = PLAIN[k](*args, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(((g.float() - w.float()).abs().max().item()
+               if g.numel() else 0.0) for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    tail = True
+    if k == "C":
+        nlive = int((args[1] >= 0).sum().item())
+        tail = not got[0].reshape(got[0].shape[0], -1)[:, nlive:].any()
+    if not (equal and tail):
+        raise AssertionError(f"kernel {k} disagrees with its plain version"
+                             f"{label}: equal {equal}, dead tail 0 {tail}, "
+                             f"max abs err {err}")
+    return err
+
+
+def probe_moves(device) -> dict:
+    """Phase 5: kernels C-F vs their plain versions on probes of 1024 rows
+    (131,072 rays). C and D at liveness 0, 0.1, 0.27, 0.9, 1 and
+    clustered, 16 channels (values past the last live rank planted as
+    777, which must not come back); E and F at blocks 512 and 1024 with
+    keys of many ties, mostly-dead keys and the full 18-bit range, and
+    unsort(sort(x)) == x. C and D take no block. Returns each kernel's
+    largest error."""
+    rng = np.random.default_rng(SEED)
+    nb = 1024
+    errs = dict.fromkeys("CDEF", 0.0)
+    x = torch.as_tensor(rng.normal(size=(16, nb, L.LANES)).astype(np.float32),
+                        device=device)
+    clustered = np.zeros((nb, L.LANES), bool)
+    clustered[80:144] = True
+    clustered[800:816] = True
+    lives = {f"{f}": rng.random((nb, L.LANES)) < f
+             for f in (0.0, 0.1, 0.27, 0.9, 1.0)}
+    lives["clustered"] = clustered
+    for name, live in lives.items():
+        grank = pack.consolidate_plan(torch.as_tensor(live, device=device))
+        errs["C"] = max(errs["C"], compare_move("C", (x, grank), {},
+                                                f" (live {name})"))
+        nlive = int(live.sum())
+        res = x[:4].clone()
+        res.reshape(4, -1)[:, nlive:] = 777.0
+        errs["D"] = max(errs["D"], compare_move("D", (res, grank), {},
+                                                f" (live {name})"))
+        if (pack.scatter_back(res, grank) == 777.0).any():
+            raise AssertionError(f"scatter_back leaked past the last live "
+                                 f"rank (live {name})")
+    dead = 1 << 18
+    keys = {"ties": rng.integers(0, 40, (nb, L.LANES)),
+            "mostly_dead": np.where(rng.random((nb, L.LANES)) < 0.27,
+                                    rng.integers(0, dead, (nb, L.LANES)),
+                                    dead),
+            "full": rng.integers(0, dead + 1, (nb, L.LANES))}
+    x4 = x[:4].contiguous()
+    for block in (512, 1024):
+        for name, key in keys.items():
+            key = torch.as_tensor(key.astype(np.int32), device=device)
+            label = f" (block {block}, keys {name})"
+            errs["E"] = max(errs["E"], compare_move(
+                "E", (x4, key), {"block": block}, label))
+            srt, rank = lanesort.lane_sort(x4, key, block=block)
+            errs["F"] = max(errs["F"], compare_move(
+                "F", (srt, rank), {"block": block}, label))
+            if not torch.equal(lanesort.lane_unsort(srt, rank, block=block),
+                               x4):
+                raise AssertionError(f"lane_unsort(lane_sort(x)) != x{label}")
+    log(f"  C-F vs plain on probes: {len(lives)} liveness cases (C, D), "
+        f"{2 * len(keys)} block/key cases (E, F), all equal; max abs err "
+        + json.dumps(errs))
+    return errs
+
+
+class RecordingMoves:
+    """While active, the engine's calls of kernels C-F go through wrappers
+    that keep a copy of their inputs: the engine's `pack` and `lanesort`
+    names are swapped for copies of those modules' namespaces with the
+    four wrappers replaced (the modules themselves, and so the launch
+    counts, are untouched)."""
+
+    SITES = {"C": ("pack", "consolidate"), "D": ("pack", "scatter_back"),
+             "E": ("lanesort", "lane_sort"), "F": ("lanesort", "lane_unsort")}
+
+    def __init__(self):
+        self.inputs = {k: [] for k in self.SITES}
+        self.saved = {}
+
+    def __enter__(self):
+        for m in ("pack", "lanesort"):
+            self.saved[m] = getattr(engine, m)
+            setattr(engine, m, types.SimpleNamespace(**vars(self.saved[m])))
+        for k, (m, name) in self.SITES.items():
+            setattr(getattr(engine, m), name, self._recorder(k, COUNTED[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for m, mod in self.saved.items():
+            setattr(engine, m, mod)
+
+    def _recorder(self, k, fn):
+        def call(*args, **kw):
+            self.inputs[k].append((tuple(a.clone() for a in args), kw))
+            return fn(*args, **kw)
+        return call
+
+
 class RecordingBackend:
     """Wraps a trace backend and keeps a copy of every input it is
     given, so the kernels can be checked on a frame's own wavefronts."""
 
     def __init__(self, inner):
         self.inner = inner
+        self.scene_aabb = inner.scene_aabb
         self.closest_in, self.occl_in = [], []
 
     def closest(self, o, d, tmax):
@@ -205,16 +340,20 @@ class RecordingBackend:
 
 
 def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
-    """Phase 7: record the inputs kernels A and B get in one main-path
-    frame, hold each kernel against its plain version on them, and time
-    both there (kernel: mean of 5 after a warm-up; plain: one run)."""
+    """Phase 9: record the inputs kernels A-F get in one main-path frame,
+    hold each kernel against its plain version on them, and time both
+    there (kernel: mean of 5 after a warm-up; plain: one run). Also
+    reports the depth-1 shadow wavefront's live share and how much of it
+    the lane sort's capped prefix covers."""
     rec = RecordingBackend(renderer.backend)
     pi = torch.as_tensor(cam.proj_inverse, device=renderer.device)
     vi = torch.as_tensor(cam.view_inverse, device=renderer.device)
-    render_frame_u8(rec, renderer.tex, pi, vi, renderer.lights, renderer.cfg)
-    torch.cuda.synchronize()
+    with RecordingMoves() as moves:
+        render_frame_u8(rec, renderer.tex, pi, vi, renderer.lights,
+                        renderer.cfg)
+        torch.cuda.synchronize()
     tree = renderer.backend.tree
-    res = {"A": [], "B": []}
+    res = {k: [] for k in COUNTED}
     for depth, (o, d, tm) in enumerate(rec.closest_in):
         r = compare_closest(tree, o, d, tm, f" (main path, depth {depth})")
         r["ms"] = cuda_ms(lambda: trace_dense(tree, o, d, tm), 5)
@@ -228,10 +367,30 @@ def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
         r["plain_ms"] = cuda_ms(
             lambda: occluded_multi_plain(tree, lp, sd, st), 1, warmup=False)
         res["B"].append(r)
+    for k, calls in moves.inputs.items():
+        if len(calls) != 1:
+            raise AssertionError(f"recorded {len(calls)} calls of kernel {k}"
+                                 f" in one frame, want 1")
+        args, kw = calls[0]
+        r = {"shape": list(args[0].shape),
+             "max_abs_err": compare_move(k, args, kw, " (main path)")}
+        r["ms"] = cuda_ms(lambda: COUNTED[k](*args, **kw), 5)
+        r["plain_ms"] = cuda_ms(lambda: PLAIN[k](*args, **kw), 1,
+                                warmup=False)
+        log(f"  kernel {k} vs plain (main path, depth 1):", json.dumps(r))
+        res[k].append(r)
+    grank = moves.inputs["C"][0][0][1]
+    n = grank.numel()
+    nlive = int((grank >= 0).sum().item())
+    sorted_rays = moves.inputs["E"][0][0][1].numel()
+    share = dict(rays=n, live=nlive, live_share=nlive / n,
+                 lane_sorted_rays=sorted_rays,
+                 live_sorted_share=min(nlive, sorted_rays) / max(nlive, 1))
+    log("  depth-1 shadow wavefront:", json.dumps(share))
     for k, rows in res.items():
-        log(f"  {k} per depth: " + "; ".join(
-            f"d{i} {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
-            for i, r in enumerate(rows)))
+        log(f"  {k} per call: " + "; ".join(
+            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
+            for r in rows))
     want = renderer.cfg.max_depth
     if len(res["A"]) != want or len(res["B"]) != want:
         raise AssertionError(f"recorded {len(res['A'])} A and {len(res['B'])}"
@@ -240,11 +399,10 @@ def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
 
 
 def golden_frame(device) -> float:
-    """Phase 5: small scene at 64x48, config 4 (reorder flags off), port
-    on `device` vs the brute-force oracle. Returns the RMSE."""
+    """Phase 6: small scene at 64x48, config 4 at the shipped defaults,
+    port on `device` vs the brute-force oracle. Returns the RMSE."""
     model = procedural_model("small", seed=SEED)
-    cfg = ported_config(dataclasses.replace(C.config4_flythrough(),
-                                            width=64, height=48))
+    cfg = dataclasses.replace(C.config4_flythrough(), width=64, height=48)
     r = Renderer(model, cfg, device)
     cam = start_camera(64, 48)
     fb, rays = r.render(cam)
@@ -260,58 +418,74 @@ def golden_frame(device) -> float:
     return err
 
 
-def main_path(renderer: Renderer) -> dict:
-    """Phase 6: warm-up + N_FRAMES config-4 frames through render_async.
-    Launch counts are read from zero just before and just after."""
+def drive(renderer: Renderer, cams, per_frame: dict, label: str):
+    """Phases 7 and 8: a warm-up frame on cams[0], then one timed frame
+    per further camera, enqueued back to back through render_async.
+    Every launch count is set to 0 just before and read just after; each
+    must be per_frame[k] times the number of frames. Returns (results,
+    [(u8 frame, ray count)] per camera)."""
     cfg = renderer.cfg
-    cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
-                                 N_FRAMES + 1))
+    n = len(cams) - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    trace_dense.launches = 0
-    occluded_multi.launches = 0
+    for f in COUNTED.values():
+        f.launches = 0
     wall0 = time.perf_counter()
-    fb8, rays = renderer.render_async(cams[0])              # warm-up
+    first = renderer.render_async(cams[0])                  # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - wall0
-    events = [torch.cuda.Event(enable_timing=True)
-              for _ in range(N_FRAMES + 1)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     outs = []
     wall1 = time.perf_counter()
     events[0].record()
-    for k in range(N_FRAMES):
+    for k in range(n):
         outs.append(renderer.render_async(cams[k + 1]))
         events[k + 1].record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - wall1
-    launches = {"A": trace_dense.launches, "B": occluded_multi.launches}
-    frame_ms = [events[k].elapsed_time(events[k + 1]) for k in range(N_FRAMES)]
+    launches = {k: f.launches for k, f in COUNTED.items()}
+    frame_ms = [events[k].elapsed_time(events[k + 1]) for k in range(n)]
     ray_total = sum(int(r.item()) for _, r in outs)
     total_ms = sum(frame_ms)
-    res = dict(frames=N_FRAMES, warmup_s=warm_s,
+    res = dict(frames=n, warmup_s=warm_s,
                frame_ms=float(np.mean(frame_ms)), frame_ms_each=frame_ms,
-               wall_ms_per_frame=wall_s * 1e3 / N_FRAMES,
-               rays_per_frame=ray_total / N_FRAMES,
+               wall_ms_per_frame=wall_s * 1e3 / n,
+               rays_per_frame=ray_total / n,
                mrays_per_s=ray_total / (total_ms * 1e3),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                launches=launches)
-    log("  main path:", json.dumps(res))
-    want = 2 * (N_FRAMES + 1)
-    if launches != {"A": want, "B": want}:
-        raise AssertionError(f"expected {want} launches of A and of B "
-                             f"(2 per frame), got {launches}")
-    for fb, r in [(fb8, rays)] + outs:
+    log(f"  {label}:", json.dumps(res))
+    want = {k: per_frame.get(k, 0) * (n + 1) for k in COUNTED}
+    if launches != want:
+        raise AssertionError(f"{label}: expected launches {want} "
+                             f"({per_frame} per frame), got {launches}")
+    outs = [first] + outs
+    for fb, r in outs:
         if fb.shape != (cfg.height, cfg.width, 3) or fb.dtype != torch.uint8:
             raise AssertionError(f"frame shape {tuple(fb.shape)} {fb.dtype}")
         if int(r.item()) <= cfg.width * cfg.height:
             raise AssertionError(f"ray count {int(r.item())} too small")
         if fb.float().std().item() < 1.0:
             raise AssertionError("frame is flat")
-    return res
+    return res, outs
 
 
-def profile_frames(renderer: Renderer, cam: Camera) -> dict:
-    """PROFILE_FRAMES main-path frames enqueued back to back under
+def same_frames(outs, want) -> None:
+    """Phase 8's contract: the flags-off frames equal the defaults frames
+    bit for bit, with equal ray counts, camera by camera."""
+    diff = [int((a != b).any(dim=-1).sum().item()) for (a, _), (b, _)
+            in zip(outs, want)]
+    rays = [(int(ra.item()), int(rb.item())) for (_, ra), (_, rb)
+            in zip(outs, want)]
+    log(f"  flags-off vs defaults: pixels that differ per frame {diff}, "
+        f"rays equal {all(a == b for a, b in rays)}")
+    if any(diff) or any(a != b for a, b in rays) or len(outs) != len(want):
+        raise AssertionError(f"flags-off frames differ from the defaults "
+                             f"frames: pixels {diff}, rays {rays}")
+
+
+def profile_frames(renderer: Renderer, cam: Camera, label: str) -> dict:
+    """PROFILE_FRAMES frames of `renderer` enqueued back to back under
     torch.profiler: device time per engine range (record_function in
     wavefront/engine.py) and outside them, per frame; the device's busy
     share of the wall clock from the first enqueue to the last result;
@@ -341,7 +515,7 @@ def profile_frames(renderer: Renderer, cam: Camera) -> dict:
                busy_share=busy_us / wall_us,
                range_ms=dict(sorted(ranges.items())),
                other_ms=busy_us / 1e3 / n - sum(ranges.values()))
-    log("  profiled frames:", json.dumps(res))
+    log(f"  profiled frames ({label}):", json.dumps(res))
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / n:9.3f} ms/frame "
             f"x{e.count:<4d} {e.key[:90]}")
@@ -369,9 +543,9 @@ def main() -> int:
             log("  ptxas:", line.strip())
     kernels.library()
 
-    log("== setup: full procedural scene, config 4 (reorder flags off)")
+    log("== setup: full procedural scene, config 4 (shipped defaults)")
     t0 = time.perf_counter()
-    cfg = ported_config(C.config4_flythrough())
+    cfg = C.config4_flythrough()
     model = procedural_model("full", seed=SEED)
     renderer = Renderer(model, cfg, dev, quantize=True)
     torch.cuda.synchronize()
@@ -389,35 +563,60 @@ def main() -> int:
     lp, sd, st = shadow_inputs(u, v, attrs, slot >= 0, renderer.lights)
     res_b = compare_occl(tree, lp, sd, st)
 
-    log("== 5. frame vs oracle")
+    log("== 5. kernels C-F vs plain on probes")
+    probe_err = probe_moves(dev)
+    probe_err.update(A=res_a["max_abs_err"], B=res_b["max_abs_err"])
+
+    log("== 6. frame vs oracle")
     golden_frame(dev)
 
-    log("== 6. main path")
-    res_main = main_path(renderer)
+    cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
+                                 N_FRAMES + 1))
+    log("== 7. main path: config 4 at the shipped defaults")
+    res_main, outs = drive(renderer, cams, dict(A=2, B=2, C=1, D=1, E=1, F=1),
+                           "main path (defaults)")
 
-    log("== 7. kernels vs plain at the main path's shapes")
+    log("== 8. config 4 with the reorder flags off, same cameras")
+    off = copy.copy(renderer)
+    off.cfg = dataclasses.replace(cfg, **REORDER_OFF)
+    res_off, outs_off = drive(off, cams, dict(A=2, B=2), "flags off")
+    same_frames(outs_off, outs)
+    del outs, outs_off
+    log(f"  ms/frame: defaults {res_main['frame_ms']:.3f}, flags off "
+        f"{res_off['frame_ms']:.3f}")
+
+    log("== 9. kernels vs plain at the main path's shapes")
     cam = start_camera(cfg.width, cfg.height)
-    res_7 = main_path_shapes(renderer, cam)
+    res_9 = main_path_shapes(renderer, cam)
 
-    log(f"== profile: {PROFILE_FRAMES} main-path frames")
-    profile_frames(renderer, cam)
+    log(f"== profile: {PROFILE_FRAMES} main-path frames, then "
+        f"{PROFILE_FRAMES} flags-off frames")
+    profile_frames(renderer, cam, "defaults")
+    profile_frames(off, cam, "flags off")
 
-    def entry(name, k, probe, src, replaces):
-        rows = res_7[k]
+    def entry(name, k, src, replaces):
+        rows = res_9[k]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": res_main["launches"][k],
-                "max_abs_err": max([probe["max_abs_err"]]
+                "max_abs_err": max([probe_err[k]]
                                    + [r["max_abs_err"] for r in rows]),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows)}
 
     log(smi)
     log(json.dumps({"kernels": [
-        entry("trace_closest", "A", res_a,
-              "vkrt_tpu_torch/csrc/trace_closest.cu",
+        entry("trace_closest", "A", "vkrt_tpu_torch/csrc/trace_closest.cu",
               "vkrt_tpu/rt/dense.py:238"),
-        entry("occl_multi", "B", res_b, "vkrt_tpu_torch/csrc/occl_multi.cu",
+        entry("occl_multi", "B", "vkrt_tpu_torch/csrc/occl_multi.cu",
               "vkrt_tpu/rt/occl_multi.py:40"),
+        entry("consolidate", "C", "vkrt_tpu_torch/csrc/pack.cu",
+              "vkrt_tpu/wavefront/pack.py:98"),
+        entry("scatter_back", "D", "vkrt_tpu_torch/csrc/pack.cu",
+              "vkrt_tpu/wavefront/pack.py:200"),
+        entry("lane_sort", "E", "vkrt_tpu_torch/csrc/lanesort.cu",
+              "vkrt_tpu/wavefront/lanesort.py:79"),
+        entry("lane_unsort", "F", "vkrt_tpu_torch/csrc/lanesort.cu",
+              "vkrt_tpu/wavefront/lanesort.py:162"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,17 @@
 """The vkrt_tpu_torch frame engine vs the JAX engine (whole slice, CPU).
 
-The small procedural scene at 64x48. Config 4 (reorder flags off) is
-held against the JAX dense backend with its Pallas kernels in interpret
-mode, configs 1-3 against the JAX reference (LBVH) backend. Bars: frame
-RMSE <= 1e-3 (BASELINE.json) and traced-ray counts within 0.1%. The JAX
-dense frames are rendered once per module (~17 s each here).
+The small procedural scene at 64x48, every config at RenderConfig's
+shipped defaults (the depth>=1 shadow reorder on). Config 4 is held
+against the JAX dense backend with its Pallas kernels in interpret mode
+(equal ray counts), configs 1-3 against the JAX reference (LBVH) backend.
+Bars: frame RMSE <= 1e-3 (BASELINE.json) and traced-ray counts within
+0.1%. The JAX dense frames are rendered once per module (~15 s each
+here). The reorder flags only move rays, so the port's frames must be
+bit-equal across all of their combinations.
 """
 
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +31,17 @@ RMSE_BAR = 1e-3
 RAY_TOL = 1e-3
 
 
-def config(n: int) -> C.RenderConfig:
-    return te.ported_config(dataclasses.replace(
-        C.BASELINE_CONFIGS[n](), width=W, height=H))
+REORDER_FLAGS = ("consolidate_secondary", "group_sort_shadows",
+                 "partition_shadows")
+
+
+def config(n: int, width: int = W, height: int = H) -> C.RenderConfig:
+    return dataclasses.replace(C.BASELINE_CONFIGS[n](), width=width,
+                               height=height)
+
+
+def reorder(cfg: C.RenderConfig, on) -> C.RenderConfig:
+    return dataclasses.replace(cfg, **dict(zip(REORDER_FLAGS, on)))
 
 
 @pytest.fixture(scope="module")
@@ -47,8 +59,9 @@ def scene():
 
 @pytest.fixture(scope="module")
 def jax_dense_frames(scene):
-    """JAX dense backend (Pallas interpret) at config 4: the f32 frame
-    with its ray grid, and the u8 frame with its ray sum."""
+    """JAX dense backend (Pallas interpret) at config 4's shipped
+    defaults: the f32 frame with its ray grid, and the u8 frame with its
+    ray sum."""
     _, flat, _, jtex, jargs = scene
     be = je.make_backend(flat, "dense")
     fb, rays = je.render_frame(be, jtex, *jargs, config(4), interpret=True)
@@ -58,11 +71,16 @@ def jax_dense_frames(scene):
             np.asarray(fb8), int(rsum))
 
 
-def port_frame(scene, cfg, quantize=False):
-    model, _, cam, _, _ = scene
+def port_frame(scene, cfg, quantize=False, cam=None):
+    model, _, start, _, _ = scene
     r = te.Renderer(model, cfg, "cpu", quantize=quantize)
-    fb, rays = r.render_async(cam)
+    fb, rays = r.render_async(cam or start)
     return fb.numpy(), int(rays.sum())
+
+
+@pytest.fixture(scope="module")
+def port_frame_flags_off(scene):
+    return port_frame(scene, reorder(config(4), (False,) * 3))
 
 
 def assert_rays_close(got, want):
@@ -74,7 +92,7 @@ def test_config4_matches_jax_dense(scene, jax_dense_frames):
     want_fb, want_rays, _, _ = jax_dense_frames
     assert fb.shape == (H, W, 3) and np.isfinite(fb).all()
     assert rmse(fb, want_fb) <= RMSE_BAR
-    assert_rays_close(rays, want_rays)
+    assert rays == want_rays
     # reflections and shadows ran: more rays than pixels + one light each
     assert rays > 2 * W * H
 
@@ -115,6 +133,40 @@ def test_tile_and_camera_rays_match_jax(scene, rng):
     np.testing.assert_array_equal(to.numpy(), np.asarray(jo))
 
 
+@pytest.mark.parametrize("on", list(itertools.product([False, True],
+                                                      repeat=3)),
+                         ids=lambda on: "".join("01"[b] for b in on))
+def test_reorder_flags_give_identical_frames(scene, port_frame_flags_off, on):
+    """Any combination of consolidate_secondary, group_sort_shadows and
+    partition_shadows renders the flags-off frame bit for bit (the JAX
+    package's test_backends.py contract)."""
+    fb, rays = port_frame(scene, reorder(config(4), on))
+    want, want_rays = port_frame_flags_off
+    np.testing.assert_array_equal(fb, want)
+    assert rays == want_rays
+
+
+def test_capped_partition_is_bit_exact(scene):
+    """At 128x96 the packed depth-1 wavefront has 12 blocks of 1024, so
+    the lane sort covers only its first quarter (the `capr` cap) and the
+    rows beyond pass through; the frame still equals the unpartitioned
+    one bit for bit."""
+    model = scene[0]
+    cam = Camera(128, 96)
+    cam.set_position(C.CAMERA_START_POSITION)
+    cam.set_rotation(C.CAMERA_START_ROTATION)
+    cfg = config(4, 128, 96)
+    nb = 128 * 96 // 128
+    rpb = te.OCCL_BLOCK // 128
+    assert te._occl_block(nb * 128) == te.OCCL_BLOCK and nb // rpb >= 8
+    fb, rays = port_frame(scene, cfg, cam=cam)
+    want, want_rays = port_frame(
+        scene, dataclasses.replace(cfg, partition_shadows=False), cam=cam)
+    np.testing.assert_array_equal(fb, want)
+    assert rays == want_rays
+    assert fb.shape == (96, 128, 3) and np.isfinite(fb).all()
+
+
 @pytest.mark.parametrize("flag", sorted(te._UNPORTED_FLAGS))
 def test_unported_flag_raises(scene, flag):
     model = scene[0]
@@ -125,12 +177,17 @@ def test_unported_flag_raises(scene, flag):
         te.check_supported(cfg)
 
 
-def test_shipped_defaults_raise_until_ported():
-    """RenderConfig's shipped defaults turn the depth>=1 reorder flags on;
-    the port refuses them rather than ignore them."""
-    with pytest.raises(NotImplementedError, match="consolidate_secondary"):
-        te.check_supported(C.config4_flythrough())
-    te.check_supported(te.ported_config(C.config4_flythrough()))
+def test_shipped_defaults_accepted_and_unported_flags_raise():
+    """RenderConfig's shipped defaults (the depth>=1 reorder flags on) are
+    ported; the seven flags that still need unported machinery raise."""
+    te.check_supported(C.config4_flythrough())
+    te.check_supported(C.RenderConfig())
+    assert not set(REORDER_FLAGS) & set(te._UNPORTED_FLAGS)
+    assert len(te._UNPORTED_FLAGS) == 7
+    for flag in te._UNPORTED_FLAGS:
+        with pytest.raises(NotImplementedError, match=flag):
+            te.check_supported(dataclasses.replace(C.config4_flythrough(),
+                                                   **{flag: True}))
 
 
 def test_unported_backend_raises(scene):

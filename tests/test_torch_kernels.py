@@ -1,8 +1,9 @@
 """vkrt_tpu_torch/kernels.py: the nvcc build and its failure modes.
 
 There is no nvcc here, so a stand-in script plays it: the build must
-raise when nvcc is missing or fails, pass the flags the kernels'
-numerics rely on, and reuse a finished library.
+raise when nvcc is missing or fails, compile every source with the flags
+the kernels' numerics rely on, link them into one library, and reuse a
+finished library.
 """
 
 import os
@@ -13,7 +14,7 @@ import pytest
 from vkrt_tpu_torch import kernels
 
 FAKE_NVCC = """#!/bin/sh
-echo "$@" > "{args}"
+echo "$@" >> "{args}"
 {body}
 """
 
@@ -60,11 +61,18 @@ echo "ptxas info    : Used 40 registers" >&2
     first = kernels.build()
     assert not first.cached and first.path.is_file()
     assert "registers" in first.log
-    argv = args.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in argv
-    assert "-fmad=false" in argv and "-use_fast_math" not in argv
-    assert [a for a in argv if a.endswith(".cu")] == [
-        str(kernels.CSRC / s) for s in kernels.SOURCES]
+    calls = [line.split() for line in args.read_text().splitlines()]
+    compiles = [a for a in calls if "-c" in a]
+    links = [a for a in calls if "-shared" in a]
+    assert len(compiles) == len(kernels.SOURCES) and len(links) == 1
+    for argv in compiles:
+        assert "arch=compute_90a,code=sm_90a" in argv
+        assert "-fmad=false" in argv and "-use_fast_math" not in argv
+    assert sorted(a for argv in compiles for a in argv if a.endswith(".cu")
+                  ) == sorted(str(kernels.CSRC / s) for s in kernels.SOURCES)
+    assert "arch=compute_90a,code=sm_90a" in links[0]
+    assert sum(a.endswith(".o") for a in links[0]) == len(kernels.SOURCES)
+    assert not list(first.path.parent.glob("*.o"))
     again = kernels.build()
     assert again.cached and again.path == first.path
 

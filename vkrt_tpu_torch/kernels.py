@@ -1,11 +1,15 @@
 """Build and bind the hand-written CUDA kernels (csrc/*.cu).
 
-At first use the sources are compiled with nvcc for sm_90a into a shared
-library with a plain C interface, under `_build/<hash of the sources>/`
-(listed in .gitignore), and loaded with ctypes. A later call in the same
-process, or a later process on the same checkout, reuses the library.
-Nothing here runs at import time: the CPU tests import every module on a
-machine without nvcc.
+At first use each source is compiled by its own nvcc process, all started
+together, for sm_90a; the objects are linked into one shared library with
+a plain C interface, under `_build/<hash of the sources>/` (listed in
+.gitignore), and loaded with ctypes. A later call in the same process, or
+a later process on the same checkout, reuses the library. Nothing here
+runs at import time: the CPU tests import every module on a machine
+without nvcc.
+
+Sources: trace_closest.cu (kernel A), occl_multi.cu (B), pack.cu (C, D),
+lanesort.cu (E, F).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product
@@ -27,11 +31,11 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("trace_closest.cu", "occl_multi.cu")
+SOURCES = ("trace_closest.cu", "occl_multi.cu", "pack.cu", "lanesort.cu")
 HEADERS = ("common.cuh",)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v"]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v"]
 
 
 def _nvcc() -> str:
@@ -71,16 +75,27 @@ def build() -> BuildInfo:
     if lib.is_file():
         return BuildInfo(lib, 0.0, "", cached=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libvkrt_kernels.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    objs = [out_dir / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o",
+                          str(o)] for s, o in zip(SOURCES, objs))]
+    runs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+    tmp = out_dir / f"libvkrt_kernels.{tag}.so"
+    if all(rc == 0 for _, _, rc in runs):
+        cmd = [nvcc, *GENCODE, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        runs.append((cmd, proc.stdout + proc.stderr, proc.returncode))
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "".join(out for _, out, _ in runs)
+    for cmd, out, rc in runs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
     os.replace(tmp, lib)           # atomic: concurrent builds never tear
     return BuildInfo(lib, seconds, log, cached=False)
 
@@ -99,6 +114,13 @@ def library() -> ctypes.CDLL:
     lib.vkrt_occl_multi.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                                     _P, _P]
     lib.vkrt_occl_multi.restype = _I
+    lib.vkrt_consolidate.argtypes = [_P, _P, _I, _I, _P, _P]
+    lib.vkrt_scatter_back.argtypes = [_P, _P, _I, _I, _P, _P]
+    lib.vkrt_lane_sort.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
+    lib.vkrt_lane_unsort.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+    for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
+               lib.vkrt_lane_sort, lib.vkrt_lane_unsort):
+        fn.restype = _I
     return lib
 
 

@@ -11,6 +11,13 @@ the engine's tiled ray order (16x32-pixel tiles, one 8x16 subtile per
 128-ray group), so frames and every intermediate compare element by
 element with the JAX engine. Dead rays park with tmax = 0.
 
+At depth >= 1 the shadow wavefront is reordered before kernel B and
+restored after it, as RenderConfig's defaults ask (consolidate_secondary,
+group_sort_shadows, partition_shadows): the live-ray pack (kernels C, D),
+the in-block lane sort (E, F) and the group partition. Blocked masks do
+not depend on the order, so every combination of the three flags gives
+the same frame.
+
 Only the dense backend is ported. RenderConfig flags that need machinery
 not yet ported raise NotImplementedError naming the ROADMAP.md item;
 none is silently ignored.
@@ -18,7 +25,6 @@ none is silently ignored.
 
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import NamedTuple
 
@@ -37,15 +43,13 @@ from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.shade.sampling import (sample_material,
                                            sample_material_compact)
 from vkrt_tpu_torch.utils import layout as L
+from vkrt_tpu_torch.wavefront import lanesort, pack, resort
 
 TILE_Y, TILE_X = 16, 32           # 512 pixels = one tile
 PIXEL_CENTER = (0.5, 0.5)         # sample offset inside each pixel
 
 # flag → the ROADMAP.md item that ports it (checked before any frame)
 _UNPORTED_FLAGS = {
-    "consolidate_secondary": "queue 1 item 7 (kernels C, D)",
-    "partition_shadows": "queue 1 item 7 (kernels E, F)",
-    "group_sort_shadows": "queue 1 item 7 (group partition)",
     "rebuild_per_frame": "queue 1 item 8 (per-frame accel update)",
     "mip_lod": "queue 1 item 4 (trilinear sampling, ray_diff_lod)",
     "resort_secondary": "queue 1 item 13 (not ported this round)",
@@ -64,16 +68,6 @@ def check_supported(cfg: C.RenderConfig) -> None:
         raise NotImplementedError(
             f"RenderConfig flags not ported to vkrt_tpu_torch yet — {items}. "
             "Turn them off (dataclasses.replace(cfg, flag=False)).")
-
-
-def ported_config(cfg: C.RenderConfig) -> C.RenderConfig:
-    """`cfg` with the output-neutral reorder flags that default on in
-    RenderConfig (consolidate_secondary, group_sort_shadows,
-    partition_shadows) turned off: the JAX package pins frames equal
-    with them on or off (tests/test_backends.py)."""
-    return dataclasses.replace(cfg, consolidate_secondary=False,
-                               group_sort_shadows=False,
-                               partition_shadows=False)
 
 
 class TextureArrays(NamedTuple):
@@ -156,9 +150,22 @@ def _pad_grid(g, wp, hp, value):
     return torch.nn.functional.pad(g, (0, wp - w, 0, hp - h), value=value)
 
 
+BLOCK = 512                       # rays per trace block (= TILE_Y*TILE_X)
+OCCL_BLOCK = 1024                 # rays per occlusion block where it divides
+
+
+def _occl_block(n_rays: int) -> int:
+    """Block of the depth>=1 shadow reorder: the JAX engine's occlusion
+    block (OCCL_BLOCK, else BLOCK), which sets the lane sort's blocks and
+    the packed prefix's cap."""
+    return OCCL_BLOCK if n_rays % OCCL_BLOCK == 0 else BLOCK
+
+
 class DenseBackend(NamedTuple):
-    """Cluster tree traced by kernels A and B."""
+    """Cluster tree traced by kernels A and B; `scene_aabb` f32[2,3]
+    (min, max of the scene's vertices) bounds the reorder's cell keys."""
     tree: object  # ClusterTree
+    scene_aabb: torch.Tensor
 
     def closest(self, o, d, tmax):
         t, slot, u, v, attrs = trace_dense(self.tree, o, d, tmax)
@@ -180,7 +187,9 @@ def make_backend(flat, kind: str, device) -> DenseBackend:
     e2 = flat.positions[idx[:, 2]] - v0
     tree = build_clusters(v0, e1, e2, attrs=scene_attrs(flat),
                           with_attributes=True, device=device)
-    return DenseBackend(tree=tree)
+    pos = np.asarray(flat.positions, dtype=np.float32)
+    aabb = torch.from_numpy(np.stack([pos.min(axis=0), pos.max(axis=0)]))
+    return DenseBackend(tree=tree, scene_aabb=aabb.to(device))
 
 
 def render_frame(backend, tex: TextureArrays, proj_inverse, view_inverse,
@@ -280,14 +289,10 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
         ndotls = [L.dot3(pn, g[0]) for g in geo]
         occs = [None] * nl
         if cfg.enable_shadows and nl > 0:
-            # all lights' shadow segments in ONE dispatch, traced from the
-            # light toward the surface; rays a hit does not cast park at 0
             casts = [hit & (nd > 0) for nd in ndotls]
             with record_function(f"trace_shadow_d{depth}"):
-                sd = torch.stack([-g[0] for g in geo])      # [L,3,Nb,128]
-                st = torch.stack([torch.where(c, g[1] - C.RAY_TMIN, 0.0)
-                                  for c, g in zip(casts, geo)])
-                occs = list(backend.occluded_multi(lights, sd, st))
+                occs = list(trace_shadows(backend, lights, pos, geo,
+                                          casts, cfg, depth))
             for c in casts:
                 dcount = dcount + c.to(torch.float32)
 
@@ -325,6 +330,125 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
         ray_count = ray_count + dcount.to(torch.int32)
 
     return accum, ray_count
+
+
+def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
+                  depth: int):
+    """Blocked masks bool[L,Nb,128] of all lights' shadow segments in ONE
+    kernel-B dispatch, traced from the light toward the surface point;
+    rays a hit does not cast (`casts`) park at tmax 0.
+
+    At depth >= 1 the wavefront is reordered before B and restored after
+    it (vkrt_tpu/wavefront/engine.py:550-701): with partition_shadows,
+    `partition_points` and `unpartition` (pack first when
+    consolidate_secondary is on); otherwise the group sort
+    (group_sort_shadows) and the pack of all 16 segment channels
+    (consolidate_secondary), each optional."""
+    nl = len(casts)
+    oblk = _occl_block(pos.shape[1] * L.LANES)
+    if cfg.partition_shadows and depth >= 1:
+        castmask = casts[0].to(torch.float32)
+        for s in range(1, nl):
+            castmask = castmask + casts[s].to(torch.float32) * float(1 << s)
+        pos_p, cmi, undo = partition_points(
+            pos, castmask, backend.scene_aabb, cfg.consolidate_secondary,
+            oblk)
+        # sd/st from the moved points: light_geometry is elementwise, so
+        # they are bit-equal to the moved precomputed arrays
+        sd, st = [], []
+        for li in range(nl):
+            ldir, ldist, _ = shading.light_geometry(pos_p, lights[li])
+            sd.append(-ldir)
+            st.append(torch.where(((cmi >> li) & 1) > 0,
+                                  ldist - C.RAY_TMIN, 0.0))
+        occ = backend.occluded_multi(lights, torch.stack(sd),
+                                     torch.stack(st))
+        return unpartition(occ, undo)
+
+    sd = torch.stack([-g[0] for g in geo])                  # [L,3,Nb,128]
+    st = torch.stack([torch.where(c, g[1] - C.RAY_TMIN, 0.0)
+                      for c, g in zip(casts, geo)])         # [L,Nb,128]
+    gsort = cfg.group_sort_shadows and depth >= 1
+    cons = cfg.consolidate_secondary and depth >= 1
+    if gsort:
+        gperm = resort.radix_partition_perm(
+            resort.group_cell_key(pos, (st > 0).any(dim=0),
+                                  backend.scene_aabb))
+        sd = resort.permute_groups(sd, gperm)
+        st = resort.permute_groups(st, gperm)
+    if cons:
+        grank = pack.consolidate_plan((st > 0).any(dim=0))
+        nb = st.shape[1]
+        pk = pack.consolidate(
+            torch.cat([sd.reshape(3 * nl, nb, L.LANES), st]), grank)
+        sd = pk[:3 * nl].reshape(nl, 3, nb, L.LANES)
+        st = pk[3 * nl:]
+    occ = backend.occluded_multi(lights, sd, st)
+    if cons:
+        occ = pack.scatter_back(occ.to(torch.float32), grank) > 0.5
+    if gsort:
+        occ = resort.permute_groups(occ, resort.inverse_permutation(gperm))
+    return occ
+
+
+class Undo(NamedTuple):
+    """What `unpartition` needs to restore the original ray order."""
+    grank: torch.Tensor | None  # pack's live ranks (None: no pack)
+    rank: torch.Tensor          # lane sort's ranks of the first capr rows
+    ginv: torch.Tensor          # inverse group permutation
+    block: int                  # lane sort block
+
+
+def partition_points(pos, castmask, scene_aabb, pack_first: bool,
+                     block: int):
+    """The depth>=1 shadow repartition (vkrt_tpu/wavefront/engine.py
+    :588-639): optionally pack the live rays (castmask > 0) to the front
+    (kernel C), stable-sort each block's lanes by the fine surface-point
+    cell (kernel E) — after a pack only the leading quarter of the rows,
+    once there are 8 blocks or more — then sort whole 128-lane groups by
+    their mean live cell. Only the point and the cast bitmask move.
+
+    pos f32[3,Nb,128], castmask f32[Nb,128] (bit s: light s casts).
+    Returns (moved points f32[3,Nb,128], moved bitmask i32[Nb,128],
+    Undo)."""
+    x = torch.cat([pos, castmask[None]])                    # [4,Nb,128]
+    grank = None
+    if pack_first:
+        grank = pack.consolidate_plan(castmask > 0)
+        x = pack.consolidate(x, grank)
+    nb = x.shape[1]
+    rpb = block // L.LANES
+    capr = nb
+    if pack_first and nb // rpb >= 8:
+        # the pack left every live ray in the leading rows; the tail
+        # beyond the cap passes through unsorted
+        capr = -(-(nb // rpb) // 4) * rpb
+    head = x[:, :capr].contiguous()
+    key = lanesort.cell_key_fine(head[:3], head[3] > 0, scene_aabb)
+    srt, rank = lanesort.lane_sort(head, key, block=block)
+    if capr < nb:
+        srt = torch.cat([srt, x[:, capr:]], dim=1)
+    gperm = resort.radix_partition_perm(
+        resort.group_cell_key(srt[:3], srt[3] > 0, scene_aabb))
+    srt = resort.permute_groups(srt, gperm)
+    return (srt[:3], srt[3].to(torch.int32),
+            Undo(grank, rank, resort.inverse_permutation(gperm), block))
+
+
+def unpartition(occ, undo: Undo):
+    """Blocked masks bool[L,Nb,128] of `partition_points`' order → the
+    original ray order (vkrt_tpu/wavefront/engine.py:684-697): inverse
+    group permutation, lane unsort of the first capr rows (kernel F),
+    scatter back from the pack (kernel D)."""
+    occ_f = resort.permute_groups(occ.to(torch.float32), undo.ginv)
+    capr = undo.rank.shape[0]
+    inv = lanesort.lane_unsort(occ_f[:, :capr].contiguous(), undo.rank,
+                               block=undo.block)
+    if capr < occ_f.shape[1]:
+        inv = torch.cat([inv, occ_f[:, capr:]], dim=1)
+    if undo.grank is not None:
+        inv = pack.scatter_back(inv, undo.grank)
+    return inv > 0.5
 
 
 class Renderer:

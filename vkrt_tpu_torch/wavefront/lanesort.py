@@ -1,0 +1,133 @@
+"""Block-local stable per-ray sort — counterpart of
+vkrt_tpu/wavefront/lanesort.py.
+
+Inside each block of R lanes (one trace block, R = 512 or 1024), rays
+re-order by a stable ascending sort of an integer key; `lane_unsort`
+returns per-ray results to the original lane order. Sorting the packed
+depth-1 shadow prefix by a fine surface-point cell makes every 128-lane
+group key-contiguous, so the group partition after it (resort.py) sees
+meaningful group keys.
+
+`lane_sort` is kernel E's wrapper and `lane_unsort` kernel F's
+(csrc/lanesort.cu). On a CUDA tensor each launches its kernel or raises;
+on a CPU tensor it runs its plain PyTorch version. Both move f32 values
+without arithmetic, so kernel and plain version agree bit for bit.
+
+Keys and ranks are int32 here (the JAX package carries them as f32,
+exact below 2**24). Not ported: `dir_cell_key_fine`, which only
+`partition_closest` uses (ROADMAP.md queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from vkrt_tpu_torch import kernels
+from vkrt_tpu_torch.utils.layout import LANES
+from vkrt_tpu_torch.wavefront.pack import _check as _check_layout
+CELL_BITS = 6          # bits per axis of cell_key_fine (the engine's only use)
+
+
+def cell_key_fine(p, live, scene_aabb):
+    """Per-ray Morton cell of a surface point at CELL_BITS bits per axis;
+    dead rays get the max key 2**18 (they sort to each block's tail).
+    p [3,Nb,128], live bool[Nb,128], scene_aabb f32[2,3] → i32[Nb,128].
+    The same f32 operations in the same order as the JAX function, so
+    the keys are bit-equal."""
+    nbins = (1 << CELL_BITS) - 1
+    lo = scene_aabb[0]
+    span = torch.clamp(scene_aabb[1] - scene_aabb[0], min=1e-6)
+    key = torch.zeros(p.shape[1:], dtype=torch.int32, device=p.device)
+    for a in range(3):
+        q = torch.clamp((p[a] - lo[a]) / span[a] * (nbins + 1),
+                        0.0, float(nbins)).to(torch.int32)
+        for b in range(CELL_BITS):
+            key = key | (((q >> b) & 1) << (3 * b + a))
+    return torch.where(live, key, 1 << (3 * CELL_BITS))
+
+
+def _check(name, x, idx, block, dev):
+    _check_layout(name, x, idx, dev)
+    if block % LANES or not LANES <= block <= 1024 or idx.numel() % block:
+        raise ValueError(f"{name}: block {block} must be a multiple of "
+                         f"{LANES} in [{LANES}, 1024] dividing "
+                         f"{idx.numel()} rays")
+
+
+def lane_sort_plain(x, key, block: int):
+    """Plain PyTorch version of kernel E: a stable sort of each block's
+    keys (a [nbk, block] view), channels gathered in that order."""
+    c = x.shape[0]
+    perm = torch.sort(key.reshape(-1, block), dim=1, stable=True).indices
+    xs = x.reshape(c, -1, block).gather(2, perm.expand(c, -1, -1))
+    rank = torch.empty_like(perm)
+    rank.scatter_(1, perm, torch.arange(block, device=key.device)
+                  .expand_as(perm).contiguous())
+    return xs.reshape(x.shape), rank.to(torch.int32).reshape(key.shape)
+
+
+def lane_sort(x, key, *, block: int):
+    """Stable in-block sort of lane-major channels by an integer key.
+
+    x f32[C,Nb,128], key i32[Nb,128] with values below 2**24 (larger keys
+    are the caller's fault: the JAX package's f32 keys are exact only
+    below that). Returns (sorted f32[C,Nb,128], rank i32[Nb,128]): rank[j]
+    is the position in its block that lane j moved to, in ORIGINAL lane
+    order — `lane_unsort` inverts with it. A CUDA tensor launches kernel E
+    and counts it in `lane_sort.launches`; a CPU tensor runs
+    `lane_sort_plain`."""
+    dev = x.device
+    if dev.type == "cpu":
+        return lane_sort_plain(x, key, block)
+    if dev.type != "cuda":
+        raise ValueError(f"lane_sort: unsupported device {dev}")
+    _check("lane_sort", x, key, block, dev)
+    out = torch.empty_like(x)
+    rank = torch.empty_like(key)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vkrt_lane_sort(x.data_ptr(), key.data_ptr(), x.shape[0],
+                                 key.numel(), block, out.data_ptr(),
+                                 rank.data_ptr(), stream)
+    kernels.check(err, "lane_sort")
+    lane_sort.launches += 1
+    return out, rank
+
+
+lane_sort.launches = 0
+
+
+def lane_unsort_plain(res, rank, block: int):
+    """Plain PyTorch version of kernel F: a gather in each block."""
+    s = res.shape[0]
+    r = rank.reshape(1, -1, block).long().expand(s, -1, -1)
+    return res.reshape(s, -1, block).gather(2, r).reshape(res.shape)
+
+
+def lane_unsort(res, rank, *, block: int):
+    """Invert `lane_sort` on per-ray results of the sorted dispatch:
+    res f32[S,Nb,128] in sorted order, rank from `lane_sort` →
+    f32[S,Nb,128] in original order, out[s, j] = res[s, base + rank[j]]
+    with base the first lane of j's block. A CUDA tensor launches kernel
+    F and counts it in `lane_unsort.launches`; a CPU tensor runs
+    `lane_unsort_plain`."""
+    dev = res.device
+    if dev.type == "cpu":
+        return lane_unsort_plain(res, rank, block)
+    if dev.type != "cuda":
+        raise ValueError(f"lane_unsort: unsupported device {dev}")
+    _check("lane_unsort", res, rank, block, dev)
+    out = torch.empty_like(res)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vkrt_lane_unsort(res.data_ptr(), rank.data_ptr(),
+                                   res.shape[0], rank.numel(), block,
+                                   out.data_ptr(), stream)
+    kernels.check(err, "lane_unsort")
+    lane_unsort.launches += 1
+    return out
+
+
+lane_unsort.launches = 0
