@@ -4,7 +4,7 @@
 
 Phases, in order; any failure raises and the run exits non-zero:
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A-F from vkrt_tpu_torch/csrc/ into one
+  2. build    compile kernels A-G from vkrt_tpu_torch/csrc/ into one
               library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked)
@@ -16,25 +16,45 @@ Phases, in order; any failure raises and the run exits non-zero:
               1024; bit-equal, dead tail 0
   6. frame    a 64x48 config-4 frame of the small scene at the shipped
               defaults vs the numpy brute-force oracle
-              (vkrt_tpu.golden.cpu_tracer)
+              (vkrt_tpu_torch.golden.cpu_tracer)
   7. main     Renderer.render_async → render_frame_u8 at config 4's
               shipped defaults (the depth>=1 shadow reorder on),
               1920x1080, full procedural scene (262,267 triangles): one
-              warm-up frame, then 8 timed frames along the fly-through
-              camera path; exactly A 2, B 2, C 1, D 1, E 1, F 1 launches
-              per frame
+              warm-up frame, then N_FRAMES timed frames along the
+              fly-through camera path; exactly A 2, B 2, C 1, D 1, E 1,
+              F 1 launches per frame
   8. flags off  the same frames with the three reorder flags off (the
               path before C-F): A 2, B 2 and no C-F launches per frame;
               its u8 frames and ray counts must equal phase 7's bit for bit
   9. shapes   kernels A-F vs their plain versions on the inputs one
-              main-path frame gives them (recorded from the engine), and
-              their times there
+              main-path frame gives them (recorded from the engine), their
+              times there, the bounds of that work and the nearest
+              PyTorch library call where there is one
   then   two profiled main-path frames, then two flags-off frames (device
          time per engine range, busy share, top kernels)
+ 10. kernel G vs its plain version on probes: the full and the small
+              procedural scene, from the start pose and close to a wall
+              (sheets behind the camera: full-screen boxes), at three
+              sample offsets, with random and parked depth floors, then a
+              continuation round behind every hit
+ 11. raster   64x48 raster frames of the small scene vs the raster oracle
+              (vkrt_tpu_torch.golden.raster_oracle): edge method at msaa 1
+              and 8 under the flip gate, ray-cast method at msaa 1 by RMSE
+ 12. raster main  Rasterizer(full scene, reference_config() = 1600x1200,
+              "cuda", msaa=8): one warm-up frame, then RASTER_FRAMES timed
+              frames along the fly-through path; exactly 32 launches of G
+              and none of A-F per frame; then two profiled frames (device
+              time per raster range) and one ray-cast frame on the first
+              camera, which may differ from the edge frame on at most 1%
+              of the pixels
+ 13. G shapes kernel G's inputs recorded from one raster frame: kernel vs
+              plain on sample 0, rounds 0 and 1; the kernel's time over
+              all 32 calls, the plain version's on sample 0's 4 calls, and
+              the bound of each
 Then the card's nvidia-smi name and power limit, one JSON line with each
-kernel's launches in phase 7, its largest error in phases 3-5 and 9 and
-its phase-9 times per frame, and, as the last line,
-{"ok": true, "device": {...}}.
+kernel's launches on its main path (phase 7 for A-F, phase 12 for G), its
+largest error, its time per frame and the bound of that work, and, as the
+last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -50,15 +70,20 @@ import types
 import numpy as np
 import torch
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.flythrough import camera_path
-from vkrt_tpu.app.framebuffer import rmse
-from vkrt_tpu.golden.cpu_tracer import render_golden
-from vkrt_tpu.scene import build_texture_heap
+from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import kernels, runtime
-from vkrt_tpu_torch.rt.dense import trace_dense, trace_dense_plain
+from vkrt_tpu_torch.accel.clusters import K2
+from vkrt_tpu_torch.app.camera import Camera
+from vkrt_tpu_torch.app.flythrough import camera_path
+from vkrt_tpu_torch.app.framebuffer import rmse
+from vkrt_tpu_torch.golden.cpu_tracer import render_golden
+from vkrt_tpu_torch.golden.raster_oracle import render_golden_raster
+from vkrt_tpu_torch.raster import edge
+from vkrt_tpu_torch.raster import pipeline as rp
+from vkrt_tpu_torch.rt.dense import (gated_pairs, trace_dense,
+                                     trace_dense_plain)
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
+from vkrt_tpu_torch.scene import build_texture_heap
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.utils import layout as L
@@ -68,6 +93,7 @@ from vkrt_tpu_torch.wavefront.engine import (Renderer, camera_ray_blocks,
 
 SEED = 0
 N_FRAMES = 8
+RASTER_FRAMES = 4
 PROFILE_FRAMES = 2
 HIT_AGREE = 0.999        # kernel A vs plain: hit masks
 SLOT_AGREE = 0.999       # kernel A vs plain: slots (t, u, v, attrs
@@ -76,12 +102,16 @@ BLOCK_AGREE = 0.9999     # kernel B vs plain: blocked masks
 T_RTOL = 1e-5            # kernel A vs plain: t where both hit
 GOLDEN_RMSE = 1e-3       # frame vs oracle (BASELINE.json bar)
                          # C-F vs plain: equal (they move values, no math)
+FLIP = 0.02              # raster frames: a pixel "flips" if a channel
+FLIP_SHARE = 0.01        # differs by more; at most this share may flip
+G_AGREE = 0.999          # kernel G vs plain: hit masks and slots (z, u,
+                         # v, mat bit-equal wherever the slots agree)
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
 # kernel → wrapper whose `launches` counts its launches
 COUNTED = {"A": trace_dense, "B": occluded_multi, "C": pack.consolidate,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
-           "F": lanesort.lane_unsort}
+           "F": lanesort.lane_unsort, "G": edge.raster_edge}
 PLAIN = {"C": pack.consolidate_plain, "D": pack.scatter_back_plain,
          "E": lanesort.lane_sort_plain, "F": lanesort.lane_unsort_plain}
 
@@ -339,12 +369,119 @@ class RecordingBackend:
         return self.inner.occluded_multi(light_pts, sd, st)
 
 
+# --- bounds: the least time the card could take for a kernel's work ----
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+OPS_A = 46    # kernel A per (ray, triangle): Möller–Trumbore terms 41,
+              # 1/det, u, v, t products, u + v
+OPS_B = 47    # kernel B per (segment, triangle): terms 41, three sign
+              # products, su + sv, two interval products
+OPS_G = 19    # kernel G per (pixel, triangle): three rows a*px + b*py + c
+              # (12), their sum (2), the depth sum(beta_i * Z_i) (5)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The larger of bytes over the memory rate and operations over the
+    f32 rate, and which one binds."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes": float(nbytes), "ops": float(ops)}
+
+
+def add_bounds(rows) -> dict:
+    nbytes = sum(r["bytes"] for r in rows)
+    ops = sum(r["ops"] for r in rows)
+    return bound(nbytes, ops)
+
+
+def live_tris(rows) -> torch.Tensor:
+    """Triangles with a non-zero geometry row, per cluster: [C1p] int64."""
+    return (rows[..., :9] != 0).any(-1).sum(dim=1)
+
+
+def tree_bytes(tree, cols: int) -> int:
+    """Bytes of the tree a trace needs once: `cols` columns of every live
+    triangle row, and the boxes."""
+    return (int(live_tris(tree.tri_data).sum()) * cols * 4
+            + (tree.sc_boxes.numel() + tree.cl_boxes.numel()) * 4)
+
+
+def trace_pairs(tree, o, d, t_end, ntri) -> int:
+    """(ray, triangle) pairs whose segment [TMIN, t_end] enters the
+    triangle's cluster and supercluster boxes. o, d [3,N], t_end [N]."""
+    return sum(int(ntri[cl].sum()) for _, cl in gated_pairs(tree, o, d,
+                                                            t_end))
+
+
+def closest_bound(tree, o, d, tm, t, ntri) -> dict:
+    """Kernel A's work on one call: rays and outputs once, the tree's 36
+    attribute columns once, OPS_A per (ray, triangle) pair up to the
+    final hit (to tmax on a miss)."""
+    n = tm.numel()
+    t_end = torch.where(torch.isfinite(t), t, tm).reshape(n)
+    pairs = trace_pairs(tree, o.reshape(3, n), d.reshape(3, n), t_end, ntri)
+    return bound(n * 4 * (3 + 3 + 1) + n * 4 * (4 + 36)
+                 + tree_bytes(tree, 36), pairs * OPS_A)
+
+
+def occl_bound(tree, lp, sd, st, ntri) -> dict:
+    """Kernel B's work on one call: segments and masks once, the tree's
+    9 geometry columns once, OPS_B per (segment, triangle) pair up to the
+    segment's nearest blocker (found with kernel A; its end if none)."""
+    ns, _, nb, lanes = sd.shape
+    n = nb * lanes
+    pairs = 0
+    for s in range(ns):
+        o = lp[s][:, None, None].expand(3, nb, lanes).contiguous()
+        t = trace_dense(tree, o, sd[s].contiguous(), st[s])[0]
+        t_end = torch.minimum(t, st[s]).reshape(n)
+        pairs += trace_pairs(tree, o.reshape(3, n), sd[s].reshape(3, n),
+                             t_end, ntri)
+    return bound(ns * 12 + ns * n * 4 * 4 + ns * n + tree_bytes(tree, 9),
+                 pairs * OPS_B)
+
+
+def move_bound(k: str, args, kw) -> dict:
+    """Kernels C-F move values: each input and output once. E also does
+    `block` integer compares per ray (its rank count), counted at the f32
+    rate."""
+    x, idx = args
+    out = x.numel() * 4
+    nbytes = x.numel() * 4 + idx.numel() * 4 + out
+    ops = 0
+    if k == "E":
+        nbytes += idx.numel() * 4                     # the ranks it writes
+        ops = idx.numel() * kw["block"]
+    return bound(nbytes, ops)
+
+
+def library_move(k: str, args, kw):
+    """The one PyTorch call nearest each move kernel, or None: E is
+    torch.sort(stable=True) of the block-shaped keys, F torch.gather on
+    the block-shaped layout; C and D need a scatter or gather plus a
+    mask, no single call."""
+    if k == "E":
+        x, key = args
+        keys = key.reshape(-1, kw["block"])
+        return lambda: torch.sort(keys, dim=1, stable=True)
+    if k == "F":
+        res, rank = args
+        blk = kw["block"]
+        r3 = res.reshape(res.shape[0], -1, blk)
+        idx = rank.reshape(1, -1, blk).long().expand(res.shape[0], -1, -1)
+        return lambda: torch.gather(r3, 2, idx)
+    return None
+
+
 def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
     """Phase 9: record the inputs kernels A-F get in one main-path frame,
     hold each kernel against its plain version on them, and time both
-    there (kernel: mean of 5 after a warm-up; plain: one run). Also
-    reports the depth-1 shadow wavefront's live share and how much of it
-    the lane sort's capped prefix covers."""
+    there (kernel: mean of 5 after a warm-up; plain: one run), with the
+    bound of that work and, for E and F, the nearest library call (mean
+    of 5). Also reports the depth-1 shadow wavefront's live share and how
+    much of it the lane sort's capped prefix covers."""
     rec = RecordingBackend(renderer.backend)
     pi = torch.as_tensor(cam.proj_inverse, device=renderer.device)
     vi = torch.as_tensor(cam.view_inverse, device=renderer.device)
@@ -353,12 +490,15 @@ def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
                         renderer.cfg)
         torch.cuda.synchronize()
     tree = renderer.backend.tree
-    res = {k: [] for k in COUNTED}
+    ntri = live_tris(tree.tri_data)
+    res = {k: [] for k in COUNTED if k != "G"}
     for depth, (o, d, tm) in enumerate(rec.closest_in):
         r = compare_closest(tree, o, d, tm, f" (main path, depth {depth})")
         r["ms"] = cuda_ms(lambda: trace_dense(tree, o, d, tm), 5)
         r["plain_ms"] = cuda_ms(lambda: trace_dense_plain(tree, o, d, tm),
                                 1, warmup=False)
+        r.update(closest_bound(tree, o, d, tm,
+                               trace_dense(tree, o, d, tm)[0], ntri))
         res["A"].append(r)
     for depth, (lp, sd, st) in enumerate(rec.occl_in):
         r = compare_occl(tree, lp, sd, st, near=False,
@@ -366,6 +506,7 @@ def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
         r["ms"] = cuda_ms(lambda: occluded_multi(tree, lp, sd, st), 5)
         r["plain_ms"] = cuda_ms(
             lambda: occluded_multi_plain(tree, lp, sd, st), 1, warmup=False)
+        r.update(occl_bound(tree, lp, sd, st, ntri))
         res["B"].append(r)
     for k, calls in moves.inputs.items():
         if len(calls) != 1:
@@ -377,6 +518,9 @@ def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
         r["ms"] = cuda_ms(lambda: COUNTED[k](*args, **kw), 5)
         r["plain_ms"] = cuda_ms(lambda: PLAIN[k](*args, **kw), 1,
                                 warmup=False)
+        lib_call = library_move(k, args, kw)
+        r["library_ms"] = cuda_ms(lib_call, 5) if lib_call else None
+        r.update(move_bound(k, args, kw))
         log(f"  kernel {k} vs plain (main path, depth 1):", json.dumps(r))
         res[k].append(r)
     grank = moves.inputs["C"][0][0][1]
@@ -389,8 +533,9 @@ def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
     log("  depth-1 shadow wavefront:", json.dumps(share))
     for k, rows in res.items():
         log(f"  {k} per call: " + "; ".join(
-            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms"
-            for r in rows))
+            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']:.4g} B, "
+            f"{r['ops']:.4g} ops)" for r in rows))
     want = renderer.cfg.max_depth
     if len(res["A"]) != want or len(res["B"]) != want:
         raise AssertionError(f"recorded {len(res['A'])} A and {len(res['B'])}"
@@ -484,12 +629,18 @@ def same_frames(outs, want) -> None:
                              f"frames: pixels {diff}, rays {rays}")
 
 
-def profile_frames(renderer: Renderer, cam: Camera, label: str) -> dict:
-    """PROFILE_FRAMES frames of `renderer` enqueued back to back under
-    torch.profiler: device time per engine range (record_function in
-    wavefront/engine.py) and outside them, per frame; the device's busy
-    share of the wall clock from the first enqueue to the last result;
-    the top device kernels."""
+ENGINE_RANGES = ("trace_closest_d", "sample_d", "trace_shadow_d")
+RASTER_RANGES = ("raster_setup", "raster_edge_s", "raster_sample")
+
+
+def profile_frames(renderer, cam: Camera, label: str,
+                   names=ENGINE_RANGES) -> dict:
+    """PROFILE_FRAMES frames of `renderer` (a Renderer or a Rasterizer)
+    enqueued back to back under torch.profiler: device time per range
+    whose name starts with one of `names` (record_function in
+    wavefront/engine.py and raster/pipeline.py) and outside them, per
+    frame; the device's busy share of the wall clock from the first
+    enqueue to the last result; the top device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     n = PROFILE_FRAMES
@@ -503,7 +654,6 @@ def profile_frames(renderer: Renderer, cam: Camera, label: str) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ev = prof.key_averages()
-    names = ("trace_closest_d", "sample_d", "trace_shadow_d")
     ranges = {e.key: e.device_time_total / 1e3 / n for e in ev
               if e.key.startswith(names)}
     # device events, less the ranges' own annotations (not kernels)
@@ -519,6 +669,317 @@ def profile_frames(renderer: Renderer, cam: Camera, label: str) -> dict:
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / n:9.3f} ms/frame "
             f"x{e.count:<4d} {e.key[:90]}")
+    return res
+
+
+def compare_raster(setup, scb, clb, px, py, zf, label: str = "") -> dict:
+    """Kernel G vs its plain version on the same inputs: hit masks and
+    slots agree on at least G_AGREE of the pixels, and z, slot, u, v and
+    mat are bit-equal on every pixel whose slots agree (misses: inf, -1,
+    0, 0, 0). Returns the comparison (with the plain version's time) and
+    the kernel's outputs."""
+    got = edge.raster_edge(setup, scb, clb, px, py, zf)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = edge.raster_edge_plain(setup, scb, clb, px, py, zf)
+    end.record()
+    torch.cuda.synchronize()
+    kh, ph = got[1] >= 0, want[1] >= 0
+    same = got[1] == want[1]
+    hs = same & kh
+    equal = {k: bool(torch.equal(a[same], b[same]))
+             for k, a, b in zip(("z", "slot", "u", "v", "mat"), got, want)}
+    err = max(((a - b)[hs].abs().max().item() if hs.any() else 0.0)
+              for a, b in zip(got, want))
+    out = dict(pixels=px.numel(), live_frac=(zf < edge.ZFAR_PARK).float()
+               .mean().item(), hit_frac=kh.float().mean().item(),
+               hit_agree=(kh == ph).float().mean().item(),
+               slot_agree=same.float().mean().item(),
+               slots_differ=int((~same).sum().item()),
+               bit_equal_where_slots_agree=equal, max_abs_err=err,
+               plain_ms=start.elapsed_time(end))
+    log(f"  kernel G vs plain{label}:", json.dumps(out))
+    if (out["hit_agree"] < G_AGREE or out["slot_agree"] < G_AGREE
+            or not all(equal.values())):
+        raise AssertionError(f"kernel G disagrees with its plain version: "
+                             f"{out}")
+    return out, got
+
+
+def wall_camera(width: int, height: int) -> Camera:
+    """A pose close to the z- wall, looking along it: sheets pass behind
+    the camera, so clusters get full-screen boxes."""
+    cam = Camera(width, height)
+    cam.set_position((2.0, 3.0, -10.2))
+    cam.set_rotation((0.0, 3.0, 0.0))
+    return cam
+
+
+def probe_raster(dev, scenes) -> float:
+    """Phase 10: kernel G vs its plain version on probes. For each scene
+    (name, tree, width, height): the start pose and a pose by a wall, at
+    the pixel centre and two MSAA offsets, with depth floors 0 (60%),
+    random in [0.9, 1) (25%) and parked (15%, and the tile padding), then
+    a continuation round with the floor at every hit's depth. Returns the
+    largest error."""
+    rng = np.random.default_rng(SEED)
+    err, n = 0.0, 0
+    for name, tree, w, h in scenes:
+        cfg = dataclasses.replace(C.reference_config(), width=w, height=h)
+        for pose, cam in (("start", start_camera(w, h)),
+                          ("wall", wall_camera(w, h))):
+            setup, scb, clb = edge.build_raster_setup(
+                tree, torch.as_tensor(cam.view_matrix, device=dev),
+                torch.as_tensor(cam.projection_matrix, device=dev), w, h)
+            if not bool((clb[:, 0] == -1e8).any()):
+                raise AssertionError(f"{name} {pose}: no full-screen box")
+            for off in ((0.5, 0.5), tuple(rp.MSAA8[0]), tuple(rp.MSAA8[5])):
+                px, py, inside = rp.sample_pixel_lanes(cfg, off, dev)
+                r = rng.random(px.shape)
+                zf = np.where(r < 0.6, 0.0, np.where(
+                    r < 0.85, rng.uniform(0.9, 1.0, px.shape), 1e9))
+                zf = torch.where(inside, torch.as_tensor(
+                    zf.astype(np.float32), device=dev), edge.ZFAR_PARK)
+                label = f" ({name} {w}x{h}, {pose}, offset {off}"
+                out, got = compare_raster(setup, scb, clb, px, py, zf,
+                                          label + ", round 0)")
+                err = max(err, out["max_abs_err"])
+                zf = torch.where(got[1] >= 0, got[0], edge.ZFAR_PARK)
+                out, _ = compare_raster(setup, scb, clb, px, py, zf,
+                                        label + ", behind every hit)")
+                err = max(err, out["max_abs_err"])
+                n += 2
+    log(f"  G vs plain on probes: {n} cases agree; max abs err {err}")
+    return err
+
+
+def raster_frames_vs_oracle(dev) -> None:
+    """Phase 11: the small scene at 64x48, port on `dev` vs the numpy
+    raster oracle: the edge method at msaa 1 and 8 under the flip gate
+    (at most FLIP_SHARE of the pixels differ by more than FLIP, the rest
+    by at most FLIP), the ray-cast method at msaa 1 by RMSE."""
+    model = procedural_model("small", seed=SEED)
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    cam = start_camera(64, 48)
+    heap = build_texture_heap(model.images)
+    rast = rp.Rasterizer(model, cfg, dev, msaa=1)
+    for method, msaa in (("edge", 1), ("edge", 8), ("wavefront", 1)):
+        rast.method, rast.msaa = method, msaa
+        fb = rast.render(cam, show_fps=False)
+        want = render_golden_raster(rast.flat, heap, cam.proj_inverse,
+                                    cam.view_inverse, cfg, msaa=msaa)
+        d = np.abs(fb - want).max(axis=-1)
+        flipped = d > FLIP
+        out = dict(method=method, msaa=msaa, flip_share=float(flipped.mean()),
+                   max_other=float(d[~flipped].max()), rmse=rmse(fb, want),
+                   finite=bool(np.isfinite(fb).all()))
+        log("  64x48 raster frame vs oracle:", json.dumps(out))
+        ok = out["finite"] and fb.shape == (48, 64, 3)
+        if method == "edge":
+            ok = ok and (out["flip_share"] <= FLIP_SHARE
+                         and out["max_other"] <= FLIP)
+        else:
+            ok = ok and out["rmse"] <= GOLDEN_RMSE
+        if not ok:
+            raise AssertionError(f"raster frame vs oracle failed: {out}")
+
+
+def drive_raster(rast, cams) -> tuple:
+    """Phase 12: a warm-up frame on cams[0], then one timed frame per
+    further camera, enqueued back to back (CUDA events between frames).
+    Every launch count is set to 0 just before and read just after: G
+    must have 32 launches per frame and A-F none. Returns (results, the
+    first frame)."""
+    n = len(cams) - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in COUNTED.values():
+        f.launches = 0
+    wall0 = time.perf_counter()
+    first = rast.render_async(cams[0])
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - wall0
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    outs = []
+    wall1 = time.perf_counter()
+    events[0].record()
+    for k in range(n):
+        outs.append(rast.render_async(cams[k + 1]))
+        events[k + 1].record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - wall1
+    launches = {k: f.launches for k, f in COUNTED.items()}
+    frame_ms = [events[k].elapsed_time(events[k + 1]) for k in range(n)]
+    res = dict(frames=n, warmup_s=warm_s, frame_ms=float(np.mean(frame_ms)),
+               frame_ms_each=frame_ms, wall_ms_per_frame=wall_s * 1e3 / n,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches=launches)
+    want = {k: 0 for k in COUNTED}
+    want["G"] = 32 * (n + 1)
+    if launches != want:
+        raise AssertionError(f"raster main path: expected launches {want}, "
+                             f"got {launches}")
+    cam0 = cams[0]
+    setup_ms = cuda_ms(lambda: edge.build_raster_setup(
+        rast.backend.tree,
+        torch.as_tensor(cam0.view_matrix, device=rast.device),
+        torch.as_tensor(cam0.projection_matrix, device=rast.device),
+        rast.cfg.width, rast.cfg.height), 5)
+    res.update(setup_ms=setup_ms, setup_share=setup_ms / res["frame_ms"])
+    log("  raster main path:", json.dumps(res))
+    for fb in [first] + outs:
+        if fb.shape != (rast.cfg.height, rast.cfg.width, 3):
+            raise AssertionError(f"raster frame shape {tuple(fb.shape)}")
+        if not bool(torch.isfinite(fb).all()):
+            raise AssertionError("raster frame is not finite")
+        if fb.std().item() < 0.01:
+            raise AssertionError("raster frame is flat")
+    return res, first
+
+
+def wavefront_vs_edge(rast, cam, edge_fb) -> float:
+    """The ray-cast raster method (kernel A) on the first camera against
+    the edge frame: at most FLIP_SHARE of the pixels may flip."""
+    wf = copy.copy(rast)
+    wf.method = "wavefront"
+    fb = wf.render_async(cam)
+    d = (fb - edge_fb).abs().amax(dim=-1)
+    share = (d > FLIP).float().mean().item()
+    log(f"  ray-cast vs edge raster frame ({rast.cfg.width}x"
+        f"{rast.cfg.height}, msaa {rast.msaa}): flip share {share:.5f} "
+        f"(bar {FLIP_SHARE})")
+    if share > FLIP_SHARE:
+        raise AssertionError(f"ray-cast raster frame flips {share} of the "
+                             f"edge frame's pixels")
+    return share
+
+
+class RecordingRaster:
+    """While active, the raster pipeline's calls of kernel G go through a
+    wrapper that keeps a copy of their inputs (the pipeline module's
+    `raster_edge` name is swapped; the launch count is untouched)."""
+
+    def __enter__(self):
+        self.saved = rp.raster_edge
+        self.calls = []
+
+        def call(*args):
+            self.calls.append(tuple(a.clone() for a in args))
+            return self.saved(*args)
+
+        rp.raster_edge = call
+        return self
+
+    def __exit__(self, *exc):
+        rp.raster_edge = self.saved
+
+
+def raster_pairs(clb, px, py, zf, z_out, ntri) -> int:
+    """(pixel, triangle) pairs kernel G's inputs need: the live triangles
+    of the clusters whose padded box holds the pixel and whose zmin is
+    below the pixel's final depth (1e9 where nothing was hit); parked
+    pixels need none."""
+    n_cl = clb.shape[0] * K2
+    box = clb.permute(1, 0, 2).reshape(8, n_cl)
+    live = torch.nonzero(zf.reshape(-1) < edge.ZFAR_PARK, as_tuple=True)[0]
+    x, y = px.reshape(-1)[live], py.reshape(-1)[live]
+    zend = torch.where(torch.isfinite(z_out), z_out, edge.ZFAR_PARK)
+    zend = zend.reshape(-1)[live]
+    total = 0
+    for r0 in range(0, live.numel(), edge.PIX_CHUNK):
+        r1 = r0 + edge.PIX_CHUNK
+        g = (edge.box_gate(box[0], box[1], box[3], box[4], x[r0:r1],
+                           y[r0:r1])
+             & (box[2][None] < zend[r0:r1, None]))
+        total += int((g.sum(dim=0) * ntri).sum())
+    return total
+
+
+def raster_bound(setup, scb, clb, px, py, zf, z_out, behind) -> dict:
+    """Kernel G's work on one call: the 19 used setup columns of every
+    live triangle and the boxes once, pixels in (3 x 4 B) and out
+    (5 x 4 B) once, OPS_G per needed (pixel, triangle) pair. The clusters
+    of `behind` need neither bytes nor operations."""
+    ntri = torch.where(behind, 0, live_tris(setup))
+    nbytes = (int(ntri.sum()) * edge.N_SETUP * 4
+              + (scb.numel() + clb.numel()) * 4 + px.numel() * 4 * (3 + 5))
+    return bound(nbytes, raster_pairs(clb, px, py, zf, z_out, ntri) * OPS_G)
+
+
+def behind_camera(rast, cam) -> torch.Tensor:
+    """Clusters every triangle of which has all three corners at w <= 0
+    (bool [C1p]): no such triangle covers a pixel (its edge functions
+    cannot all be >= 0 where sum_i beta_i w_i = 1), yet any corner at
+    w <= 1e-9 gives the cluster a full-screen box."""
+    td = rast.backend.tree.tri_data
+    wrow = (torch.as_tensor(cam.projection_matrix, device=rast.device).double()
+            @ torch.as_tensor(cam.view_matrix, device=rast.device).double())[3]
+    v0 = td[..., 0:3].double()
+    live = (td[..., 0:9] != 0).any(-1)
+    behind = live
+    for p in (v0, v0 + td[..., 3:6], v0 + td[..., 6:9]):
+        behind = behind & ((p * wrow[:3]).sum(-1) + wrow[3] <= 0)
+    return (behind | ~live).all(dim=1) & live.any(dim=1)
+
+
+def raster_shapes(rast, cam) -> dict:
+    """Phase 13: record kernel G's 32 calls of one raster frame (8
+    samples x 4 rounds); hold the kernel against its plain version on
+    sample 0, rounds 0 and 1; time the kernel over all 32 calls (each
+    once, after a warm-up) and the plain version on sample 0's four calls
+    (rounds 0 and 1 during the comparison, 2 and 3 once each); bound the
+    work of the 32 calls and of sample 0's four, leaving out the clusters
+    wholly behind the camera."""
+    with RecordingRaster() as rec:
+        rast.render_async(cam)
+        torch.cuda.synchronize()
+    calls = rec.calls
+    if len(calls) != 32:
+        raise AssertionError(f"recorded {len(calls)} calls of kernel G in "
+                             f"one frame, want 32")
+    # each sample's round-1 floors are its round-0 discards
+    discards = [int((c[5] < edge.ZFAR_PARK).sum()) for c in calls[1::4]]
+    live = [[int((c[5] < edge.ZFAR_PARK).sum()) for c in calls[4 * s:4 * s
+                                                               + 4]]
+            for s in range(8)]
+    log(f"  live pixels per round, sample by sample: {live}")
+    if sum(discards) == 0:
+        raise AssertionError("no fragment was discarded in round 0")
+    cmp = [compare_raster(*calls[k], label=f" (main path, sample 0, round "
+                                           f"{k})")[0] for k in (0, 1)]
+    err = max(r["max_abs_err"] for r in cmp)
+    edge.raster_edge(*calls[0])                                # warm-up
+    per_call = []
+    for c in calls:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        edge.raster_edge(*c)
+        end.record()
+        per_call.append((start, end))
+    torch.cuda.synchronize()
+    per_call = [s.elapsed_time(e) for s, e in per_call]
+    plain_s0 = sum(r["plain_ms"] for r in cmp) + sum(
+        cuda_ms(lambda c=c: edge.raster_edge_plain(*c), 1, warmup=False)
+        for c in calls[2:4])
+    behind = behind_camera(rast, cam)
+    bounds = [raster_bound(*c, edge.raster_edge(*c)[0], behind)
+              for c in calls]
+    frame_b = add_bounds(bounds)
+    s0_b = add_bounds(bounds[:4])
+    clb = calls[0][2]
+    res = dict(max_abs_err=err, ms=sum(per_call),
+               behind_camera_clusters=int(behind.sum()),
+               ms_mean_per_call=float(np.mean(per_call)),
+               ms_sample0=sum(per_call[:4]), ms_sample0_each=per_call[:4],
+               full_screen_clusters=int((clb[:, 0] == -1e8).sum()),
+               empty_clusters=int((clb[:, 0] == 1e8).sum()),
+               clusters=clb.shape[0] * K2,
+               ms_round0_each_sample=per_call[0::4], plain_ms_sample0=plain_s0,
+               round0_discards_each_sample=discards,
+               bound_frame=frame_b, bound_sample0=s0_b)
+    log("  kernel G at the main path's shapes:", json.dumps(res))
     return res
 
 
@@ -594,15 +1055,57 @@ def main() -> int:
     profile_frames(renderer, cam, "defaults")
     profile_frames(off, cam, "flags off")
 
+    log("== 10. kernel G vs plain on probes")
+    small = rp.Rasterizer(procedural_model("small", seed=SEED),
+                          C.reference_config(), dev)
+    probe_err["G"] = probe_raster(dev, [("full", tree, 160, 120),
+                                        ("small", small.backend.tree, 64,
+                                         48)])
+    del small
+
+    log("== 11. raster frames vs oracle")
+    raster_frames_vs_oracle(dev)
+
+    log("== 12. raster main path: 1600x1200, msaa 8, full scene")
+    del renderer, off
+    t0 = time.perf_counter()
+    rcfg = C.reference_config()
+    rast = rp.Rasterizer(model, rcfg, dev, msaa=8)
+    log(f"  setup {time.perf_counter() - t0:.1f} s")
+    rcams = list(itertools.islice(camera_path(rcfg.width, rcfg.height),
+                                  RASTER_FRAMES + 1))
+    res_raster, first = drive_raster(rast, rcams)
+    wavefront_vs_edge(rast, rcams[0], first)
+    del first
+    log(f"== profile: {PROFILE_FRAMES} raster frames")
+    profile_frames(rast, rcams[0], "raster", RASTER_RANGES)
+
+    log("== 13. kernel G at the main path's shapes")
+    res_13 = raster_shapes(rast, rcams[0])
+
     def entry(name, k, src, replaces):
         rows = res_9[k]
+        lib_ms = [r.get("library_ms") for r in rows]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": res_main["launches"][k],
                 "max_abs_err": max([probe_err[k]]
                                    + [r["max_abs_err"] for r in rows]),
                 "ms": sum(r["ms"] for r in rows),
-                "plain_ms": sum(r["plain_ms"] for r in rows)}
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                **{key: add_bounds(rows)[key]
+                   for key in ("bound_ms", "bound_by")},
+                "library_ms": (sum(lib_ms) if all(x is not None
+                                                  for x in lib_ms) else None)}
 
+    g = {"name": "raster_edge", "route": "cuda",
+         "source": "vkrt_tpu_torch/csrc/raster_edge.cu",
+         "replaces": "vkrt_tpu/raster/edge.py:204",
+         "launches": res_raster["launches"]["G"],
+         "max_abs_err": max(probe_err["G"], res_13["max_abs_err"]),
+         "ms": res_13["ms_sample0"], "plain_ms": res_13["plain_ms_sample0"],
+         "bound_ms": res_13["bound_sample0"]["bound_ms"],
+         "bound_by": res_13["bound_sample0"]["bound_by"],
+         "library_ms": None}
     log(smi)
     log(json.dumps({"kernels": [
         entry("trace_closest", "A", "vkrt_tpu_torch/csrc/trace_closest.cu",
@@ -617,6 +1120,7 @@ def main() -> int:
               "vkrt_tpu/wavefront/lanesort.py:79"),
         entry("lane_unsort", "F", "vkrt_tpu_torch/csrc/lanesort.cu",
               "vkrt_tpu/wavefront/lanesort.py:162"),
+        g,
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

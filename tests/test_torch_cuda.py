@@ -1,11 +1,11 @@
-"""Kernels A-F on the card vs their plain PyTorch versions.
+"""Kernels A-G on the card vs their plain PyTorch versions.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
-covered on the CPU by test_torch_trace.py, test_torch_pack.py and
-test_torch_lanesort.py). C-F move f32 values without arithmetic, so they
-must equal their plain versions exactly. Imports no JAX, so it runs on a
-machine without it:
+covered on the CPU by test_torch_trace.py, test_torch_pack.py,
+test_torch_lanesort.py and test_torch_raster_edge.py). C-F move f32
+values without arithmetic, so they must equal their plain versions
+exactly. Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from vkrt_tpu import config as C
-from vkrt_tpu.app.camera import Camera
-from vkrt_tpu.app.framebuffer import rmse
+from vkrt_tpu_torch import config as C
+from vkrt_tpu_torch.app.camera import Camera
+from vkrt_tpu_torch.app.framebuffer import rmse
+from vkrt_tpu_torch.raster import edge
+from vkrt_tpu_torch.raster.pipeline import MSAA8, Rasterizer, sample_pixel_lanes
 from vkrt_tpu_torch.rt.dense import trace_dense, trace_dense_plain
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
 from vkrt_tpu_torch.scene.procedural import procedural_model
@@ -157,3 +159,42 @@ def test_shipped_defaults_frame_equals_flags_off_on_card(renderer):
     assert [a - b for a, b in zip(after, counts)] == [1, 1, 1, 1]
     np.testing.assert_array_equal(fb, want)
     assert rays == want_rays
+
+
+@pytest.mark.parametrize("off", [(0.5, 0.5), tuple(MSAA8[5])])
+def test_kernel_g_matches_plain(renderer, card, off):
+    """Kernel G vs its plain version at 64x48 from the start pose: first
+    round (zfloor 0, padding parked) and a continuation round behind
+    every hit; slots agree on >= 99.9% of the pixels, and z, u, v, mat
+    are bit-equal wherever they agree."""
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    cam = start_camera()
+    setup, scb, clb = edge.build_raster_setup(
+        renderer.backend.tree, torch.as_tensor(cam.view_matrix, device=card),
+        torch.as_tensor(cam.projection_matrix, device=card), 64, 48)
+    px, py, inside = sample_pixel_lanes(cfg, off, card)
+    zf = torch.where(inside, 0.0, edge.ZFAR_PARK)
+    for _ in range(2):
+        before = edge.raster_edge.launches
+        got = edge.raster_edge(setup, scb, clb, px, py, zf)
+        want = edge.raster_edge_plain(setup, scb, clb, px, py, zf)
+        torch.cuda.synchronize()
+        assert edge.raster_edge.launches == before + 1
+        same = got[1] == want[1]
+        assert same.float().mean().item() >= 0.999
+        for g, w in zip(got, want):
+            assert torch.equal(g[same], w[same])
+        zf = torch.where(got[1] >= 0, got[0], edge.ZFAR_PARK)
+
+
+def test_raster_frame_on_card_matches_cpu(renderer):
+    """The msaa-8 edge frame on the card (32 launches of G) against the
+    same frame on the CPU (plain version)."""
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    cam = start_camera()
+    before = edge.raster_edge.launches
+    fb = Rasterizer(renderer.model, cfg, renderer.device).render(
+        cam, show_fps=False)
+    assert edge.raster_edge.launches == before + 32
+    want = Rasterizer(renderer.model, cfg, "cpu").render(cam, show_fps=False)
+    assert (np.abs(fb - want).max(-1) > 0.02).mean() <= 0.001

@@ -23,6 +23,7 @@ from vkrt_tpu.app.camera import Camera
 from vkrt_tpu.app.framebuffer import rmse
 from vkrt_tpu.scene import flatten_model
 from vkrt_tpu.wavefront import engine as je
+from vkrt_tpu_torch import config as TC
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
 
@@ -42,6 +43,13 @@ def config(n: int, width: int = W, height: int = H) -> C.RenderConfig:
 
 def reorder(cfg: C.RenderConfig, on) -> C.RenderConfig:
     return dataclasses.replace(cfg, **dict(zip(REORDER_FLAGS, on)))
+
+
+def port_config(cfg: C.RenderConfig) -> TC.RenderConfig:
+    """The port's RenderConfig with the same values as a JAX one (the
+    port's has no `ray_block`)."""
+    return TC.RenderConfig(**{f.name: getattr(cfg, f.name)
+                              for f in dataclasses.fields(TC.RenderConfig)})
 
 
 @pytest.fixture(scope="module")
@@ -73,7 +81,7 @@ def jax_dense_frames(scene):
 
 def port_frame(scene, cfg, quantize=False, cam=None):
     model, _, start, _, _ = scene
-    r = te.Renderer(model, cfg, "cpu", quantize=quantize)
+    r = te.Renderer(model, port_config(cfg), "cpu", quantize=quantize)
     fb, rays = r.render_async(cam or start)
     return fb.numpy(), int(rays.sum())
 
@@ -172,7 +180,7 @@ def test_unported_flag_raises(scene, flag):
     model = scene[0]
     cfg = dataclasses.replace(config(4), **{flag: True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        te.Renderer(model, cfg, "cpu")
+        te.Renderer(model, port_config(cfg), "cpu")
     with pytest.raises(NotImplementedError, match=flag):
         te.check_supported(cfg)
 

@@ -1,9 +1,9 @@
-"""vkrt_tpu_torch imports no JAX, and chip_smoke.py refuses to run
-without a CUDA card.
+"""vkrt_tpu_torch imports neither JAX nor the JAX package, and
+chip_smoke.py refuses to run without a CUDA card.
 
 Each check runs in a fresh interpreter: the import check with
-sys.modules['jax'] = None, so any import of jax — direct or through a
-JAX-package module — raises.
+sys.modules['jax'] and sys.modules['vkrt_tpu'] = None, so any import of
+jax or of a vkrt_tpu module (even one that needs no JAX) raises.
 """
 
 import os
@@ -29,6 +29,7 @@ def test_port_imports_without_jax():
     proc = run_python("""
         import sys
         sys.modules["jax"] = None
+        sys.modules["vkrt_tpu"] = None
         import importlib, pkgutil
         import vkrt_tpu_torch
         names = ["vkrt_tpu_torch"] + [
@@ -37,8 +38,9 @@ def test_port_imports_without_jax():
         for name in names:
             importlib.import_module(name)
         import chip_smoke
-        assert sys.modules["jax"] is None
-        leaked = [m for m in sys.modules if m.startswith(("jax.", "jaxlib"))]
+        assert sys.modules["jax"] is None and sys.modules["vkrt_tpu"] is None
+        leaked = [m for m in sys.modules
+                  if m.startswith(("jax.", "jaxlib", "vkrt_tpu."))]
         assert not leaked, leaked
         print(len(names), "modules")
     """)

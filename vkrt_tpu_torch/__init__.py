@@ -4,18 +4,25 @@ A second implementation of the `vkrt_tpu` renderer beside the JAX package,
 which stays the reference it is tested against. Module paths and function
 names mirror `vkrt_tpu/` so each counterpart is easy to find:
 
-  scene/procedural  seeded procedural scene (test and smoke scaffolding)
+  config            constants, RenderConfig, the five benchmark configs
+  scene/            glTF loader, flatten, texture and material heaps, and
+                    the seeded procedural scene (test and smoke scaffolding)
   accel/clusters    numpy host cluster build → torch ClusterTree
   rt/dense          closest-hit trace with attributes (CUDA kernel A)
   rt/occl_multi     multi-light occlusion trace (CUDA kernel B)
   shade/            interpolation, normal mapping, material sampling
-  wavefront/engine  trace → shade → shadow → reflection rounds, Renderer
+  wavefront/        trace → shade → shadow → reflection rounds, Renderer;
+                    the depth>=1 shadow reorder (CUDA kernels C-F)
+  raster/           raster renderer: setup stage, edge-function
+                    rasterizer (CUDA kernel G), Rasterizer
+  app/              camera, fly-through path, framebuffer, FPS overlay
+  golden/           numpy oracles (brute-force ray tracer, raster oracle)
   kernels           nvcc build + ctypes binding of csrc/*.cu
 
-Modules that need no JAX are shared by import, not copied:
-`vkrt_tpu.config`, `vkrt_tpu.scene`, `vkrt_tpu.app.camera`,
-`.flythrough`, `.framebuffer` and `vkrt_tpu.golden.cpu_tracer`.
-This package imports torch and numpy, never jax.
+The numpy-only modules (config, scene, utils/mathutils and log, app,
+golden) are the port's own copies of the JAX package's, kept at the same
+paths. This package imports torch and numpy, never jax and nothing of
+vkrt_tpu.
 """
 
 __all__ = []

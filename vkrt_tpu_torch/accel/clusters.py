@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkrt_tpu_torch.scene.textures import material_slots
+
 K1 = 128      # triangles per cluster
 K2 = 64       # clusters per supercluster
 SUBRUNS = 8   # 16-tri sub-run AABBs per cluster (cols SUB_COL..SUB_COL+5)
@@ -200,8 +202,6 @@ def _assemble_host(v0, e1, e2, order, attrs=None,
 
 def scene_attrs(flat) -> dict:
     """Per-triangle attribute arrays (numpy) from a FlatScene."""
-    from vkrt_tpu.scene.textures import material_slots
-
     idx = np.asarray(flat.indices, dtype=np.int64)
     out = {}
     for i in range(3):

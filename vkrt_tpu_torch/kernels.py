@@ -9,7 +9,7 @@ runs at import time: the CPU tests import every module on a machine
 without nvcc.
 
 Sources: trace_closest.cu (kernel A), occl_multi.cu (B), pack.cu (C, D),
-lanesort.cu (E, F).
+lanesort.cu (E, F), raster_edge.cu (G).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product
@@ -31,7 +31,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("trace_closest.cu", "occl_multi.cu", "pack.cu", "lanesort.cu")
+SOURCES = ("trace_closest.cu", "occl_multi.cu", "pack.cu", "lanesort.cu",
+           "raster_edge.cu")
 HEADERS = ("common.cuh",)
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -118,8 +119,11 @@ def library() -> ctypes.CDLL:
     lib.vkrt_scatter_back.argtypes = [_P, _P, _I, _I, _P, _P]
     lib.vkrt_lane_sort.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
     lib.vkrt_lane_unsort.argtypes = [_P, _P, _I, _I, _I, _P, _P]
+    lib.vkrt_raster_edge.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I,
+                                     _P, _P, _P, _P, _P, _P]
     for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
-               lib.vkrt_lane_sort, lib.vkrt_lane_unsort):
+               lib.vkrt_lane_sort, lib.vkrt_lane_unsort,
+               lib.vkrt_raster_edge):
         fn.restype = _I
     return lib
 

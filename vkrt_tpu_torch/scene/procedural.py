@@ -3,13 +3,13 @@
 It stands in for the Sponza glTF buffer, which is not in the repository:
 neither the CLI's default scene nor the `sponza_model` test fixture can
 load without it. This module is NOT a renderer feature. It builds a
-`vkrt_tpu.scene.Model` that the shared loader path (flatten, material
+`vkrt_tpu_torch.scene.Model` that the shared loader path (flatten, material
 heap) and both renderers take as they take Sponza.
 
 Layout: an atrium hall in model units (flatten_model scales by
 SCENE_SCALE = 0.01 into world units), about Sponza's world bounds —
 x in [-19, 18], y in [-1.3, 14.3], z in [-11, 12]. Each submesh is one
-undulating grid sheet (`vkrt_tpu.scene.synth._grid_patch`) hugging a face
+undulating grid sheet (`vkrt_tpu_torch.scene.synth._grid_patch`) hugging a face
 of its box: floor, ceiling, walls, a gallery floor on each side, pillar
 faces along z = ±4.5 and smaller panels in the aisles. The camera start
 and all four lights lie inside the hall, clear of every sheet.
@@ -23,14 +23,22 @@ Sizes:
 Metallic (blue channel of the metallic-roughness map) is constant per
 material, either 0 or in [0.4, 0.9], far from the 0.1 reflection
 threshold so reflection decisions never sit on the threshold.
+
+Cut-outs: the non-metallic materials whose index is 3 mod 4 (small: 3,
+the wall z+ and the far end wall; full: 3, 7, 11 and 19, the ceiling
+among them) have alpha 0 in a round hole of each texture repeat of
+their base map, like Sponza's foliage, so the raster path's alpha
+discard has work to do. The choice draws nothing from the generator, so
+geometry, RGB texels and metallic values do not depend on it; the ray
+tracing path reads no alpha.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from vkrt_tpu.scene.model import Image, Material, Model
-from vkrt_tpu.scene.synth import _grid_patch
+from vkrt_tpu_torch.scene.model import Image, Material, Model
+from vkrt_tpu_torch.scene.synth import _grid_patch
 
 SIZES = {
     # submeshes, triangles, image side, materials
@@ -97,8 +105,13 @@ def _split_triangles(rng: np.random.Generator, boxes: list,
     return counts
 
 
-def _texture_set(rng: np.random.Generator, side: int, metallic: float):
-    """One material's (base, metallic-roughness, normal) RGBA8 images."""
+CUTOUT_RADIUS = 0.3   # hole radius in texture units, centred in each repeat
+
+
+def _texture_set(rng: np.random.Generator, side: int, metallic: float,
+                 cutout: bool):
+    """One material's (base, metallic-roughness, normal) RGBA8 images;
+    `cutout` punches an alpha-0 hole into the base map."""
     yy, xx = np.meshgrid(np.arange(side, dtype=np.float32) / side,
                          np.arange(side, dtype=np.float32) / side,
                          indexing="ij")
@@ -112,6 +125,9 @@ def _texture_set(rng: np.random.Generator, side: int, metallic: float):
     base = np.empty((side, side, 4), np.uint8)
     base[..., :3] = np.clip(shade[..., None] * hue * 255.0 + 0.5, 0, 255)
     base[..., 3] = 255
+    if cutout:
+        hole = (xx - 0.5) ** 2 + (yy - 0.5) ** 2 < CUTOUT_RADIUS ** 2
+        base[..., 3] = np.where(hole, 0, 255)
 
     mr = np.empty((side, side, 4), np.uint8)
     mr[..., 0] = 0
@@ -154,9 +170,11 @@ def procedural_model(size: str = "full", seed: int = 0) -> Model:
     metallic = np.where(rng.random(n_mat) < 0.35,
                         rng.uniform(0.4, 0.9, n_mat), 0.0)
     metallic[0] = max(metallic[0], 0.5)
+    cutout = (metallic == 0) & (np.arange(n_mat) % 4 == 3)
     images, materials = [], []
     for m in range(n_mat):
-        images += _texture_set(rng, side, float(metallic[m]))
+        images += _texture_set(rng, side, float(metallic[m]),
+                               bool(cutout[m]))
         materials.append(Material(base_color=3 * m,
                                   metallic_roughness=3 * m + 1,
                                   normal=3 * m + 2))

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from vkrt_tpu import config as C
+from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch.utils import layout as L
 
 

@@ -32,13 +32,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from vkrt_tpu import config as C
-from vkrt_tpu.scene import flatten_model, load_model
-from vkrt_tpu.scene.textures import build_material_heap, material_slots
+from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import runtime
 from vkrt_tpu_torch.accel.clusters import build_clusters, scene_attrs
 from vkrt_tpu_torch.rt.dense import trace_dense
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi
+from vkrt_tpu_torch.scene import flatten_model, load_model
+from vkrt_tpu_torch.scene.textures import build_material_heap, material_slots
 from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.shade.sampling import (sample_material,
                                            sample_material_compact)
@@ -101,11 +101,14 @@ def texture_arrays(images, flat, device) -> TextureArrays:
                                      device)
 
 
-def generate_rays(proj_inverse, view_inverse, width: int, height: int):
-    """Camera rays through the pixel centres (ref: shaders/shader.rgen:
-    30-38) as [H,W] component grids: ((ox,oy,oz), (dx,dy,dz))."""
+def generate_rays(proj_inverse, view_inverse, width: int, height: int,
+                  off=PIXEL_CENTER):
+    """Camera rays through the point `off` of each pixel (the centre by
+    default; the raster path passes its MSAA sample offsets) (ref:
+    shaders/shader.rgen:30-38) as [H,W] component grids: ((ox,oy,oz),
+    (dx,dy,dz))."""
     dev = proj_inverse.device
-    ox, oy = PIXEL_CENTER
+    ox, oy = (float(c) for c in off)
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + ox) \
         / width * 2.0 - 1.0
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + oy) \
@@ -451,19 +454,29 @@ def unpartition(occ, undo: Undo):
     return inv > 0.5
 
 
-class Renderer:
-    """High-level renderer: scene in, frames out (the Raytracer analogue).
+def upload_matrix(m, device):
+    """A camera matrix (numpy) as f32 on `device`, without a host wait: a
+    blocking host-to-device copy would wait for the frames already
+    queued; from pinned memory the copy is queued too."""
+    m = torch.from_numpy(np.array(m, np.float32))
+    if device.type == "cuda":
+        m = m.pin_memory()
+    return m.to(device, non_blocking=True)
 
-    `scene` is a `vkrt_tpu.scene.Model` or the path of a glTF file. The
-    constructor builds the cluster tree on the host and moves it and the
-    material heap to `device`; render_async() enqueues one frame."""
 
-    def __init__(self, scene, cfg: C.RenderConfig, device,
-                 quantize: bool = False):
-        check_supported(cfg)
+class SceneOnDevice:
+    """What both renderers build from a scene: the flattened scene, the
+    material heap and the dense backend on `device`, with TF32 off.
+
+    `scene` is a `vkrt_tpu_torch.scene.Model` or the path of a glTF file;
+    `cfg` must be this package's RenderConfig."""
+
+    def __init__(self, scene, cfg: C.RenderConfig, device):
+        if not isinstance(cfg, C.RenderConfig):
+            raise TypeError(f"cfg must be vkrt_tpu_torch.config.RenderConfig,"
+                            f" got {type(cfg).__module__}.{type(cfg).__name__}")
         self.cfg = cfg
         self.device = torch.device(device)
-        self.quantize = quantize    # u8 fb + scalar ray count on device
         runtime.exact_f32()
         if isinstance(scene, (str, os.PathLike)):
             scene = load_model(os.fspath(scene))
@@ -471,24 +484,31 @@ class Renderer:
         self.flat = flatten_model(scene)
         self.tex = texture_arrays(scene.images, self.flat, self.device)
         self.backend = make_backend(self.flat, "dense", self.device)
+
+
+class Renderer(SceneOnDevice):
+    """High-level renderer: scene in, frames out (the Raytracer analogue).
+
+    The constructor builds the cluster tree on the host and moves it and
+    the material heap to `device` (the card unless the caller asks for
+    the CPU); render_async() enqueues one frame."""
+
+    def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
+                 quantize: bool = False):
+        check_supported(cfg)
+        super().__init__(scene, cfg, device)
+        self.quantize = quantize    # u8 fb + scalar ray count on device
         self.lights = torch.as_tensor(C.LIGHT_POSITIONS, device=self.device)
 
     def render_async(self, camera):
         """Enqueue a frame; returns device tensors (fb, ray_count) without
         waiting for the card. Per-frame accel updates (the JAX Renderer's
         `transform`) are ROADMAP.md queue 1 item 8."""
-
-        def mat(m):
-            # a blocking host-to-device copy would wait for the frames
-            # already queued; from pinned memory the copy is queued too
-            m = torch.from_numpy(np.array(m, np.float32))
-            if self.device.type == "cuda":
-                m = m.pin_memory()
-            return m.to(self.device, non_blocking=True)
-
         frame = render_frame_u8 if self.quantize else render_frame
-        return frame(self.backend, self.tex, mat(camera.proj_inverse),
-                     mat(camera.view_inverse), self.lights, self.cfg)
+        return frame(self.backend, self.tex,
+                     upload_matrix(camera.proj_inverse, self.device),
+                     upload_matrix(camera.view_inverse, self.device),
+                     self.lights, self.cfg)
 
     def render(self, camera):
         """Synchronous render: enqueue + materialize on host."""
