@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure raises and the run exits non-zero:
+Phases; any failure raises and the run exits non-zero. They run in this
+order, except that 14-18 (which share the config-4 renderer) run between
+the profile after phase 9 and phase 10:
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A-G from vkrt_tpu_torch/csrc/ into one
-              library (one nvcc per source, all started together)
+  2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
+              one library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked)
   4. kernel B vs its plain version (shadow segments of phase 3's hits,
@@ -51,10 +53,42 @@ Phases, in order; any failure raises and the run exits non-zero:
               plain on sample 0, rounds 0 and 1; the kernel's time over
               all 32 calls, the plain version's on sample 0's 4 calls, and
               the bound of each
+ 14. kernel A' (any-hit, per-ray or per-block origins) vs its plain
+              version on probes: phase 3's rays with per-ray origins, random
+              block origins and phase 4's light segments at blocks 512 and
+              1024, parked and empty-interval rays; the point-origin masks
+              must equal kernel B's, and DenseBackend.occluded /
+              occluded_point return the same masks; kernel A with point
+              origins and without attributes vs A's plain version, and with
+              point origins equal to the broadcast origins' result
+ 15. per light  config 4 with DenseBackend.per_light (one A' dispatch per
+              light in place of B): A 2, A' 8, C-F 1 launches per frame and
+              none of B; u8 frames and ray counts bit-equal to phase 7's
+              first frames; then A' vs plain and vs B on one frame's recorded
+              segments, its time there beside B's, and its bound
+ 16. config 5   Renderer at config5_stress() (1920x1080, depth 4, 4 lights,
+              rebuild_per_frame) with a y-rotation that grows every frame,
+              for rebuild = refit, full (device SAH), full_morton: a warm-up
+              frame + CONFIG5_FRAMES timed frames each (A 4, B 4, C-F 3
+              launches per frame), the accel update's own time (mean of 5),
+              then per mode two profiled frames and two frames whose engine
+              ranges are timed with CUDA events (they partition the frame)
+ 17. config-5 gates  identity refit frame bit-equal to the frame without a
+              transform; at a fixed transform the full and full_morton f32
+              frames within RMSE 1e-3 of the refit frame and their camera
+              hit masks equal on >= 99.9% of the pixels; a 64x48 depth-4
+              frame under a transform vs the numpy oracle on the
+              transformed triangles (per mode); the device-SAH order a
+              permutation whose cluster area is <= 1.30x the host build's
+              and < 0.8x the Morton order's on the full scene
+ 18. config-5 shapes  phase 9 on config 5, per rebuild mode: kernels A and
+              B at all four depths and C-F at depths 1-3, each vs its plain
+              version on the inputs one 1080p frame gives it on the tree
+              the accel update makes under rot_y(0.02); kernel ms per depth
 Then the card's nvidia-smi name and power limit, one JSON line with each
-kernel's launches on its main path (phase 7 for A-F, phase 12 for G), its
-largest error, its time per frame and the bound of that work, and, as the
-last line, {"ok": true, "device": {...}}.
+kernel's launches on its main path (phase 7 for A-F, phase 15 for A', phase
+12 for G), its largest error, its time per frame and the bound of that
+work, and, as the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -72,7 +106,9 @@ import torch
 
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import kernels, runtime
+from vkrt_tpu_torch.accel import clusters
 from vkrt_tpu_torch.accel.clusters import K2
+from vkrt_tpu_torch.accel.device_sah import device_sah_order
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.flythrough import camera_path
 from vkrt_tpu_torch.app.framebuffer import rmse
@@ -80,20 +116,24 @@ from vkrt_tpu_torch.golden.cpu_tracer import render_golden
 from vkrt_tpu_torch.golden.raster_oracle import render_golden_raster
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster import pipeline as rp
-from vkrt_tpu_torch.rt.dense import (gated_pairs, trace_dense,
-                                     trace_dense_plain)
+from vkrt_tpu_torch.rt.dense import (broadcast_points, gated_pairs,
+                                     trace_dense, trace_dense_plain,
+                                     trace_occluded, trace_occluded_plain)
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
 from vkrt_tpu_torch.scene import build_texture_heap
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import engine, lanesort, pack
-from vkrt_tpu_torch.wavefront.engine import (Renderer, camera_ray_blocks,
+from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
+                                             camera_ray_blocks,
                                              render_frame_u8)
 
 SEED = 0
 N_FRAMES = 8
 RASTER_FRAMES = 4
+PER_LIGHT_FRAMES = 4
+CONFIG5_FRAMES = 4
 PROFILE_FRAMES = 2
 HIT_AGREE = 0.999        # kernel A vs plain: hit masks
 SLOT_AGREE = 0.999       # kernel A vs plain: slots (t, u, v, attrs
@@ -106,10 +146,15 @@ FLIP = 0.02              # raster frames: a pixel "flips" if a channel
 FLIP_SHARE = 0.01        # differs by more; at most this share may flip
 G_AGREE = 0.999          # kernel G vs plain: hit masks and slots (z, u,
                          # v, mat bit-equal wherever the slots agree)
+REBUILD_RMSE = 1e-3      # config 5: full-rebuild f32 frame vs refit frame
+REBUILD_HIT_AGREE = 0.999  # ... and their camera-ray hit masks
+SAH_VS_HOST = 1.30       # device-SAH cluster area vs the host build's
+SAH_VS_MORTON = 0.8      # ... and vs the Morton order's
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
 # kernel → wrapper whose `launches` counts its launches
-COUNTED = {"A": trace_dense, "B": occluded_multi, "C": pack.consolidate,
+COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
+           "C": pack.consolidate,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
            "F": lanesort.lane_unsort, "G": edge.raster_edge}
 PLAIN = {"C": pack.consolidate_plain, "D": pack.scatter_back_plain,
@@ -179,29 +224,37 @@ def shadow_inputs(u, v, attrs, hit, lights):
     return lights.contiguous(), sd, st.contiguous()
 
 
-def compare_closest(tree, o, d, tmax, label: str = "") -> dict:
+def compare_closest(tree, o, d, tmax, label: str = "", block: int = 0,
+                    with_attributes: bool = True) -> dict:
     """Kernel A vs its plain version on the same inputs: hit masks and
     slots agree on at least HIT_AGREE / SLOT_AGREE of the rays, t to
     T_RTOL where both hit, and t, u, v and attrs are bit-equal on every
-    ray whose slots agree (misses included: inf, 0, 0, 0)."""
-    kt, ks, ku, kv, ka = trace_dense(tree, o, d, tmax)
-    pt, ps, pu, pv, pa = trace_dense_plain(tree, o, d, tmax)
+    ray whose slots agree (misses included: inf, 0, 0, 0). With `block`,
+    `o` is one origin per `block` rays [N/block,3] (the kernel's
+    point-origin form; the plain version gets them broadcast); with
+    `with_attributes` False the kernel writes no attrs."""
+    kw = dict(block=block, point_origin=True) if block else {}
+    got = trace_dense(tree, o, d, tmax, with_attributes=with_attributes, **kw)
+    full = broadcast_points(o, d, block) if block else o
+    want = trace_dense_plain(tree, full, d, tmax)
     torch.cuda.synchronize()
-    kh, ph = ks >= 0, ps >= 0
+    if len(got) != (5 if with_attributes else 4):
+        raise AssertionError(f"kernel A returned {len(got)} outputs{label}")
+    names = ("t", "u", "v", "attrs")[:len(got) - 1]
+    k = dict(zip(("t", "slot", "u", "v", "attrs"), got))
+    p = dict(zip(("t", "slot", "u", "v", "attrs"), want))
+    kh, ph = k["slot"] >= 0, p["slot"] >= 0
     agree = (kh == ph).float().mean().item()
     both = kh & ph
-    same = ks == ps
-    t_err = (((kt - pt).abs() / pt.abs())[both].max().item()
+    same = k["slot"] == p["slot"]
+    t_err = (((k["t"] - p["t"]).abs() / p["t"].abs())[both].max().item()
              if both.any() else 0.0)
     hs = same & kh
-    abs_err = max((kt - pt)[hs].abs().max().item(),
-                  (ku - pu)[hs].abs().max().item(),
-                  (kv - pv)[hs].abs().max().item(),
-                  (ka - pa)[:, hs].abs().max().item()) if hs.any() else 0.0
-    equal = {k: bool(torch.equal(a[..., same], b[..., same]))
-             for k, a, b in (("t", kt, pt), ("u", ku, pu), ("v", kv, pv),
-                             ("attrs", ka, pa))}
-    out = dict(rays=int(o.shape[1] * L.LANES), live_frac=(tmax > 0).float()
+    abs_err = max((k[n] - p[n])[..., hs].abs().max().item()
+                  for n in names) if hs.any() else 0.0
+    equal = {n: bool(torch.equal(k[n][..., same], p[n][..., same]))
+             for n in names}
+    out = dict(rays=int(d.shape[1] * L.LANES), live_frac=(tmax > 0).float()
                .mean().item(), hit_frac=kh.float().mean().item(),
                hit_agree=agree, slot_agree=same.float().mean().item(),
                slots_differ=int((~same).sum().item()), t_max_rel_err=t_err,
@@ -358,15 +411,16 @@ class RecordingBackend:
     def __init__(self, inner):
         self.inner = inner
         self.scene_aabb = inner.scene_aabb
-        self.closest_in, self.occl_in = [], []
+        self.closest_in, self.occl_in, self.occl_block = [], [], []
 
     def closest(self, o, d, tmax):
         self.closest_in.append((o.clone(), d.clone(), tmax.clone()))
         return self.inner.closest(o, d, tmax)
 
-    def occluded_multi(self, light_pts, sd, st):
+    def occluded_multi(self, light_pts, sd, st, block=engine.BLOCK):
         self.occl_in.append((light_pts.clone(), sd.clone(), st.clone()))
-        return self.inner.occluded_multi(light_pts, sd, st)
+        self.occl_block.append(block)
+        return self.inner.occluded_multi(light_pts, sd, st, block=block)
 
 
 # --- bounds: the least time the card could take for a kernel's work ----
@@ -426,10 +480,12 @@ def closest_bound(tree, o, d, tm, t, ntri) -> dict:
                  + tree_bytes(tree, 36), pairs * OPS_A)
 
 
-def occl_bound(tree, lp, sd, st, ntri) -> dict:
+def occl_bound(tree, lp, sd, st, ntri, out_bytes: int = 1) -> dict:
     """Kernel B's work on one call: segments and masks once, the tree's
     9 geometry columns once, OPS_B per (segment, triangle) pair up to the
-    segment's nearest blocker (found with kernel A; its end if none)."""
+    segment's nearest blocker (found with kernel A; its end if none).
+    `out_bytes` per segment: 1 for B's mask, 16 for the t, slot, u, v
+    that kernel A' writes (one call per light; the same work in all)."""
     ns, _, nb, lanes = sd.shape
     n = nb * lanes
     pairs = 0
@@ -439,7 +495,8 @@ def occl_bound(tree, lp, sd, st, ntri) -> dict:
         t_end = torch.minimum(t, st[s]).reshape(n)
         pairs += trace_pairs(tree, o.reshape(3, n), sd[s].reshape(3, n),
                              t_end, ntri)
-    return bound(ns * 12 + ns * n * 4 * 4 + ns * n + tree_bytes(tree, 9),
+    return bound(ns * 12 + ns * n * 4 * 4 + ns * n * out_bytes
+                 + tree_bytes(tree, 9) * (ns if out_bytes > 1 else 1),
                  pairs * OPS_B)
 
 
@@ -475,68 +532,81 @@ def library_move(k: str, args, kw):
     return None
 
 
-def main_path_shapes(renderer: Renderer, cam: Camera) -> dict:
-    """Phase 9: record the inputs kernels A-F get in one main-path frame,
-    hold each kernel against its plain version on them, and time both
-    there (kernel: mean of 5 after a warm-up; plain: one run), with the
-    bound of that work and, for E and F, the nearest library call (mean
-    of 5). Also reports the depth-1 shadow wavefront's live share and how
-    much of it the lane sort's capped prefix covers."""
-    rec = RecordingBackend(renderer.backend)
+def main_path_shapes(renderer: Renderer, cam: Camera, transform=None,
+                     label: str = "main path") -> dict:
+    """Phases 9 and 18: record the inputs kernels A-F get in one frame of
+    `renderer` (every depth of its config; with `transform`, on the tree
+    its accel update makes of it), hold each kernel against its plain
+    version on them, and time both there (kernel: mean of 5 after a
+    warm-up; plain: one run), with the bound of that work and, for E and
+    F, the nearest library call (mean of 5). Also reports each depth>=1
+    shadow wavefront's live share and how much of it the lane sort's
+    capped prefix covers. Rows come back in depth order (C-F from depth
+    1)."""
+    backend = renderer.backend
+    if transform is not None:
+        backend = backend._replace(tree=renderer.update_tree(transform))
+    rec = RecordingBackend(backend)
     pi = torch.as_tensor(cam.proj_inverse, device=renderer.device)
     vi = torch.as_tensor(cam.view_inverse, device=renderer.device)
     with RecordingMoves() as moves:
         render_frame_u8(rec, renderer.tex, pi, vi, renderer.lights,
                         renderer.cfg)
         torch.cuda.synchronize()
-    tree = renderer.backend.tree
+    tree = backend.tree
     ntri = live_tris(tree.tri_data)
-    res = {k: [] for k in COUNTED if k != "G"}
+    res = {k: [] for k in COUNTED if k not in ("G", "A'")}
     for depth, (o, d, tm) in enumerate(rec.closest_in):
-        r = compare_closest(tree, o, d, tm, f" (main path, depth {depth})")
+        r = compare_closest(tree, o, d, tm, f" ({label}, depth {depth})")
         r["ms"] = cuda_ms(lambda: trace_dense(tree, o, d, tm), 5)
         r["plain_ms"] = cuda_ms(lambda: trace_dense_plain(tree, o, d, tm),
                                 1, warmup=False)
         r.update(closest_bound(tree, o, d, tm,
                                trace_dense(tree, o, d, tm)[0], ntri))
         res["A"].append(r)
-    for depth, (lp, sd, st) in enumerate(rec.occl_in):
+    for depth, ((lp, sd, st), block) in enumerate(zip(rec.occl_in,
+                                                      rec.occl_block)):
         r = compare_occl(tree, lp, sd, st, near=False,
-                         label=f" (main path, depth {depth})")
+                         label=f" ({label}, depth {depth}, {st.shape[1]} "
+                               f"rows, block {block})")
         r["ms"] = cuda_ms(lambda: occluded_multi(tree, lp, sd, st), 5)
         r["plain_ms"] = cuda_ms(
             lambda: occluded_multi_plain(tree, lp, sd, st), 1, warmup=False)
         r.update(occl_bound(tree, lp, sd, st, ntri))
         res["B"].append(r)
+    want = renderer.cfg.max_depth
     for k, calls in moves.inputs.items():
-        if len(calls) != 1:
+        if len(calls) != want - 1:
             raise AssertionError(f"recorded {len(calls)} calls of kernel {k}"
-                                 f" in one frame, want 1")
-        args, kw = calls[0]
-        r = {"shape": list(args[0].shape),
-             "max_abs_err": compare_move(k, args, kw, " (main path)")}
-        r["ms"] = cuda_ms(lambda: COUNTED[k](*args, **kw), 5)
-        r["plain_ms"] = cuda_ms(lambda: PLAIN[k](*args, **kw), 1,
-                                warmup=False)
-        lib_call = library_move(k, args, kw)
-        r["library_ms"] = cuda_ms(lib_call, 5) if lib_call else None
-        r.update(move_bound(k, args, kw))
-        log(f"  kernel {k} vs plain (main path, depth 1):", json.dumps(r))
-        res[k].append(r)
-    grank = moves.inputs["C"][0][0][1]
-    n = grank.numel()
-    nlive = int((grank >= 0).sum().item())
-    sorted_rays = moves.inputs["E"][0][0][1].numel()
-    share = dict(rays=n, live=nlive, live_share=nlive / n,
-                 lane_sorted_rays=sorted_rays,
-                 live_sorted_share=min(nlive, sorted_rays) / max(nlive, 1))
-    log("  depth-1 shadow wavefront:", json.dumps(share))
+                                 f" in one frame, want {want - 1}")
+        for depth, (args, kw) in enumerate(calls, start=1):
+            r = {"shape": list(args[0].shape), **kw,
+                 "max_abs_err": compare_move(k, args, kw,
+                                             f" ({label}, depth {depth})")}
+            r["ms"] = cuda_ms(lambda: COUNTED[k](*args, **kw), 5)
+            r["plain_ms"] = cuda_ms(lambda: PLAIN[k](*args, **kw), 1,
+                                    warmup=False)
+            lib_call = library_move(k, args, kw)
+            r["library_ms"] = cuda_ms(lib_call, 5) if lib_call else None
+            r.update(move_bound(k, args, kw))
+            log(f"  kernel {k} vs plain ({label}, depth {depth}):",
+                json.dumps(r))
+            res[k].append(r)
+    for depth, (c, e) in enumerate(zip(moves.inputs["C"], moves.inputs["E"]),
+                                   start=1):
+        grank = c[0][1]
+        n = grank.numel()
+        nlive = int((grank >= 0).sum().item())
+        sorted_rays = e[0][1].numel()
+        share = dict(rays=n, live=nlive, live_share=nlive / n,
+                     lane_sorted_rays=sorted_rays,
+                     live_sorted_share=min(nlive, sorted_rays) / max(nlive, 1))
+        log(f"  depth-{depth} shadow wavefront:", json.dumps(share))
     for k, rows in res.items():
-        log(f"  {k} per call: " + "; ".join(
+        log(f"  {k} per call ({label}): " + "; ".join(
             f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']:.4g} B, "
             f"{r['ops']:.4g} ops)" for r in rows))
-    want = renderer.cfg.max_depth
     if len(res["A"]) != want or len(res["B"]) != want:
         raise AssertionError(f"recorded {len(res['A'])} A and {len(res['B'])}"
                              f" B inputs, want {want} each")
@@ -563,20 +633,24 @@ def golden_frame(device) -> float:
     return err
 
 
-def drive(renderer: Renderer, cams, per_frame: dict, label: str):
-    """Phases 7 and 8: a warm-up frame on cams[0], then one timed frame
-    per further camera, enqueued back to back through render_async.
+def drive(renderer: Renderer, cams, per_frame: dict, label: str,
+          transforms=None):
+    """Phases 7, 8, 15 and 16: a warm-up frame on cams[0], then one timed
+    frame per further camera, enqueued back to back through render_async
+    (with transforms[k] as the frame's instance transform, if given).
     Every launch count is set to 0 just before and read just after; each
     must be per_frame[k] times the number of frames. Returns (results,
     [(u8 frame, ray count)] per camera)."""
     cfg = renderer.cfg
     n = len(cams) - 1
+    tf = (lambda k: ()) if transforms is None else (lambda k:
+                                                    (transforms[k],))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for f in COUNTED.values():
         f.launches = 0
     wall0 = time.perf_counter()
-    first = renderer.render_async(cams[0])                  # warm-up
+    first = renderer.render_async(cams[0], *tf(0))          # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - wall0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
@@ -584,7 +658,7 @@ def drive(renderer: Renderer, cams, per_frame: dict, label: str):
     wall1 = time.perf_counter()
     events[0].record()
     for k in range(n):
-        outs.append(renderer.render_async(cams[k + 1]))
+        outs.append(renderer.render_async(cams[k + 1], *tf(k + 1)))
         events[k + 1].record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - wall1
@@ -615,21 +689,86 @@ def drive(renderer: Renderer, cams, per_frame: dict, label: str):
     return res, outs
 
 
-def same_frames(outs, want) -> None:
-    """Phase 8's contract: the flags-off frames equal the defaults frames
-    bit for bit, with equal ray counts, camera by camera."""
+def same_frames(outs, want, label: str = "flags-off") -> None:
+    """Phase 8's and 15's contract: these frames equal the defaults
+    frames bit for bit, with equal ray counts, camera by camera."""
     diff = [int((a != b).any(dim=-1).sum().item()) for (a, _), (b, _)
             in zip(outs, want)]
     rays = [(int(ra.item()), int(rb.item())) for (_, ra), (_, rb)
             in zip(outs, want)]
-    log(f"  flags-off vs defaults: pixels that differ per frame {diff}, "
+    log(f"  {label} vs defaults: pixels that differ per frame {diff}, "
         f"rays equal {all(a == b for a, b in rays)}")
     if any(diff) or any(a != b for a, b in rays) or len(outs) != len(want):
-        raise AssertionError(f"flags-off frames differ from the defaults "
+        raise AssertionError(f"{label} frames differ from the defaults "
                              f"frames: pixels {diff}, rays {rays}")
 
 
+class EventRanges:
+    """While active, every `record_function(name)` scope of the engine
+    records a CUDA event where it opens and where it closes, so that the
+    ranges partition the stream's timeline: on one stream a range's time
+    runs from the end of the work queued before it to the end of its own,
+    any wait for the host included, and the ranges never overlap."""
+
+    def __init__(self):
+        self.spans = []           # (name, opening event, closing event)
+
+    def __enter__(self):
+        self.saved = engine.record_function
+        engine.record_function = self._scope
+        return self
+
+    def __exit__(self, *exc):
+        engine.record_function = self.saved
+
+    def _scope(self, name):
+        outer = self
+
+        class Scope:
+            def __enter__(self):
+                self.start = torch.cuda.Event(enable_timing=True)
+                self.start.record()
+
+            def __exit__(self, *exc):
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                outer.spans.append((name, self.start, end))
+
+        return Scope()
+
+
+def event_ranges(renderer: Renderer, cam: Camera, label: str,
+                 transform=None) -> dict:
+    """PROFILE_FRAMES frames of `renderer` enqueued back to back through
+    render_async under EventRanges: the device's time per engine range
+    and outside them, per frame. The parts sum to the frame."""
+    n = PROFILE_FRAMES
+    tf = () if transform is None else (transform,)
+    renderer.render_async(cam, *tf)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with EventRanges() as ev:
+        start.record()
+        for _ in range(n):
+            renderer.render_async(cam, *tf)
+        end.record()
+        torch.cuda.synchronize()
+    ranges = {}
+    for name, a, b in ev.spans:
+        ranges[name] = ranges.get(name, 0.0) + a.elapsed_time(b) / n
+    frame_ms = start.elapsed_time(end) / n
+    res = dict(frames=n, frame_ms=frame_ms,
+               range_ms=dict(sorted(ranges.items())),
+               other_ms=frame_ms - sum(ranges.values()))
+    log(f"  device time per range, CUDA events ({label}):", json.dumps(res))
+    if res["other_ms"] < -0.05 or not ranges:     # events resolve ~1 us
+        raise AssertionError(f"the ranges do not partition the frame: {res}")
+    return res
+
+
 ENGINE_RANGES = ("trace_closest_d", "sample_d", "trace_shadow_d")
+CONFIG5_RANGES = ENGINE_RANGES + ("accel_update",)
 RASTER_RANGES = ("raster_setup", "raster_edge_s", "raster_sample")
 
 
@@ -983,6 +1122,309 @@ def raster_shapes(rast, cam) -> dict:
     return res
 
 
+def compare_occluded(tree, origins, d, tmax, block: int = 0,
+                     label: str = "") -> tuple:
+    """Kernel A' vs its plain version on the same inputs: per-ray origins
+    [3,Nb,128] (block 0) or one origin per `block` rays [N/block,3].
+    Masks agree on at least BLOCK_AGREE of the rays (B's gate); parked
+    and empty-interval rays are free; t, slot, u, v are what the any-hit
+    mode leaves (TMIN / inf, 1 / -1, 0, 0). Returns (comparison, the
+    kernel's mask)."""
+    kw = dict(block=block, point_origin=True) if block else {}
+    t, slot, u, v = trace_occluded(tree, origins, d, tmax, **kw)
+    full = broadcast_points(origins, d, block) if block else origins
+    pb = trace_occluded_plain(tree, full, d, tmax)
+    torch.cuda.synchronize()
+    kb = slot >= 0
+    agree = (kb == pb).float().mean().item()
+    coded = (torch.equal(slot, torch.where(kb, 1, -1).to(torch.int32))
+             and torch.equal(t, torch.where(kb, C.RAY_TMIN, torch.inf))
+             and not bool(u.any()) and not bool(v.any()))
+    out = dict(rays=int(tmax.numel()), block=block,
+               live_frac=(tmax > C.RAY_TMIN).float().mean().item(),
+               blocked_frac=kb.float().mean().item(), mask_agree=agree,
+               masks_differ=int((kb != pb).sum().item()),
+               dead_blocked=bool(kb[tmax <= C.RAY_TMIN].any()),
+               outputs_coded=coded,
+               max_abs_err=(kb.float() - pb.float()).abs().max().item())
+    log(f"  kernel A' vs plain{label}:", json.dumps(out))
+    if agree < BLOCK_AGREE or out["dead_blocked"] or not coded:
+        raise AssertionError(f"kernel A' disagrees with its plain version: "
+                             f"{out}")
+    return out, kb
+
+
+def light_points(lp, s: int, n_rays: int, block: int):
+    """Light s as the origin of every block of `block` rays: [N/block,3]."""
+    return lp[s][None, :].expand(n_rays // block, 3).contiguous()
+
+
+def probe_occluded(backend, o, d, tmax, lp, sd, st) -> tuple:
+    """Phase 14: kernel A' on probes. Per-ray origins: phase 3's rays cut
+    to segments of 15 units (parked rays stay parked, 16 get an empty
+    interval). Point origins at blocks 512 and 1024: random points in the
+    hall, and phase 4's light segments, whose masks must equal kernel
+    B's. `backend.occluded` and `backend.occluded_point` (the entry
+    points a caller uses) must return the same masks. Kernel A's
+    point-origin form (both blocks) and its form without attributes are
+    held against A's plain version, and the point-origin form against the
+    broadcast origins' result in every output. Returns the largest error
+    of (A', A)."""
+    tree = backend.tree
+    n = tmax.numel()
+    seg = torch.where(tmax > 0, 15.0, 0.0)
+    seg[0, :16] = 0.0009
+    r, mask = compare_occluded(tree, o, d, seg, label=" (per-ray origins)")
+    errs = [r]
+    if not torch.equal(backend.occluded(o, d, seg), mask):
+        raise AssertionError("DenseBackend.occluded differs from kernel A'")
+    errs_a = [compare_closest(tree, o, d, tmax, " (no attributes)",
+                              with_attributes=False)]
+    kb = occluded_multi(tree, lp, sd, st)
+    rng = np.random.default_rng(SEED + 14)
+    for block in (512, 1024):
+        pts = torch.as_tensor(rng.uniform([-15, 0, -9], [15, 12, 10],
+                                          (n // block, 3)).astype(np.float32),
+                              device=d.device)
+        r, mask = compare_occluded(tree, pts, d, seg, block,
+                                   f" (random block origins, {block})")
+        errs.append(r)
+        if not torch.equal(backend.occluded_point(pts, d, seg, block), mask):
+            raise AssertionError(f"DenseBackend.occluded_point (block "
+                                 f"{block}) differs from kernel A'")
+        errs_a.append(compare_closest(tree, pts, d, tmax,
+                                      f" (point origins, block {block})",
+                                      block=block))
+        got = trace_dense(tree, pts, d, tmax, block=block, point_origin=True)
+        want = trace_dense(tree, broadcast_points(pts, d, block), d, tmax)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"kernel A with point origins (block "
+                                 f"{block}) differs from broadcast origins")
+        for s in range(lp.shape[0]):
+            r, mask = compare_occluded(
+                tree, light_points(lp, s, n, block), sd[s].contiguous(),
+                st[s].contiguous(), block, f" (light {s}, block {block})")
+            errs.append(r)
+            if not torch.equal(mask, kb[s]):
+                raise AssertionError(f"kernel A' (light {s}, block {block}) "
+                                     f"and kernel B disagree on "
+                                     f"{int((mask != kb[s]).sum())} segments")
+            if bool(mask[0, :16].any()):
+                raise AssertionError("near-light segment blocked")
+    log(f"  A' vs plain on probes: {len(errs)} cases agree; the backend's "
+        f"occluded / occluded_point return the same masks; point-origin "
+        f"masks equal kernel B's; A with point origins and A without "
+        f"attributes agree with A's plain version ({len(errs_a)} cases)")
+    return (max(r["max_abs_err"] for r in errs),
+            max(r["max_abs_err"] for r in errs_a))
+
+
+def per_light_shapes(renderer: Renderer, cam: Camera) -> list:
+    """Phase 15: record the shadow segments of one main-path frame (per
+    depth: lights, dirs, tmax and the block the engine passes), then per
+    depth hold the NS point-origin A' calls against the plain version and
+    against kernel B's masks, and time A' (the NS launches, mean of 5)
+    beside B (one launch, mean of 5) and the plain version (once)."""
+    rec = RecordingBackend(renderer.backend)
+    pi = torch.as_tensor(cam.proj_inverse, device=renderer.device)
+    vi = torch.as_tensor(cam.view_inverse, device=renderer.device)
+    render_frame_u8(rec, renderer.tex, pi, vi, renderer.lights, renderer.cfg)
+    torch.cuda.synchronize()
+    tree = renderer.backend.tree
+    ntri = live_tris(tree.tri_data)
+    rows = []
+    for depth, ((lp, sd, st), block) in enumerate(zip(rec.occl_in,
+                                                      rec.occl_block)):
+        ns, n = lp.shape[0], st[0].numel()
+        kb = occluded_multi(tree, lp, sd, st)
+        calls = [(light_points(lp, s, n, block), sd[s].contiguous(),
+                  st[s].contiguous()) for s in range(ns)]
+        err = 0.0
+        for s, (pts, dd, tt) in enumerate(calls):
+            r, mask = compare_occluded(
+                tree, pts, dd, tt, block,
+                f" (main path, depth {depth}, light {s})")
+            err = max(err, r["max_abs_err"])
+            if not torch.equal(mask, kb[s]):
+                raise AssertionError(f"A' and B disagree at depth {depth}, "
+                                     f"light {s}")
+
+        def run_all():
+            for pts, dd, tt in calls:
+                trace_occluded(tree, pts, dd, tt, block=block,
+                               point_origin=True)
+
+        def run_plain():
+            for pts, dd, tt in calls:
+                trace_occluded_plain(tree, broadcast_points(pts, dd, block),
+                                     dd, tt)
+
+        r = dict(depth=depth, block=block, launches=ns, max_abs_err=err,
+                 ms=cuda_ms(run_all, 5),
+                 b_ms=cuda_ms(lambda: occluded_multi(tree, lp, sd, st), 5),
+                 plain_ms=cuda_ms(run_plain, 1, warmup=False))
+        r.update(occl_bound(tree, lp, sd, st, ntri, out_bytes=16))
+        log(f"  kernel A' at the main path's shapes:", json.dumps(r))
+        rows.append(r)
+    return rows
+
+
+def rot_y(angle: float) -> np.ndarray:
+    """4x4 rotation about the y axis (the instance transform of the
+    config-5 frames)."""
+    c, s = np.cos(angle), np.sin(angle)
+    return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]],
+                    np.float32)
+
+
+def config5_modes(base: Renderer, cams) -> dict:
+    """Phase 16: config 5 at full width on the full scene, per rebuild
+    mode: a warm-up frame + CONFIG5_FRAMES timed frames under a y-rotation
+    of 0.01 rad more every frame, then the accel update alone (CUDA
+    events around Renderer.update_tree, mean of 5, and the host's time to
+    enqueue one). `base` lends its scene, heap and host-built tree."""
+    cfg = C.config5_stress()
+    tfs = [rot_y(0.01 * k) for k in range(len(cams))]
+    per_frame = dict(A=4, B=4, C=3, D=3, E=3, F=3)
+    res = {}
+    for mode in REBUILD_MODES:
+        r = copy.copy(base)
+        r.cfg, r.rebuild = cfg, mode
+        out, _ = drive(r, cams, per_frame, f"config 5, rebuild={mode}", tfs)
+        m = rot_y(0.02)
+        out["update_ms"] = cuda_ms(lambda: r.update_tree(m), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.update_tree(m)
+        out["update_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out["update_share"] = out["update_ms"] / out["frame_ms"]
+        log(f"  config 5, rebuild={mode}: {out['frame_ms']:.3f} ms/frame, "
+            f"{out['mrays_per_s']:.1f} Mrays/s, peak "
+            f"{out['peak_mem_gb']:.2f} GB, accel update "
+            f"{out['update_ms']:.3f} ms ({out['update_share']:.1%} of the "
+            f"frame; host enqueue {out['update_enqueue_ms']:.1f} ms)")
+        res[mode] = out
+    return res
+
+
+def tree_area(tree) -> float:
+    """Total surface-area proxy of a tree's real cluster boxes."""
+    lo, hi = tree.cl_boxes[:, 0:3, :], tree.cl_boxes[:, 3:6, :]
+    ext = torch.clamp(hi - lo, min=0.0).double()
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    return float(area[lo[:, 0, :] <= hi[:, 0, :]].sum())
+
+
+def transformed_flat(flat, m):
+    """The FlatScene under the affine m (numpy): positions moved, normals
+    and tangent directions rotated."""
+    a, b = m[:3, :3].astype(np.float64), m[:3, 3].astype(np.float64)
+    tangents = np.array(flat.tangents, np.float32)
+    tangents[:, :3] = (flat.tangents[:, :3].astype(np.float64) @ a.T)
+    return dataclasses.replace(
+        flat,
+        positions=(flat.positions.astype(np.float64) @ a.T + b).astype(
+            np.float32),
+        normals=(flat.normals.astype(np.float64) @ a.T).astype(np.float32),
+        tangents=tangents)
+
+
+def config5_gates(base: Renderer, cam: Camera, dev) -> dict:
+    """Phase 17. On the full scene at 1080p (f32 frames): the refit frame
+    with the identity equals the frame without a transform bit for bit;
+    at rot_y(0.05) the full and full_morton frames are within
+    REBUILD_RMSE of the refit frame, with camera-ray hit masks equal on
+    at least REBUILD_HIT_AGREE of the pixels. On the small scene at
+    64x48, depth 4: each mode's frame under rot_y(0.05) vs the numpy
+    oracle on the transformed triangles. The device-SAH order of the
+    full scene is a permutation; its tree's cluster area against the
+    host build's and the Morton order's."""
+    cfg = C.config5_stress()
+    r = copy.copy(base)
+    r.cfg, r.quantize = cfg, False
+    still = copy.copy(r)
+    still.cfg = dataclasses.replace(cfg, rebuild_per_frame=False)
+    want, want_rays = still.render_async(cam)
+    out = {}
+    for label, tf in (("no transform (identity refit)", ()),
+                      ("identity transform", (np.eye(4, dtype=np.float32),))):
+        fb, rays = r.render_async(cam, *tf)
+        same = bool(torch.equal(fb, want) and torch.equal(rays, want_rays))
+        log(f"  refit, {label}: frame and rays bit-equal to the frame "
+            f"without an update: {same}")
+        if not same:
+            raise AssertionError(f"refit with {label} changed the frame")
+    m = rot_y(0.05)
+    pi = torch.as_tensor(cam.proj_inverse, device=dev)
+    vi = torch.as_tensor(cam.view_inverse, device=dev)
+    opt, dirs, valid = camera_ray_blocks(pi, vi, cfg)
+    o = opt[:, None, None].expand(dirs.shape).contiguous()
+    tmax = torch.where(valid, C.RAY_TMAX, 0.0)
+    frames, hits, trees = {}, {}, {}
+    for mode in REBUILD_MODES:
+        r.rebuild = mode
+        frames[mode] = r.render_async(cam, m)
+        trees[mode] = r.update_tree(m)
+        hits[mode] = trace_dense(trees[mode], o, dirs, tmax)[1] >= 0
+    moved = (frames["refit"][0] - want).square().mean().sqrt().item()
+    if moved < 10 * REBUILD_RMSE:
+        raise AssertionError(f"the transform did not move the frame "
+                             f"(rmse {moved})")
+    for mode in ("full", "full_morton"):
+        err = (frames[mode][0] - frames["refit"][0]).square().mean() \
+            .sqrt().item()
+        agree = (hits[mode] == hits["refit"]).float().mean().item()
+        rays = (int(frames[mode][1].sum()), int(frames["refit"][1].sum()))
+        out[mode] = dict(rmse_vs_refit=err, hit_agree=agree, rays=rays)
+        log(f"  {mode} vs refit at rot_y(0.05), 1080p: "
+            + json.dumps(out[mode]))
+        if err > REBUILD_RMSE or agree < REBUILD_HIT_AGREE:
+            raise AssertionError(f"{mode} frame differs from the refit "
+                                 f"frame: {out[mode]}")
+    del frames, hits
+
+    model = procedural_model("small", seed=SEED)
+    small_cfg = dataclasses.replace(cfg, width=64, height=48)
+    small_cam = start_camera(64, 48)
+    golden = None
+    for mode in REBUILD_MODES:
+        sr = Renderer(model, small_cfg, dev, rebuild=mode)
+        fb, rays = sr.render(small_cam, m)
+        if golden is None:
+            golden = render_golden(
+                transformed_flat(sr.flat, m), build_texture_heap(model.images),
+                small_cam.proj_inverse, small_cam.view_inverse, small_cfg,
+                accel="brute")
+        err = rmse(fb, golden)
+        log(f"  64x48 depth-4 frame under rot_y(0.05), rebuild={mode}, vs "
+            f"oracle: rmse {err:.3e} (bar {GOLDEN_RMSE}), rays {rays}")
+        out[f"golden_{mode}"] = err
+        if not (np.isfinite(fb).all() and err <= GOLDEN_RMSE):
+            raise AssertionError(f"config-5 frame ({mode}) vs oracle failed: "
+                                 f"rmse {err}")
+
+    geometry, _, _ = r.rebuild_inputs()
+    order = device_sah_order(*geometry)
+    n = geometry[0].shape[0]
+    perm = bool(torch.equal(torch.sort(order.long()).values,
+                            torch.arange(n, device=dev)))
+    area = dict(host=tree_area(base.backend.tree),
+                sah=tree_area(clusters.build_clusters(*geometry,
+                                                      method="sah")),
+                morton=tree_area(clusters.build_clusters(*geometry,
+                                                         method="morton")))
+    out["sah"] = dict(permutation=perm, triangles=n, area=area,
+                      vs_host=area["sah"] / area["host"],
+                      vs_morton=area["sah"] / area["morton"])
+    log("  device-SAH order, full scene:", json.dumps(out["sah"]))
+    if not (perm and out["sah"]["vs_host"] <= SAH_VS_HOST
+            and out["sah"]["vs_morton"] < SAH_VS_MORTON):
+        raise AssertionError(f"device-SAH order failed its gates: "
+                             f"{out['sah']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -996,6 +1438,7 @@ def main() -> int:
     log(json.dumps(info))
     smi = runtime.nvidia_smi_line()
 
+    t_start = time.perf_counter()
     log("== 2. build")
     b = kernels.build()
     log(f"  built {b.path} in {b.seconds:.1f} s (cached: {b.cached})")
@@ -1042,6 +1485,7 @@ def main() -> int:
     off.cfg = dataclasses.replace(cfg, **REORDER_OFF)
     res_off, outs_off = drive(off, cams, dict(A=2, B=2), "flags off")
     same_frames(outs_off, outs)
+    first_outs = outs[:PER_LIGHT_FRAMES + 1]
     del outs, outs_off
     log(f"  ms/frame: defaults {res_main['frame_ms']:.3f}, flags off "
         f"{res_off['frame_ms']:.3f}")
@@ -1054,6 +1498,51 @@ def main() -> int:
         f"{PROFILE_FRAMES} flags-off frames")
     profile_frames(renderer, cam, "defaults")
     profile_frames(off, cam, "flags off")
+
+    log("== 14. kernel A' vs plain on probes")
+    probe_err["A'"], err_a = probe_occluded(renderer.backend, o, d, tmax, lp,
+                                            sd, st)
+    probe_err["A"] = max(probe_err["A"], err_a)
+
+    log("== 15. config 4 with the per-light shadow dispatch (kernel A')")
+    pl = copy.copy(renderer)
+    pl.backend = renderer.backend._replace(per_light=True)
+    pl_cams = cams[:PER_LIGHT_FRAMES + 1]
+    res_pl, outs_pl = drive(pl, pl_cams, {"A": 2, "A'": 8, "C": 1, "D": 1,
+                                          "E": 1, "F": 1},
+                            "per-light main path")
+    same_frames(outs_pl, first_outs, "per-light")
+    del outs_pl, first_outs
+    log(f"  ms/frame: per light {res_pl['frame_ms']:.3f}, defaults "
+        f"{res_main['frame_ms']:.3f}")
+    res_15 = per_light_shapes(renderer, cam)
+    log("  A' per frame: "
+        f"{sum(r['ms'] for r in res_15):.3f} ms in "
+        f"{sum(r['launches'] for r in res_15)} launches vs B "
+        f"{sum(r['b_ms'] for r in res_15):.3f} ms in {len(res_15)}")
+
+    log("== 16. config 5 at 1920x1080: refit, full (device SAH), full_morton")
+    res_16 = config5_modes(renderer, cams[:CONFIG5_FRAMES + 1])
+    log(f"== profile: {PROFILE_FRAMES} config-5 frames per rebuild mode")
+    r5s = {}
+    for mode in REBUILD_MODES:
+        r5s[mode] = r5 = copy.copy(renderer)
+        r5.cfg, r5.rebuild = C.config5_stress(), mode
+        profile_frames(r5, cam, f"config 5, {mode}", CONFIG5_RANGES)
+        event_ranges(r5, cam, f"config 5, {mode}", rot_y(0.02))
+
+    log("== 17. config-5 gates")
+    config5_gates(renderer, cam, dev)
+
+    log("== 18. kernels vs plain at the config-5 path's shapes")
+    res_18 = {}
+    for mode, r5 in r5s.items():
+        res_18[mode] = main_path_shapes(r5, cam, rot_y(0.02),
+                                        f"config 5, {mode}")
+        log(f"  config 5, {mode}: kernel ms per frame by depth: " + json.dumps(
+            {k: [round(r["ms"], 3) for r in rows]
+             for k, rows in res_18[mode].items()}))
+    del r5, r5s
 
     log("== 10. kernel G vs plain on probes")
     small = rp.Rasterizer(procedural_model("small", seed=SEED),
@@ -1088,8 +1577,10 @@ def main() -> int:
         lib_ms = [r.get("library_ms") for r in rows]
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": res_main["launches"][k],
-                "max_abs_err": max([probe_err[k]]
-                                   + [r["max_abs_err"] for r in rows]),
+                "max_abs_err": max(
+                    [probe_err[k]] + [r["max_abs_err"] for r in rows]
+                    + [r["max_abs_err"] for m in res_18.values()
+                       for r in m[k]]),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 **{key: add_bounds(rows)[key]
@@ -1106,10 +1597,23 @@ def main() -> int:
          "bound_ms": res_13["bound_sample0"]["bound_ms"],
          "bound_by": res_13["bound_sample0"]["bound_by"],
          "library_ms": None}
+    a_prime = {"name": "trace_occluded", "route": "cuda",
+               "source": "vkrt_tpu_torch/csrc/trace_occluded.cu",
+               "replaces": "vkrt_tpu/rt/dense.py:367",
+               "launches": res_pl["launches"]["A'"],
+               "max_abs_err": max([probe_err["A'"]]
+                                  + [r["max_abs_err"] for r in res_15]),
+               "ms": sum(r["ms"] for r in res_15),
+               "plain_ms": sum(r["plain_ms"] for r in res_15),
+               **{key: add_bounds(res_15)[key]
+                  for key in ("bound_ms", "bound_by")},
+               "library_ms": None}
+    log(f"== total {time.perf_counter() - t_start:.1f} s from the build on")
     log(smi)
     log(json.dumps({"kernels": [
         entry("trace_closest", "A", "vkrt_tpu_torch/csrc/trace_closest.cu",
               "vkrt_tpu/rt/dense.py:238"),
+        a_prime,
         entry("occl_multi", "B", "vkrt_tpu_torch/csrc/occl_multi.cu",
               "vkrt_tpu/rt/occl_multi.py:40"),
         entry("consolidate", "C", "vkrt_tpu_torch/csrc/pack.cu",

@@ -1,4 +1,6 @@
-"""Kernels A-G on the card vs their plain PyTorch versions.
+"""Kernels A-G and A' on the card vs their plain PyTorch versions, and
+the per-frame accel update (refit, device SAH and Morton rebuilds) on the
+card vs the CPU.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
@@ -21,11 +23,15 @@ from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.framebuffer import rmse
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster.pipeline import MSAA8, Rasterizer, sample_pixel_lanes
-from vkrt_tpu_torch.rt.dense import trace_dense, trace_dense_plain
+from vkrt_tpu_torch.accel.device_sah import device_sah_order
+from vkrt_tpu_torch.accel.refit import refit_clusters
+from vkrt_tpu_torch.rt.dense import (broadcast_points, trace_dense,
+                                     trace_dense_plain, trace_occluded,
+                                     trace_occluded_plain)
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import lanesort, pack
-from vkrt_tpu_torch.wavefront.engine import Renderer
+from vkrt_tpu_torch.wavefront.engine import REBUILD_MODES, Renderer
 
 pytestmark = pytest.mark.cuda
 
@@ -198,3 +204,134 @@ def test_raster_frame_on_card_matches_cpu(renderer):
     assert edge.raster_edge.launches == before + 32
     want = Rasterizer(renderer.model, cfg, "cpu").render(cam, show_fps=False)
     assert (np.abs(fb - want).max(-1) > 0.02).mean() <= 0.001
+
+
+def rot_y(ang):
+    c, s = np.cos(ang), np.sin(ang)
+    return np.array([[c, 0, s, 0], [0, 1, 0, 0], [-s, 0, c, 0], [0, 0, 0, 1]],
+                    np.float32)
+
+
+@pytest.mark.parametrize("block", [0, 512, 1024])
+def test_kernel_a_prime_matches_plain(renderer, card, block):
+    """Kernel A' vs its plain version: per-ray origins (block 0) and one
+    origin per block of 512 / 1024 rays; masks equal, parked and
+    empty-interval rays free, outputs as the JAX kernel leaves them."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, seed=3)
+    tmax = torch.where(tmax > 0, 12.0, 0.0)
+    tmax[0, :8] = 0.0009
+    kw = {}
+    if block:
+        pts = o.reshape(3, -1)[:, ::block].T.contiguous()
+        o, kw = broadcast_points(pts, d, block), dict(block=block,
+                                                      point_origin=True)
+    before = trace_occluded.launches
+    t, slot, u, v = trace_occluded(tree, pts if block else o, d, tmax, **kw)
+    want = trace_occluded_plain(tree, o, d, tmax)
+    torch.cuda.synchronize()
+    assert trace_occluded.launches == before + 1
+    assert torch.equal(slot >= 0, want)
+    assert 0.05 < want.float().mean().item() < 0.95
+    assert not want[0, :8].any() and not want[tmax == 0].any()
+    assert torch.equal(slot, torch.where(want, 1, -1).to(torch.int32))
+    assert torch.equal(t, torch.where(want, 0.001, torch.inf))
+    assert not u.any() and not v.any()
+    if block:       # closest hit, point origins == broadcast origins
+        got = trace_dense(tree, pts, d, tmax, **kw)
+        for g, w in zip(got, trace_dense(tree, o, d, tmax)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("form", ["no_attributes", "point_512",
+                                  "point_1024"])
+def test_kernel_a_forms_match_plain(renderer, card, form):
+    """Kernel A without its attribute output, and with one origin per
+    block of rays, vs A's plain version: every output equal."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, seed=5)
+    if form == "no_attributes":
+        got = trace_dense(tree, o, d, tmax, with_attributes=False)
+        assert len(got) == 4
+    else:
+        block = int(form.split("_")[1])
+        pts = o.reshape(3, -1)[:, ::block].T.contiguous()
+        o = broadcast_points(pts, d, block)
+        got = trace_dense(tree, pts, d, tmax, block=block, point_origin=True)
+        assert len(got) == 5
+    want = trace_dense_plain(tree, o, d, tmax)
+    torch.cuda.synchronize()
+    assert (want[1] >= 0).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_backend_occluded_entry_points_on_card(renderer, card):
+    """DenseBackend.occluded and occluded_point return the plain
+    version's masks."""
+    be = renderer.backend
+    o, d, tmax = random_rays(card, seed=7)
+    tmax = torch.where(tmax > 0, 12.0, 0.0)
+    assert torch.equal(be.occluded(o, d, tmax),
+                       trace_occluded_plain(be.tree, o, d, tmax))
+    pts = o.reshape(3, -1)[:, ::512].T.contiguous()
+    assert torch.equal(
+        be.occluded_point(pts, d, tmax, 512),
+        trace_occluded_plain(be.tree, broadcast_points(pts, d, 512), d, tmax))
+
+
+def test_per_light_frame_equals_kernel_b_frame_on_card(renderer):
+    """DenseBackend.per_light: 4 lights x 2 depths = 8 launches of A' and
+    none of B; the frame and its ray count equal the kernel-B frame."""
+    cam = start_camera()
+    want, want_rays = renderer.render(cam)
+    pl = Renderer(renderer.model, small_config(), renderer.device)
+    pl.backend = pl.backend._replace(per_light=True)
+    a0, b0 = trace_occluded.launches, occluded_multi.launches
+    fb, rays = pl.render(cam)
+    assert trace_occluded.launches == a0 + 8
+    assert occluded_multi.launches == b0
+    np.testing.assert_array_equal(fb, want)
+    assert rays == want_rays
+
+
+def test_refit_on_card_matches_cpu(renderer):
+    """refit_clusters is elementwise float32: the card's tree equals the
+    CPU's bit for bit."""
+    m = rot_y(0.3)
+    m[:3, 3] = (0.5, -1.0, 2.0)
+    got = refit_clusters(renderer.backend.tree,
+                         torch.as_tensor(m, device=renderer.device))
+    cpu_tree = type(renderer.backend.tree)(*(x.cpu() for x in
+                                             renderer.backend.tree))
+    want = refit_clusters(cpu_tree, torch.as_tensor(m))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_device_sah_order_on_card_matches_cpu(renderer, card):
+    flat = renderer.flat
+    idx = np.asarray(flat.indices, dtype=np.int64)
+    p = np.asarray(flat.positions, np.float32)
+    v0 = p[idx[:, 0]]
+    tris = [torch.as_tensor(x) for x in (v0, p[idx[:, 1]] - v0,
+                                         p[idx[:, 2]] - v0)]
+    want = device_sah_order(*tris)
+    got = device_sah_order(*(x.to(card) for x in tris))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("mode", REBUILD_MODES)
+def test_config5_frame_on_card_matches_cpu(renderer, mode):
+    """64x48, depth 4, 4 lights under a rotation, each rebuild mode: the
+    card's frame within RMSE 1e-3 of the CPU's, ray counts within 0.1%."""
+    cfg = dataclasses.replace(C.config5_stress(), width=64, height=48)
+    cam = start_camera()
+    m = rot_y(0.05)
+    fb, rays = Renderer(renderer.model, cfg, renderer.device,
+                        rebuild=mode).render(cam, transform=m)
+    want, want_rays = Renderer(renderer.model, cfg, "cpu",
+                               rebuild=mode).render(cam, transform=m)
+    assert np.isfinite(fb).all()
+    assert rmse(fb, want) <= 1e-3
+    assert abs(rays - want_rays) <= 1e-3 * want_rays

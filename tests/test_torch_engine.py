@@ -187,11 +187,13 @@ def test_unported_flag_raises(scene, flag):
 
 def test_shipped_defaults_accepted_and_unported_flags_raise():
     """RenderConfig's shipped defaults (the depth>=1 reorder flags on) are
-    ported; the seven flags that still need unported machinery raise."""
+    ported, and so is rebuild_per_frame (config 5); the six flags that
+    still need unported machinery raise."""
     te.check_supported(C.config4_flythrough())
     te.check_supported(C.RenderConfig())
+    te.check_supported(C.config5_stress())
     assert not set(REORDER_FLAGS) & set(te._UNPORTED_FLAGS)
-    assert len(te._UNPORTED_FLAGS) == 7
+    assert len(te._UNPORTED_FLAGS) == 6
     for flag in te._UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match=flag):
             te.check_supported(dataclasses.replace(C.config4_flythrough(),

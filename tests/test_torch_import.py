@@ -42,11 +42,14 @@ def test_port_imports_without_jax():
         leaked = [m for m in sys.modules
                   if m.startswith(("jax.", "jaxlib", "vkrt_tpu."))]
         assert not leaked, leaked
-        print(len(names), "modules")
+        print(len(names), "modules", " ".join(names))
     """)
     assert proc.returncode == 0, proc.stderr
     n = int(proc.stdout.split()[0])
     assert n >= 15      # package, subpackages and modules
+    for name in ("accel.refit", "accel.lbvh", "accel.device_sah",
+                 "accel.clusters", "rt.dense", "wavefront.engine"):
+        assert f"vkrt_tpu_torch.{name}" in proc.stdout.split(), name
 
 
 def test_chip_smoke_fails_without_cuda():

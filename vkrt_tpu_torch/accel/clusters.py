@@ -1,9 +1,13 @@
-"""Cluster tree — counterpart of vkrt_tpu/accel/clusters.py (host build).
+"""Cluster tree — counterpart of vkrt_tpu/accel/clusters.py.
 
-The same numpy host build as the JAX package (`split_permutation`,
-`_assemble_host`, `scene_attrs`), ending in torch tensors instead of jax
-arrays, so trees are byte-equal between the two packages. The JAX module
-imports jax at its top, so the numpy code is carried here as a copy.
+Two builds of the same layout. The host build is the JAX package's numpy
+code (`split_permutation`, `_assemble_host`, `scene_attrs`), ending in
+torch tensors instead of jax arrays, so trees are byte-equal between the
+two packages; the JAX module imports jax at its top, so the numpy code
+is carried here as a copy. The device build (`build_clusters` on torch
+tensors: the per-frame rebuild) orders the triangles on the tensors'
+device — `device_sah_order` or a Morton argsort — and packs them with
+`_assemble`, plain torch with no host wait.
 
 Layout (see vkrt_tpu/accel/clusters.py for the column table):
   sc_boxes  f32[8, C2p]      supercluster AABBs, rows 0-2 min, 3-5 max
@@ -67,15 +71,126 @@ def tree_from_numpy(sc_boxes, cl_boxes, tri_data, leaf_tri,
 
 
 def build_clusters(v0, e1, e2, attrs=None, with_attributes: bool = False,
-                   device="cpu") -> ClusterTree:
-    """Host build of the cluster tree onto torch `device`: the static
-    SAH-split build (the JAX package's `device=False, method="split"`).
-    Per-frame device rebuilds are ROADMAP.md queue 1 item 8."""
-    v0, e1, e2 = (np.asarray(a, np.float32) for a in (v0, e1, e2))
-    order = split_permutation(v0, e1, e2)
-    return tree_from_numpy(*_assemble_host(v0, e1, e2, order, attrs,
-                                           with_attributes),
-                           device=device)
+                   device="cpu", method: str = "split", aabb=None,
+                   sah_opts: dict | None = None) -> ClusterTree:
+    """Build the cluster tree.
+
+    numpy inputs with method="split" (the default): the static host build
+    (the JAX package's `device=False, method="split"`), moved to torch
+    `device` when done.
+
+    torch tensors (or method "sah" / "morton"): the device build on the
+    tensors' device (numpy inputs go to `device` first), the per-frame
+    rebuild path. method="sah" or "split" orders with
+    accel/device_sah.device_sah_order (`sah_opts` forwards max_levels and
+    nbins), method="morton" with one stable argsort of 30-bit Morton
+    codes quantised inside `aabb=(lo, hi)` (the centroids' own bounds if
+    omitted; conservative bounds are fine). `attrs` then holds tensors
+    (or arrays) keyed as `scene_attrs`."""
+    if method not in ("split", "sah", "morton"):
+        raise ValueError(f"build_clusters: unknown method {method!r}")
+    on_host = not isinstance(v0, torch.Tensor)
+    if on_host and method == "split":
+        v0, e1, e2 = (np.asarray(a, np.float32) for a in (v0, e1, e2))
+        order = split_permutation(v0, e1, e2)
+        return tree_from_numpy(*_assemble_host(v0, e1, e2, order, attrs,
+                                               with_attributes),
+                               device=device)
+    dev = torch.device(device) if on_host else v0.device
+
+    def put(x, dtype=torch.float32):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    v0, e1, e2 = put(v0), put(e1), put(e2)
+    if attrs is not None:
+        attrs = {k: put(x) for k, x in attrs.items()}
+    if method == "morton":
+        from vkrt_tpu_torch.accel.lbvh import morton30
+        cen = v0 + (e1 + e2) / 3.0
+        lo, hi = ((cen.amin(dim=0), cen.amax(dim=0)) if aabb is None
+                  else (put(aabb[0]), put(aabb[1])))
+        order = torch.argsort(morton30(cen, lo, hi), stable=True)
+    else:
+        from vkrt_tpu_torch.accel.device_sah import device_sah_order
+        order = device_sah_order(v0, e1, e2, **(sah_opts or {}))
+    return _assemble(v0, e1, e2, order, attrs, with_attributes)
+
+
+def pack_boxes(cl_min, cl_max, c2p: int):
+    """Cluster AABBs f32[C1p,3] (padding clusters inverted) → the tree's
+    (sc_boxes f32[8,c2p], cl_boxes f32[C2,8,K2])."""
+    c2 = cl_min.shape[0] // K2
+    dev = cl_min.device
+    cmin, cmax = cl_min.reshape(c2, K2, 3), cl_max.reshape(c2, K2, 3)
+    sc_boxes = torch.full((8, c2p), _INF, device=dev)
+    sc_boxes[3:6, :] = -_INF               # padding lanes: inverted box
+    sc_boxes[0:3, :c2] = cmin.amin(dim=1).T
+    sc_boxes[3:6, :c2] = cmax.amax(dim=1).T
+    cl_boxes = torch.zeros((c2, 8, K2), device=dev)
+    cl_boxes[:, 0:3, :] = cmin.permute(0, 2, 1)
+    cl_boxes[:, 3:6, :] = cmax.permute(0, 2, 1)
+    return sc_boxes, cl_boxes
+
+
+def subrun_boxes(tri_data, lmin, lmax) -> None:
+    """Write the 16-triangle sub-run AABBs of the leaf boxes lmin, lmax
+    f32[C,K1,3] into tri_data[:C]'s pad columns (rows 0-7, cols 40-45),
+    in place. Kept for layout parity with the JAX package; the CUDA
+    kernels do not read them."""
+    c = lmin.shape[0]
+    run = K1 // SUBRUNS
+    tri_data[:c, 0:SUBRUNS, SUB_COL:SUB_COL + 3] = \
+        lmin.reshape(c, SUBRUNS, run, 3).amin(dim=2)
+    tri_data[:c, 0:SUBRUNS, SUB_COL + 3:SUB_COL + 6] = \
+        lmax.reshape(c, SUBRUNS, run, 3).amax(dim=2)
+
+
+def _assemble(v0, e1, e2, order, attrs=None,
+              with_attributes: bool = False) -> ClusterTree:
+    """torch twin of `_assemble_host` on the inputs' device: v0, e1, e2
+    f32[T,3] and the permutation `order` i[T] → the packed tree. The same
+    layout and the same values (gathers, min/max and copies only), so a
+    given order yields a byte-equal tree."""
+    dev = v0.device
+    T = v0.shape[0]
+    Tp = -(-T // K1) * K1
+    C1 = Tp // K1
+    C1p = -(-C1 // K2) * K2
+    order = order.to(torch.int64)
+
+    def sorted_rows(x):                    # [T,k] → [C1,K1,k], zero padded
+        x = torch.nn.functional.pad(x[order], (0, 0, 0, Tp - T))
+        return x.reshape(C1, K1, -1)
+
+    sv0, se1, se2 = sorted_rows(v0), sorted_rows(e1), sorted_rows(e2)
+    leaf_tri = torch.nn.functional.pad(order.to(torch.int32), (0, Tp - T),
+                                       value=-1)
+    valid = (torch.arange(Tp, device=dev) < T).reshape(C1, K1, 1)
+    p1, p2 = sv0 + se1, sv0 + se2
+    lmin = torch.where(valid, torch.minimum(torch.minimum(sv0, p1), p2),
+                       _INF)
+    lmax = torch.where(valid, torch.maximum(torch.maximum(sv0, p1), p2),
+                       -_INF)
+    cl_min = torch.full((C1p, 3), _INF, device=dev)
+    cl_max = torch.full((C1p, 3), -_INF, device=dev)
+    cl_min[:C1], cl_max[:C1] = lmin.amin(dim=1), lmax.amax(dim=1)
+    C2 = C1p // K2
+    sc_boxes, cl_boxes = pack_boxes(cl_min, cl_max,
+                                    max(128, -(-C2 // 128) * 128))
+
+    tri_data = torch.zeros((C1p, K1, ROWS), device=dev)
+    tri_data[:C1, :, 0:3], tri_data[:C1, :, 3:6] = sv0, se1
+    tri_data[:C1, :, 6:9] = se2
+    if with_attributes:
+        col = 9
+        for key in ("n0", "n1", "n2", "uv0", "uv1", "uv2", "t0", "t1", "t2",
+                    "mat"):
+            x = sorted_rows(attrs[key])
+            tri_data[:C1, :, col:col + x.shape[2]] = x
+            col += x.shape[2]
+    subrun_boxes(tri_data, lmin, lmax)
+    return ClusterTree(sc_boxes=sc_boxes, cl_boxes=cl_boxes,
+                       tri_data=tri_data, leaf_tri=leaf_tri)
 
 
 def split_permutation(v0, e1, e2):

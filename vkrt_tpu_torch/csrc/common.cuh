@@ -1,5 +1,5 @@
-// Shared gating and layout helpers of the two trace kernels
-// (trace_closest.cu: kernel A, occl_multi.cu: kernel B).
+// Shared gating and layout helpers of the three trace kernels
+// (trace_closest.cu: kernel A, trace_occluded.cu: A', occl_multi.cu: B).
 //
 // Tree layout (vkrt_tpu_torch/accel/clusters.py, identical to the JAX
 // package's ClusterTree):

@@ -1,7 +1,8 @@
 // Kernel A: closest-hit trace with the 36-attribute select.
 //
 // Replaces the Pallas kernel vkrt_tpu/rt/dense.py::_trace_kernel (:238)
-// in its closest-hit + with_attributes mode, entry trace_dense (:802).
+// in its closest-hit mode, with and without the attribute select and
+// point_origin (:257-265), entry trace_dense (:802).
 //
 // What bounds it on the H100: the Möller–Trumbore sweeps, ~30 float ops
 // per (ray, triangle) pair, and the divergence between neighbouring rays
@@ -24,6 +25,10 @@
 //   across clusters a strict < keeps the first visited (here: the lower
 //   cluster id, so every tie resolves to the lowest slot);
 //   miss: t = inf, slot = -1, u = v = 0, attrs = 0.
+// With `block` > 0 the rays of one block share an origin: ray i starts at
+// o_pts[i / block] (the TPU kernel's point_origin operands); the
+// arithmetic is the same, so the result equals the broadcast origins'.
+// A null attr_out skips the attribute select (with_attributes=False).
 #include "common.cuh"
 
 namespace vkrt {
@@ -32,7 +37,8 @@ __global__ void __launch_bounds__(128)
 trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      const float* __restrict__ cl_boxes,
                      const float* __restrict__ tri_data,
-                     const float* __restrict__ orig,   // [3, n]
+                     const float* __restrict__ orig,   // [3, n] or [n/block, 3]
+                     int block,                        // 0: per-ray origins
                      const float* __restrict__ dirs,   // [3, n]
                      const float* __restrict__ tmax,   // [n]
                      int n, float* __restrict__ t_out, int* __restrict__ slot_out,
@@ -41,9 +47,16 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   Ray r;
-  r.ox = orig[i];
-  r.oy = orig[(size_t)n + i];
-  r.oz = orig[2 * (size_t)n + i];
+  if (block > 0) {
+    const float* p = orig + (size_t)(i / block) * 3;
+    r.ox = __ldg(p + 0);
+    r.oy = __ldg(p + 1);
+    r.oz = __ldg(p + 2);
+  } else {
+    r.ox = orig[i];
+    r.oy = orig[(size_t)n + i];
+    r.oz = orig[2 * (size_t)n + i];
+  }
   r.dx = dirs[i];
   r.dy = dirs[(size_t)n + i];
   r.dz = dirs[2 * (size_t)n + i];
@@ -82,6 +95,7 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   slot_out[i] = best;
   u_out[i] = bu;
   v_out[i] = bv;
+  if (attr_out == nullptr) return;
   const float* row = tri_data + (size_t)(best >= 0 ? best : 0) * ROWS;
   for (int a = 0; a < N_ATTR; ++a)
     attr_out[(size_t)a * n + i] = best >= 0 ? __ldg(row + a) : 0.0f;
@@ -93,8 +107,9 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
 // after the launch; the launch does not synchronise.
 extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
                                   const float* cl_boxes, const float* tri_data,
-                                  const float* orig, const float* dirs,
-                                  const float* tmax, int n, float* t_out,
+                                  const float* orig, int block,
+                                  const float* dirs, const float* tmax,
+                                  int n, float* t_out,
                                   int* slot_out, float* u_out, float* v_out,
                                   float* attr_out, void* stream) {
   if (n > 0) {
@@ -102,8 +117,8 @@ extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
     const int blocks = (n + threads - 1) / threads;
     vkrt::trace_closest_kernel<<<blocks, threads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-        sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, dirs, tmax, n, t_out,
-        slot_out, u_out, v_out, attr_out);
+        sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
+        t_out, slot_out, u_out, v_out, attr_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,8 @@ a later process on the same checkout, reuses the library. Nothing here
 runs at import time: the CPU tests import every module on a machine
 without nvcc.
 
-Sources: trace_closest.cu (kernel A), occl_multi.cu (B), pack.cu (C, D),
-lanesort.cu (E, F), raster_edge.cu (G).
+Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
+occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product
@@ -31,8 +31,8 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("trace_closest.cu", "occl_multi.cu", "pack.cu", "lanesort.cu",
-           "raster_edge.cu")
+SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
+           "pack.cu", "lanesort.cu", "raster_edge.cu")
 HEADERS = ("common.cuh",)
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -109,9 +109,12 @@ _I = ctypes.c_int
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build().path))
-    lib.vkrt_trace_closest.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _I,
-                                       _P, _P, _P, _P, _P, _P]
+    lib.vkrt_trace_closest.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P,
+                                       _I, _P, _P, _P, _P, _P, _P]
     lib.vkrt_trace_closest.restype = _I
+    lib.vkrt_trace_occluded.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P,
+                                        _I, _P, _P, _P, _P, _P]
+    lib.vkrt_trace_occluded.restype = _I
     lib.vkrt_occl_multi.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
                                     _P, _P]
     lib.vkrt_occl_multi.restype = _I

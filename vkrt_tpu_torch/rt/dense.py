@@ -1,16 +1,22 @@
-"""Closest-hit trace with attributes — counterpart of vkrt_tpu/rt/dense.py.
+"""Dense cluster trace — counterpart of vkrt_tpu/rt/dense.py.
 
-`trace_dense` is kernel A's wrapper. On a CUDA tensor it launches the
-hand-written kernel in csrc/trace_closest.cu (which replaces the Pallas
-kernel `_trace_kernel`, dense.py:238, in its closest + with_attributes
-mode) or raises; on a CPU tensor it runs `trace_dense_plain`, the plain
-PyTorch version of the same function. The kernel's occlusion and
-point-origin modes are not ported yet (ROADMAP.md queue 2, item A).
+`trace_dense` is the wrapper of kernel A (closest hit, with or without
+the 36-attribute select) and of kernel A' (`occlusion=True`: any-hit,
+division-free), each with per-ray origins or one origin per block of
+rays (`point_origin=True`). On a CUDA tensor it launches the
+hand-written kernel in csrc/trace_closest.cu or csrc/trace_occluded.cu
+(which replace the Pallas kernel `_trace_kernel`, dense.py:238, in those
+modes) or raises; on a CPU tensor it runs `trace_dense_plain` or
+`trace_occluded_plain`, the plain PyTorch versions of the same
+functions. `trace_occluded` is A' under its own name, with its own
+launch count.
 
-Outputs, as trace_dense(..., with_attributes=True) in the JAX package:
-t (inf on a miss), slot (leaf order, -1 on a miss), u, v — all
-[Nb, 128] — and attrs f32[36, Nb, 128] (tri_data columns 0-35 of the
-hit, 0 on a miss). Ties go to the smaller t, then the lower slot.
+Outputs, as trace_dense in the JAX package: t (inf on a miss), slot
+(leaf order, -1 on a miss), u, v — all [Nb, 128] — and, with
+with_attributes, attrs f32[36, Nb, 128] (tri_data columns 0-35 of the
+hit, 0 on a miss). Ties go to the smaller t, then the lower slot. In
+occlusion mode slot >= 0 means blocked: a blocked ray reads slot 1,
+t = TMIN, a free one slot -1, t = inf; u, v (and attrs) are 0.
 """
 
 from __future__ import annotations
@@ -162,46 +168,147 @@ def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax):
             attrs.reshape(_N_ATTR, nb, LANES))
 
 
-def trace_dense(tree: ClusterTree, origins, dirs, tmax):
-    """Closest-hit trace with attributes (lane-major I/O).
-
-    origins, dirs: f32[3, Nb, 128]; tmax: f32[Nb, 128] (0 = parked ray).
-    Returns (t, slot, u, v, attrs) — see the module docstring. A CUDA
-    tensor launches kernel A and counts it in `trace_dense.launches`; a
-    CPU tensor runs `trace_dense_plain`."""
-    dev = dirs.device
-    if dev.type == "cpu":
-        return trace_dense_plain(tree, origins, dirs, tmax)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_dense: unsupported device {dev}")
+def trace_occluded_plain(tree: ClusterTree, origins, dirs, tmax):
+    """Plain PyTorch version of kernel A' with per-ray origins (same
+    inputs as `trace_dense`) → blocked bool[Nb,128]: any gated triangle
+    that passes the division-free test blocks the ray. Same arithmetic,
+    in the same order, as `occluded_multi_plain`."""
     nb = dirs.shape[1]
     n = nb * LANES
-    if (dirs.shape != (3, nb, LANES) or origins.shape != dirs.shape
+    o, d, tm = origins.reshape(3, n), dirs.reshape(3, n), tmax.reshape(n)
+    geo = tree.tri_data[:, :, 0:9].contiguous()
+    blocked = torch.zeros(n, dtype=torch.bool, device=dirs.device)
+    for ray, cl in gated_pairs(tree, o, d, tm):
+        det, up, vp, tp = _mt_terms(geo[cl], o[:, ray], d[:, ray])
+        adet = det.abs()
+        sgn = torch.where(det < 0, -1.0, 1.0)
+        su, sv, st = up * sgn, vp * sgn, tp * sgn
+        ok = ((adet > _DET_EPS) & (su >= 0) & (sv >= 0) & (su + sv <= adet)
+              & (st > TMIN * adet) & (st < tm[ray][:, None] * adet))
+        blocked[ray[ok.any(dim=1)]] = True
+    return blocked.reshape(nb, LANES)
+
+
+def broadcast_points(o_pts, dirs, block: int):
+    """[N/block, 3] per-block origin points → full [3,Nb,128] origins."""
+    o = o_pts.repeat_interleave(block // LANES, dim=0).T[:, :, None]
+    return o.expand(dirs.shape).contiguous()
+
+
+def _check_rays(what, origins, dirs, tmax, block: int, point_origin: bool):
+    """Validate a trace wrapper's ray arguments; returns (device, Nb)."""
+    dev = dirs.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {dev}")
+    nb = dirs.shape[1]
+    n = nb * LANES
+    if point_origin:
+        if block <= 0 or block % LANES or n % block:
+            raise ValueError(f"{what}: ray count {n} is not a multiple of "
+                             f"block {block} (itself a multiple of {LANES})")
+        o_shape = (n // block, 3)
+    else:
+        o_shape = (3, nb, LANES)
+    if (dirs.shape != (3, nb, LANES) or origins.shape != o_shape
             or tmax.shape != (nb, LANES)):
-        raise ValueError(f"trace_dense: shapes o {tuple(origins.shape)} "
+        raise ValueError(f"{what}: shapes o {tuple(origins.shape)} "
                          f"d {tuple(dirs.shape)} tmax {tuple(tmax.shape)}")
     for name, x in (("origins", origins), ("dirs", dirs), ("tmax", tmax)):
         if x.dtype != torch.float32 or x.device != dev:
-            raise ValueError(f"trace_dense: {name} must be f32 on {dev}")
+            raise ValueError(f"{what}: {name} must be f32 on {dev}")
+    return dev, nb
+
+
+def _kernel_args(tree: ClusterTree, origins, block: int, dirs, tmax):
+    """The leading arguments both trace kernels' C entry points share."""
+    return (tree.sc_boxes.data_ptr(), tree.sc_boxes.shape[1],
+            tree.num_superclusters, tree.cl_boxes.data_ptr(),
+            tree.tri_data.data_ptr(), origins.data_ptr(), block,
+            dirs.data_ptr(), tmax.data_ptr(), tmax.numel())
+
+
+def trace_occluded(tree: ClusterTree, origins, dirs, tmax, *,
+                   block: int = 512, point_origin: bool = False):
+    """Any-hit trace (kernel A' and its wrapper): `trace_dense`'s
+    occlusion mode, same ray arguments. Returns (t, slot, u, v), all
+    [Nb,128]: slot 1, t = TMIN on a blocked ray, slot -1, t = inf on a
+    free one, u = v = 0. A CUDA tensor launches kernel A' and counts it
+    in `trace_occluded.launches`; a CPU tensor runs
+    `trace_occluded_plain`."""
+    dev, nb = _check_rays("trace_occluded", origins, dirs, tmax, block,
+                          point_origin)
+    if dev.type == "cpu":
+        if point_origin:
+            origins = broadcast_points(origins, dirs, block)
+        blocked = trace_occluded_plain(tree, origins, dirs, tmax)
+        zero = torch.zeros(nb, LANES)
+        return (torch.where(blocked, TMIN, torch.inf),
+                torch.where(blocked, 1, -1).to(torch.int32), zero, zero)
     _check_tree(tree, dev)
     origins, dirs, tmax = (x.contiguous() for x in (origins, dirs, tmax))
     t = torch.empty(nb, LANES, device=dev)
     slot = torch.empty(nb, LANES, dtype=torch.int32, device=dev)
     u = torch.empty(nb, LANES, device=dev)
     v = torch.empty(nb, LANES, device=dev)
-    attrs = torch.empty(_N_ATTR, nb, LANES, device=dev)
     lib = kernels.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vkrt_trace_occluded(
+            *_kernel_args(tree, origins, block if point_origin else 0, dirs,
+                          tmax),
+            t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(err, "trace_occluded")
+    trace_occluded.launches += 1
+    return t, slot, u, v
+
+
+trace_occluded.launches = 0
+
+
+def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
+                occlusion: bool = False, with_attributes: bool = True,
+                point_origin: bool = False):
+    """Trace rays against the cluster tree (lane-major I/O).
+
+    origins, dirs: f32[3, Nb, 128]; tmax: f32[Nb, 128] (0 = parked ray).
+    point_origin=True: the rays of each block of `block` share one origin
+    and `origins` is f32[N/block, 3]; N must then be a multiple of
+    `block` (a multiple of 128). Returns (t, slot, u, v[, attrs]) — see
+    the module docstring. occlusion=True is `trace_occluded` (kernel A').
+    Otherwise a CUDA tensor launches kernel A and counts it in
+    `trace_dense.launches`; a CPU tensor runs `trace_dense_plain`."""
+    if occlusion:
+        out = trace_occluded(tree, origins, dirs, tmax, block=block,
+                             point_origin=point_origin)
+        if with_attributes:
+            out += (torch.zeros((_N_ATTR,) + tmax.shape, device=tmax.device),)
+        return out
+    dev, nb = _check_rays("trace_dense", origins, dirs, tmax, block,
+                          point_origin)
+    if dev.type == "cpu":
+        if point_origin:
+            origins = broadcast_points(origins, dirs, block)
+        out = trace_dense_plain(tree, origins, dirs, tmax)
+        return out if with_attributes else out[:4]
+    _check_tree(tree, dev)
+    origins, dirs, tmax = (x.contiguous() for x in (origins, dirs, tmax))
+    t = torch.empty(nb, LANES, device=dev)
+    slot = torch.empty(nb, LANES, dtype=torch.int32, device=dev)
+    u = torch.empty(nb, LANES, device=dev)
+    v = torch.empty(nb, LANES, device=dev)
+    attrs = (torch.empty(_N_ATTR, nb, LANES, device=dev)
+             if with_attributes else None)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
         err = lib.vkrt_trace_closest(
-            tree.sc_boxes.data_ptr(), tree.sc_boxes.shape[1],
-            tree.num_superclusters, tree.cl_boxes.data_ptr(),
-            tree.tri_data.data_ptr(), origins.data_ptr(), dirs.data_ptr(),
-            tmax.data_ptr(), n, t.data_ptr(), slot.data_ptr(), u.data_ptr(),
-            v.data_ptr(), attrs.data_ptr(), stream)
+            *_kernel_args(tree, origins, block if point_origin else 0, dirs,
+                          tmax),
+            t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
+            attrs.data_ptr() if with_attributes else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "trace_closest")
     trace_dense.launches += 1
-    return t, slot, u, v, attrs
+    return (t, slot, u, v, attrs) if with_attributes else (t, slot, u, v)
 
 
 trace_dense.launches = 0

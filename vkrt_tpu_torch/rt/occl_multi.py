@@ -16,32 +16,20 @@ from __future__ import annotations
 import torch
 
 from vkrt_tpu_torch import kernels
-from vkrt_tpu_torch.rt.dense import (_DET_EPS, LANES, TMIN, _check_tree,
-                                     _mt_terms, gated_pairs)
+from vkrt_tpu_torch.rt.dense import (LANES, _check_tree,
+                                     trace_occluded_plain)
 from vkrt_tpu_torch.accel.clusters import ClusterTree
 
 
 def occluded_multi_plain(tree: ClusterTree, light_pts, dirs, tmax):
     """Plain PyTorch version of kernel B (same inputs and outputs as
-    `occluded_multi`): every (set, ray) is one segment; any gated
-    triangle that passes the division-free test blocks it."""
+    `occluded_multi`): every (set, ray) is one segment from its set's
+    light point, traced by the plain any-hit version."""
     ns, nb = dirs.shape[0], dirs.shape[2]
-    n = nb * LANES
-    m = ns * n
-    dev = dirs.device
-    d = dirs.reshape(ns, 3, n).permute(1, 0, 2).reshape(3, m)
-    o = light_pts.T[:, :, None].expand(3, ns, n).reshape(3, m)
-    tm = tmax.reshape(m)
-    geo = tree.tri_data[:, :, 0:9].contiguous()
-    blocked = torch.zeros(m, dtype=torch.bool, device=dev)
-    for ray, cl in gated_pairs(tree, o, d, tm):
-        det, up, vp, tp = _mt_terms(geo[cl], o[:, ray], d[:, ray])
-        adet = det.abs()
-        sgn = torch.where(det < 0, -1.0, 1.0)
-        su, sv, st = up * sgn, vp * sgn, tp * sgn
-        ok = ((adet > _DET_EPS) & (su >= 0) & (sv >= 0) & (su + sv <= adet)
-              & (st > TMIN * adet) & (st < tm[ray][:, None] * adet))
-        blocked[ray[ok.any(dim=1)]] = True
+    d = dirs.permute(1, 0, 2, 3).reshape(3, ns * nb, LANES)
+    o = light_pts.T[:, :, None, None].expand(3, ns, nb, LANES)
+    blocked = trace_occluded_plain(tree, o.reshape(3, ns * nb, LANES), d,
+                                   tmax.reshape(ns * nb, LANES))
     return blocked.reshape(ns, nb, LANES)
 
 

@@ -16,7 +16,12 @@ restored after it, as RenderConfig's defaults ask (consolidate_secondary,
 group_sort_shadows, partition_shadows): the live-ray pack (kernels C, D),
 the in-block lane sort (E, F) and the group partition. Blocked masks do
 not depend on the order, so every combination of the three flags gives
-the same frame.
+the same frame. A backend with `per_light` set traces each light's
+segments with kernel A' instead of B, to the same masks.
+
+`Renderer` also runs the per-frame accel update (RenderConfig
+.rebuild_per_frame, or a `transform` per frame): a refit of the tree's
+boxes, or a full device rebuild (SAH or Morton order).
 
 Only the dense backend is ported. RenderConfig flags that need machinery
 not yet ported raise NotImplementedError naming the ROADMAP.md item;
@@ -35,6 +40,7 @@ from torch.profiler import record_function
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import runtime
 from vkrt_tpu_torch.accel.clusters import build_clusters, scene_attrs
+from vkrt_tpu_torch.accel.refit import refit_clusters
 from vkrt_tpu_torch.rt.dense import trace_dense
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi
 from vkrt_tpu_torch.scene import flatten_model, load_model
@@ -50,7 +56,6 @@ PIXEL_CENTER = (0.5, 0.5)         # sample offset inside each pixel
 
 # flag → the ROADMAP.md item that ports it (checked before any frame)
 _UNPORTED_FLAGS = {
-    "rebuild_per_frame": "queue 1 item 8 (per-frame accel update)",
     "mip_lod": "queue 1 item 4 (trilinear sampling, ray_diff_lod)",
     "resort_secondary": "queue 1 item 13 (not ported this round)",
     "recheck_secondary": "queue 1 item 13 (not ported this round)",
@@ -165,16 +170,43 @@ def _occl_block(n_rays: int) -> int:
 
 
 class DenseBackend(NamedTuple):
-    """Cluster tree traced by kernels A and B; `scene_aabb` f32[2,3]
-    (min, max of the scene's vertices) bounds the reorder's cell keys."""
+    """Cluster tree traced by kernels A, A' and B; `scene_aabb` f32[2,3]
+    (min, max of the scene's vertices) bounds the reorder's cell keys.
+
+    `per_light=True` (set with `_replace`) makes `occluded_multi` trace
+    each light's segments in its own kernel-A' dispatch, every block's
+    origin the light, in place of one kernel-B dispatch for all lights —
+    the JAX engine's VKRT_NO_MULTI_OCCL path. Masks, hence frames, are
+    the same either way."""
     tree: object  # ClusterTree
     scene_aabb: torch.Tensor
+    per_light: bool = False
 
     def closest(self, o, d, tmax):
         t, slot, u, v, attrs = trace_dense(self.tree, o, d, tmax)
         return t, u, v, attrs, slot >= 0
 
-    def occluded_multi(self, light_pts, sd, st):
+    def occluded(self, o, d, tmax):
+        """Blocked mask bool[Nb,128] of segments with per-ray origins."""
+        _, slot, _, _ = trace_dense(self.tree, o, d, tmax, occlusion=True,
+                                    with_attributes=False)
+        return slot >= 0
+
+    def occluded_point(self, o_pts, d, tmax, block=BLOCK):
+        """As `occluded`, all rays of a block of `block` sharing one
+        origin: o_pts f32[N/block, 3]."""
+        _, slot, _, _ = trace_dense(self.tree, o_pts, d, tmax, occlusion=True,
+                                    with_attributes=False, point_origin=True,
+                                    block=block)
+        return slot >= 0
+
+    def occluded_multi(self, light_pts, sd, st, block=BLOCK):
+        if self.per_light:
+            nob = sd.shape[2] * L.LANES // block
+            return torch.stack([
+                self.occluded_point(light_pts[s][None, :].expand(nob, 3)
+                                    .contiguous(), sd[s], st[s], block)
+                for s in range(light_pts.shape[0])])
         return occluded_multi(self.tree, light_pts, sd, st)
 
 
@@ -338,7 +370,8 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
 def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
                   depth: int):
     """Blocked masks bool[L,Nb,128] of all lights' shadow segments in ONE
-    kernel-B dispatch, traced from the light toward the surface point;
+    kernel-B dispatch (or one kernel-A' dispatch per light where the
+    backend has `per_light` set), traced from the light toward the point;
     rays a hit does not cast (`casts`) park at tmax 0.
 
     At depth >= 1 the wavefront is reordered before B and restored after
@@ -365,7 +398,7 @@ def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
             st.append(torch.where(((cmi >> li) & 1) > 0,
                                   ldist - C.RAY_TMIN, 0.0))
         occ = backend.occluded_multi(lights, torch.stack(sd),
-                                     torch.stack(st))
+                                     torch.stack(st), block=oblk)
         return unpartition(occ, undo)
 
     sd = torch.stack([-g[0] for g in geo])                  # [L,3,Nb,128]
@@ -386,7 +419,7 @@ def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
             torch.cat([sd.reshape(3 * nl, nb, L.LANES), st]), grank)
         sd = pk[:3 * nl].reshape(nl, 3, nb, L.LANES)
         st = pk[3 * nl:]
-    occ = backend.occluded_multi(lights, sd, st)
+    occ = backend.occluded_multi(lights, sd, st, block=oblk)
     if cons:
         occ = pack.scatter_back(occ.to(torch.float32), grank) > 0.5
     if gsort:
@@ -455,9 +488,10 @@ def unpartition(occ, undo: Undo):
 
 
 def upload_matrix(m, device):
-    """A camera matrix (numpy) as f32 on `device`, without a host wait: a
-    blocking host-to-device copy would wait for the frames already
-    queued; from pinned memory the copy is queued too."""
+    """A small numpy array (a camera or instance matrix) as f32 on
+    `device`, without a host wait: a blocking host-to-device copy would
+    wait for the frames already queued; from pinned memory the copy is
+    queued too."""
     m = torch.from_numpy(np.array(m, np.float32))
     if device.type == "cuda":
         m = m.pin_memory()
@@ -486,31 +520,117 @@ class SceneOnDevice:
         self.backend = make_backend(self.flat, "dense", self.device)
 
 
+REBUILD_MODES = ("refit", "full", "full_morton")
+
+
 class Renderer(SceneOnDevice):
     """High-level renderer: scene in, frames out (the Raytracer analogue).
 
     The constructor builds the cluster tree on the host and moves it and
     the material heap to `device` (the card unless the caller asks for
-    the CPU); render_async() enqueues one frame."""
+    the CPU); render_async() enqueues one frame.
+
+    `rebuild` picks the per-frame accel update that a `transform` (or
+    cfg.rebuild_per_frame) triggers: "refit" keeps the tree's topology
+    and refits its boxes (accel/refit.py), "full" re-orders the
+    transformed triangles with the device SAH build and "full_morton"
+    with a Morton sort (accel/clusters.build_clusters on device
+    tensors); `sah_opts` forwards to device_sah_order."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
-                 quantize: bool = False):
+                 quantize: bool = False, rebuild: str = "refit",
+                 sah_opts: dict | None = None):
         check_supported(cfg)
+        if rebuild not in REBUILD_MODES:
+            raise ValueError(f"rebuild {rebuild!r} not in {REBUILD_MODES}")
         super().__init__(scene, cfg, device)
         self.quantize = quantize    # u8 fb + scalar ray count on device
+        self.rebuild = rebuild
+        self.sah_opts = sah_opts
         self.lights = torch.as_tensor(C.LIGHT_POSITIONS, device=self.device)
+        self._rebuild_inputs = None     # made by the first full rebuild
 
-    def render_async(self, camera):
+    def rebuild_inputs(self):
+        """What a full rebuild starts from, on the device, made once:
+        ((v0, e1, e2), attrs) of the untransformed scene and the 8
+        corners (numpy) of its centroid AABB."""
+        if self._rebuild_inputs is None:
+            idx = np.asarray(self.flat.indices, dtype=np.int64)
+            p = np.asarray(self.flat.positions, np.float32)
+            v0 = p[idx[:, 0]]
+            e1, e2 = p[idx[:, 1]] - v0, p[idx[:, 2]] - v0
+
+            def put(x):
+                return torch.from_numpy(np.array(x, np.float32)).to(
+                    self.device)
+
+            c = v0 + (e1 + e2) / 3.0
+            lo, hi = c.min(axis=0), c.max(axis=0)
+            corners = np.array(
+                [[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                 for z in (lo[2], hi[2])], np.float32)
+            self._rebuild_inputs = (
+                (put(v0), put(e1), put(e2)),
+                {k: put(x) for k, x in scene_attrs(self.flat).items()},
+                corners)
+        return self._rebuild_inputs
+
+    def render_async(self, camera, transform=None):
         """Enqueue a frame; returns device tensors (fb, ray_count) without
-        waiting for the card. Per-frame accel updates (the JAX Renderer's
-        `transform`) are ROADMAP.md queue 1 item 8."""
+        waiting for the card.
+
+        `transform` (4x4 affine, the instance-transform analogue) — or
+        cfg.rebuild_per_frame, with the identity — triggers the per-frame
+        accel update chosen by `rebuild` before the frame is traced."""
+        backend = self.backend
+        if self.cfg.rebuild_per_frame or transform is not None:
+            m = np.eye(4, dtype=np.float32) if transform is None \
+                else np.asarray(transform, np.float32)
+            with record_function("accel_update"):
+                backend = backend._replace(tree=self.update_tree(m))
         frame = render_frame_u8 if self.quantize else render_frame
-        return frame(self.backend, self.tex,
+        return frame(backend, self.tex,
                      upload_matrix(camera.proj_inverse, self.device),
                      upload_matrix(camera.view_inverse, self.device),
                      self.lights, self.cfg)
 
-    def render(self, camera):
+    def render(self, camera, transform=None):
         """Synchronous render: enqueue + materialize on host."""
-        fb, rays = self.render_async(camera)
+        fb, rays = self.render_async(camera, transform)
         return fb.cpu().numpy(), int(rays.sum())
+
+    def update_tree(self, m):
+        """The cluster tree of the scene under the 4x4 affine `m` (numpy),
+        by this renderer's `rebuild` mode; enqueued, no host wait."""
+        if self.rebuild == "refit":
+            return refit_clusters(self.backend.tree,
+                                  upload_matrix(m, self.device))
+        return self._full_rebuild(m)
+
+    def _full_rebuild(self, m):
+        """Full rebuild: transform geometry and attribute directions on
+        the device, re-order, assemble. The Morton range is the scene's
+        centroid AABB, its corners transformed on the host."""
+        geometry, attrs, corners = self.rebuild_inputs()
+        v0, e1, e2, attrs = _transform_geometry(
+            *geometry, attrs, upload_matrix(m, self.device))
+        if self.rebuild == "full":
+            return build_clusters(v0, e1, e2, attrs=attrs,
+                                  with_attributes=True, method="sah",
+                                  sah_opts=self.sah_opts)
+        corners = L.mat_rows3(corners, m[:3, :3]) + m[:3, 3]
+        aabb = (upload_matrix(corners.min(axis=0), self.device),
+                upload_matrix(corners.max(axis=0), self.device))
+        return build_clusters(v0, e1, e2, attrs=attrs, with_attributes=True,
+                              method="morton", aabb=aabb)
+
+
+def _transform_geometry(v0, e1, e2, attrs, m):
+    """Affine transform of triangle geometry + directional attributes
+    (elementwise float32 products, no matmul)."""
+    a, b = m[:3, :3], m[:3, 3]
+    out = dict(attrs)
+    for k in ("n0", "n1", "n2", "t0", "t1", "t2"):
+        out[k] = L.mat_rows3(attrs[k], a)
+    return (L.mat_rows3(v0, a) + b, L.mat_rows3(e1, a), L.mat_rows3(e2, a),
+            out)
