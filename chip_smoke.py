@@ -30,15 +30,21 @@ the profile after phase 9 and phase 10:
               its u8 frames and ray counts must equal phase 7's bit for bit
   9. shapes   kernels A-F vs their plain versions on the inputs one
               main-path frame gives them (recorded from the engine), their
-              times there, the bounds of that work and the nearest
-              PyTorch library call where there is one
+              times there (C-F on a filled queue, so that the device's
+              time is read and not the host's enqueue time, which is
+              printed beside it), the bounds of that work and the one
+              PyTorch call that computes the same function where there
+              is one (F: torch.gather)
   then   two profiled main-path frames, then two flags-off frames (device
          time per engine range, busy share, top kernels)
  10. kernel G vs its plain version on probes: the full and the small
               procedural scene, from the start pose and close to a wall
               (sheets behind the camera: full-screen boxes), at three
               sample offsets, with random and parked depth floors, then a
-              continuation round behind every hit
+              continuation round behind every hit; per pose a tie probe
+              (one triangle in two clusters, the copy of the higher slot
+              in the cluster the front-to-back walk visits first: the
+              lower slot must win)
  11. raster   64x48 raster frames of the small scene vs the raster oracle
               (vkrt_tpu_torch.golden.raster_oracle): edge method at msaa 1
               and 8 under the flip gate, ray-cast method at msaa 1 by RMSE
@@ -48,11 +54,13 @@ the profile after phase 9 and phase 10:
               and none of A-F per frame; then two profiled frames (device
               time per raster range) and one ray-cast frame on the first
               camera, which may differ from the edge frame on at most 1%
-              of the pixels
+              of the pixels; the same gate on a frame close to a wall,
+              where clusters wholly behind the camera exist and must have
+              left the full-screen set
  13. G shapes kernel G's inputs recorded from one raster frame: kernel vs
               plain on sample 0, rounds 0 and 1; the kernel's time over
-              all 32 calls, the plain version's on sample 0's 4 calls, and
-              the bound of each
+              all 32 calls, the plain version's on sample 0's 4 calls, the
+              bound of each, and the setup's box rule at this pose
  14. kernel A' (any-hit, per-ray or per-block origins) vs its plain
               version on probes: phase 3's rays with per-ray origins, random
               block origins and phase 4's light segments at blocks 512 and
@@ -107,7 +115,7 @@ import torch
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import kernels, runtime
 from vkrt_tpu_torch.accel import clusters
-from vkrt_tpu_torch.accel.clusters import K2
+from vkrt_tpu_torch.accel.clusters import K1, K2
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.flythrough import camera_path
@@ -178,6 +186,46 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SPIN_CYCLES = 40_000_000   # torch.cuda._sleep: ~20 ms at the H100's clock
+L2_BYTES = 50e6            # the H100's L2: timed calls rotate over more
+
+
+def queued_ms(calls, reps: int = 24) -> dict:
+    """Device time of a kernel of a few microseconds. Timed through its
+    Python wrapper on an empty stream, such a kernel shows how fast the
+    host enqueues, not how fast the card runs. So the stream is first
+    held busy by a spin kernel of ~20 ms; the host enqueues `reps` calls
+    behind it, taken in turn from `calls` (the same function on separate
+    copies of its inputs, so that no call finds them in L2), and the
+    events around them read the device's time alone. `queue_filled` says
+    that the device had not reached the first call when the host had
+    enqueued the last (the spin is doubled, up to 4x, until it holds).
+    Returns ms per call on the device and the host's enqueue ms per
+    call."""
+    for f in calls:
+        f()                                                    # warm-up
+    for spin in (SPIN_CYCLES, 2 * SPIN_CYCLES, 4 * SPIN_CYCLES):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(reps):
+            calls[i % len(calls)]()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        filled = not start.query()
+        torch.cuda.synchronize()
+        if filled:
+            break
+    else:
+        raise AssertionError(f"the host took {host_ms:.1f} ms to enqueue "
+                             f"{reps} calls: the queue never stayed filled")
+    return {"ms": start.elapsed_time(end) / reps,
+            "enqueue_ms": host_ms / reps, "queue_filled": filled}
 
 
 def start_camera(width: int, height: int) -> Camera:
@@ -430,8 +478,11 @@ OPS_A = 46    # kernel A per (ray, triangle): Möller–Trumbore terms 41,
               # 1/det, u, v, t products, u + v
 OPS_B = 47    # kernel B per (segment, triangle): terms 41, three sign
               # products, su + sv, two interval products
-OPS_G = 19    # kernel G per (pixel, triangle): three rows a*px + b*py + c
-              # (12), their sum (2), the depth sum(beta_i * Z_i) (5)
+OPS_G = (4, 8, 7)   # kernel G per (pixel, triangle) pair: the first
+                    # edge function a*px + b*py + c for every pair; the
+                    # other two where it is >= 0; the edges' sum (2) and
+                    # the depth sum(beta_i * Z_i) (5) where all are >= 0
+PAIRS_G = 1 << 17   # (pixel, cluster) pairs evaluated at a time (bounds)
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -501,12 +552,17 @@ def occl_bound(tree, lp, sd, st, ntri, out_bytes: int = 1) -> dict:
 
 
 def move_bound(k: str, args, kw) -> dict:
-    """Kernels C-F move values: each input and output once. E also does
-    `block` integer compares per ray (its rank count), counted at the f32
-    rate."""
+    """Kernels C-F move values: what the call must read once and write
+    once. C and D touch the packed side only at live ranks (C reads a
+    channel value per live ray and writes the whole zeroed output; D
+    reads one per live ray and writes every ray), so their input counts
+    this run's live rays, not the tensor's size. E also does `block`
+    integer compares per ray (its rank count), counted at the f32 rate."""
     x, idx = args
-    out = x.numel() * 4
-    nbytes = x.numel() * 4 + idx.numel() * 4 + out
+    moved = x.numel()
+    if k in "CD":
+        moved = x.shape[0] * int((idx >= 0).sum())
+    nbytes = moved * 4 + idx.numel() * 4 + x.numel() * 4
     ops = 0
     if k == "E":
         nbytes += idx.numel() * 4                     # the ranks it writes
@@ -515,14 +571,11 @@ def move_bound(k: str, args, kw) -> dict:
 
 
 def library_move(k: str, args, kw):
-    """The one PyTorch call nearest each move kernel, or None: E is
-    torch.sort(stable=True) of the block-shaped keys, F torch.gather on
-    the block-shaped layout; C and D need a scatter or gather plus a
-    mask, no single call."""
-    if k == "E":
-        x, key = args
-        keys = key.reshape(-1, kw["block"])
-        return lambda: torch.sort(keys, dim=1, stable=True)
+    """The one PyTorch call that computes the same function as a move
+    kernel, or None. F is torch.gather on the block-shaped layout:
+    out[s, j] = res[s, base + rank[j]]. C and D need a scatter or gather
+    plus a mask, and E a sort, a gather and a scatter (lane_sort_plain):
+    no single call."""
     if k == "F":
         res, rank = args
         blk = kw["block"]
@@ -532,14 +585,32 @@ def library_move(k: str, args, kw):
     return None
 
 
+def keys_sort(args, kw):
+    """torch.sort(stable=True) of kernel E's block-shaped keys alone: a
+    part of E's work (E also moves the channels and writes the inverse
+    permutation), timed beside it as a note."""
+    keys = args[1].reshape(-1, kw["block"])
+    return lambda: torch.sort(keys, dim=1, stable=True)
+
+
+def input_copies(args, nbytes: float) -> list:
+    """Enough separate copies of a call's tensors that a round over them
+    moves more than the L2 holds (2 to 8)."""
+    n = int(min(8, max(2, -(-2 * L2_BYTES // max(nbytes, 1.0)))))
+    return [tuple(a.clone() for a in args) for _ in range(n)]
+
+
 def main_path_shapes(renderer: Renderer, cam: Camera, transform=None,
                      label: str = "main path") -> dict:
     """Phases 9 and 18: record the inputs kernels A-F get in one frame of
     `renderer` (every depth of its config; with `transform`, on the tree
     its accel update makes of it), hold each kernel against its plain
-    version on them, and time both there (kernel: mean of 5 after a
-    warm-up; plain: one run), with the bound of that work and, for E and
-    F, the nearest library call (mean of 5). Also reports each depth>=1
+    version on them, and time both there (A, B: mean of 5 after a
+    warm-up; C-F: `queued_ms`, the device's time on a filled queue, with
+    the host's enqueue time beside it; plain: one run), with the bound of
+    that work and, for F, the library call that computes the same
+    function, timed as the kernel is (for E, a stable sort of its keys
+    alone as a note). Also reports each depth>=1
     shadow wavefront's live share and how much of it the lane sort's
     capped prefix covers. Rows come back in depth order (C-F from depth
     1)."""
@@ -583,12 +654,21 @@ def main_path_shapes(renderer: Renderer, cam: Camera, transform=None,
             r = {"shape": list(args[0].shape), **kw,
                  "max_abs_err": compare_move(k, args, kw,
                                              f" ({label}, depth {depth})")}
-            r["ms"] = cuda_ms(lambda: COUNTED[k](*args, **kw), 5)
+            r.update(move_bound(k, args, kw))
+            copies = input_copies(args, r["bytes"])
+            r.update(queued_ms([lambda c=c: COUNTED[k](*c, **kw)
+                                for c in copies]))
             r["plain_ms"] = cuda_ms(lambda: PLAIN[k](*args, **kw), 1,
                                     warmup=False)
-            lib_call = library_move(k, args, kw)
-            r["library_ms"] = cuda_ms(lib_call, 5) if lib_call else None
-            r.update(move_bound(k, args, kw))
+            r["library_ms"] = r["library_enqueue_ms"] = None
+            if library_move(k, args, kw):
+                q = queued_ms([library_move(k, c, kw) for c in copies])
+                r["library_ms"] = q["ms"]
+                r["library_enqueue_ms"] = q["enqueue_ms"]
+            if k == "E":
+                r["keys_sort_ms"] = queued_ms(
+                    [keys_sort(c, kw) for c in copies])["ms"]
+            del copies
             log(f"  kernel {k} vs plain ({label}, depth {depth}):",
                 json.dumps(r))
             res[k].append(r)
@@ -604,9 +684,14 @@ def main_path_shapes(renderer: Renderer, cam: Camera, transform=None,
         log(f"  depth-{depth} shadow wavefront:", json.dumps(share))
     for k, rows in res.items():
         log(f"  {k} per call ({label}): " + "; ".join(
-            f"{r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms, bound "
+            f"{r['ms']:.4f} ms vs plain {r['plain_ms']:.1f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bytes']:.4g} B, "
-            f"{r['ops']:.4g} ops)" for r in rows))
+            f"{r['ops']:.4g} ops)"
+            + (f", host enqueue {r['enqueue_ms']:.4f} ms"
+               if "enqueue_ms" in r else "")
+            + (f", library call {r['library_ms']:.4f} ms"
+               if r.get("library_ms") is not None else "")
+            for r in rows))
     if len(res["A"]) != want or len(res["B"]) != want:
         raise AssertionError(f"recorded {len(res['A'])} A and {len(res['B'])}"
                              f" B inputs, want {want} each")
@@ -855,13 +940,70 @@ def wall_camera(width: int, height: int) -> Camera:
     return cam
 
 
+def duplicate_triangle(setup, scb, clb, slot: int, cluster: int):
+    """A probe of kernel G's tie rule: copies of (setup, scb, clb) in which
+    cluster `cluster` holds nothing but a copy of triangle `slot` (cluster
+    id * 128 + triangle) as its triangle 0, under the screen box of that
+    triangle's cluster with zmin 0. Both copies give every sample the
+    same depth, so the lower slot must win, whichever cluster a
+    rasterizer visits first; with `cluster` above `slot`'s own, a
+    front-to-back walk meets the copy first."""
+    setup, scb, clb = setup.clone(), scb.clone(), clb.clone()
+    src = slot // K1
+    setup[cluster] = 0.0
+    setup[cluster, 0] = setup[src, slot % K1]
+    box = clb[src // K2, :, src % K2].clone()
+    box[2] = 0.0
+    clb[cluster // K2, :, cluster % K2] = box
+    s = cluster // K2
+    scb[0:3, s] = torch.minimum(scb[0:3, s], box[0:3])
+    scb[3:6, s] = torch.maximum(scb[3:6, s], box[3:6])
+    return setup, scb, clb
+
+
+def tie_probe(setup, scb, clb, px, py, inside, label: str) -> float:
+    """What a front-to-back walk could get wrong: the most-seen triangle
+    of a bounded cluster is duplicated into an empty cluster of a higher
+    id, under a box with zmin 0 (`duplicate_triangle`), so the kernel
+    meets the copy first and both give every sample the same depth. The
+    kernel must agree with its plain version, return the lower slot
+    (every output equal to the run without the copy) and, with the
+    original's row zeroed, hand the same samples to the copy."""
+    zf = torch.where(inside, 0.0, edge.ZFAR_PARK)
+    want = edge.raster_edge(setup, scb, clb, px, py, zf)
+    box = clb.permute(1, 0, 2).reshape(8, -1)
+    slots, counts = torch.unique(want[1][want[1] >= 0], return_counts=True)
+    cl = (slots // 128).long()
+    ok = (box[0][cl] > -1e8) & (box[2][cl] > 0)
+    slot = int(slots[ok][counts[ok].argmax()])
+    spare = int(torch.nonzero(box[0] == 1e8)[-1])
+    dup = duplicate_triangle(setup, scb, clb, slot, spare)
+    out, got = compare_raster(*dup, px, py, zf, label + ", tie)")
+    alone = dup[0].clone()
+    alone[slot // 128, slot % 128] = 0.0
+    took = edge.raster_edge(alone, dup[1], dup[2], px, py, zf)
+    seen = want[1] == slot
+    res = dict(slot=slot, copy_slot=spare * 128, samples=int(seen.sum()),
+               copy_zmin_below=bool(dup[2][spare // K2, 2, spare % K2]
+                                    < box[2][slot // 128]),
+               unchanged=all(torch.equal(g, w) for g, w in zip(got, want)),
+               copy_alone_takes_over=bool((took[1][seen] == spare * 128)
+                                          .all()))
+    log(f"  kernel G tie probe{label}):", json.dumps(res))
+    if not (spare > slot // 128 and res["samples"] >= 1
+            and res["copy_zmin_below"] and res["unchanged"]
+            and res["copy_alone_takes_over"]):
+        raise AssertionError(f"kernel G tie probe failed: {res}")
+    return out["max_abs_err"]
+
+
 def probe_raster(dev, scenes) -> float:
     """Phase 10: kernel G vs its plain version on probes. For each scene
     (name, tree, width, height): the start pose and a pose by a wall, at
     the pixel centre and two MSAA offsets, with depth floors 0 (60%),
     random in [0.9, 1) (25%) and parked (15%, and the tile padding), then
-    a continuation round with the floor at every hit's depth. Returns the
-    largest error."""
+    a continuation round with the floor at every hit's depth; per pose
+    the tie probe (`tie_probe`). Returns the largest error."""
     rng = np.random.default_rng(SEED)
     err, n = 0.0, 0
     for name, tree, w, h in scenes:
@@ -889,6 +1031,9 @@ def probe_raster(dev, scenes) -> float:
                                         label + ", behind every hit)")
                 err = max(err, out["max_abs_err"])
                 n += 2
+            err = max(err, tie_probe(setup, scb, clb, px, py, inside,
+                                     f" ({name} {w}x{h}, {pose}"))
+            n += 1
     log(f"  G vs plain on probes: {n} cases agree; max abs err {err}")
     return err
 
@@ -1014,52 +1159,113 @@ class RecordingRaster:
         rp.raster_edge = self.saved
 
 
-def raster_pairs(clb, px, py, zf, z_out, ntri) -> int:
-    """(pixel, triangle) pairs kernel G's inputs need: the live triangles
-    of the clusters whose padded box holds the pixel and whose zmin is
-    below the pixel's final depth (1e9 where nothing was hit); parked
-    pixels need none."""
+def raster_pairs(setup, clb, px, py, zf, z_out, tri_live) -> torch.Tensor:
+    """(pixel, triangle) pairs that kernel G's inputs need, by how far the
+    function must evaluate each: [every pair, pairs with edge 0 >= 0,
+    pairs with all three edges >= 0] (int64 [3]). A pair counts if the
+    triangle is in `tri_live` (bool [C1p, K1]), its cluster's padded box
+    holds the pixel and the cluster's zmin is below the pixel's final
+    depth (1e9 where nothing was hit); parked pixels need none. The edge
+    functions are evaluated as the plain version evaluates them."""
     n_cl = clb.shape[0] * K2
     box = clb.permute(1, 0, 2).reshape(8, n_cl)
+    cols = setup[..., :9].transpose(1, 2).contiguous()     # [C1p, 9, K1]
     live = torch.nonzero(zf.reshape(-1) < edge.ZFAR_PARK, as_tuple=True)[0]
     x, y = px.reshape(-1)[live], py.reshape(-1)[live]
     zend = torch.where(torch.isfinite(z_out), z_out, edge.ZFAR_PARK)
     zend = zend.reshape(-1)[live]
-    total = 0
+    total = torch.zeros(3, dtype=torch.int64, device=px.device)
     for r0 in range(0, live.numel(), edge.PIX_CHUNK):
         r1 = r0 + edge.PIX_CHUNK
         g = (edge.box_gate(box[0], box[1], box[3], box[4], x[r0:r1],
                            y[r0:r1])
              & (box[2][None] < zend[r0:r1, None]))
-        total += int((g.sum(dim=0) * ntri).sum())
+        p_all, c_all = torch.nonzero(g, as_tuple=True)
+        for q0 in range(0, p_all.numel(), PAIRS_G):
+            p, c = p_all[q0:q0 + PAIRS_G] + r0, c_all[q0:q0 + PAIRS_G]
+            rows = cols[c]                                 # [P, 9, K1]
+            b = edge._barycentrics(lambda j: rows[:, j], x[p][:, None],
+                                   y[p][:, None])
+            every = tri_live[c]
+            past0 = every & (b[0] >= 0)
+            past2 = past0 & (b[1] >= 0) & (b[2] >= 0)
+            total += torch.stack([every.sum(), past0.sum(), past2.sum()])
     return total
 
 
 def raster_bound(setup, scb, clb, px, py, zf, z_out, behind) -> dict:
     """Kernel G's work on one call: the 19 used setup columns of every
     live triangle and the boxes once, pixels in (3 x 4 B) and out
-    (5 x 4 B) once, OPS_G per needed (pixel, triangle) pair. The clusters
-    of `behind` need neither bytes nor operations."""
-    ntri = torch.where(behind, 0, live_tris(setup))
-    nbytes = (int(ntri.sum()) * edge.N_SETUP * 4
+    (5 x 4 B) once, and OPS_G's operations per needed (pixel, triangle)
+    pair by the stage the pair reaches (`raster_pairs`). The clusters of
+    `behind` need neither bytes nor operations."""
+    tri_live = (setup[..., :9] != 0).any(-1) & ~behind[:, None]
+    nbytes = (int(tri_live.sum()) * edge.N_SETUP * 4
               + (scb.numel() + clb.numel()) * 4 + px.numel() * 4 * (3 + 5))
-    return bound(nbytes, raster_pairs(clb, px, py, zf, z_out, ntri) * OPS_G)
+    pairs = raster_pairs(setup, clb, px, py, zf, z_out, tri_live).tolist()
+    res = bound(nbytes, sum(n * k for n, k in zip(pairs, OPS_G)))
+    res["pairs"] = pairs
+    return res
 
 
-def behind_camera(rast, cam) -> torch.Tensor:
-    """Clusters every triangle of which has all three corners at w <= 0
-    (bool [C1p]): no such triangle covers a pixel (its edge functions
-    cannot all be >= 0 where sum_i beta_i w_i = 1), yet any corner at
-    w <= 1e-9 gives the cluster a full-screen box."""
+def camera_classes(rast, cam) -> tuple:
+    """Per cluster of the tree (bool [C1p] each), from the corners' clip w
+    in float64: `behind`, every triangle of the cluster has all three
+    corners at w <= 0 (no such triangle covers a pixel: its edge
+    functions cannot all be >= 0 where sum_i beta_i w_i = 1); `crossing`,
+    some triangle has a corner at w <= 1e-9 and another in front (the
+    setup's full-screen rule); `near`, some triangle has a corner at
+    w <= 1e-9 (the JAX package's full-screen rule, which counts those
+    behind too)."""
     td = rast.backend.tree.tri_data
     wrow = (torch.as_tensor(cam.projection_matrix, device=rast.device).double()
             @ torch.as_tensor(cam.view_matrix, device=rast.device).double())[3]
     v0 = td[..., 0:3].double()
     live = (td[..., 0:9] != 0).any(-1)
-    behind = live
+    behind, near = live, torch.zeros_like(live)
     for p in (v0, v0 + td[..., 3:6], v0 + td[..., 6:9]):
-        behind = behind & ((p * wrow[:3]).sum(-1) + wrow[3] <= 0)
-    return (behind | ~live).all(dim=1) & live.any(dim=1)
+        w = (p * wrow[:3]).sum(-1) + wrow[3]
+        behind = behind & (w <= 0)
+        near = near | (live & (w <= 1e-9))
+    return ((behind | ~live).all(dim=1) & live.any(dim=1),
+            (near & ~behind).any(dim=1), near.any(dim=1))
+
+
+def full_screen_drop(rast, cam, clb, label: str) -> dict:
+    """The setup's box rule at one pose: the clusters wholly behind the
+    camera exist, have left the full-screen set (which is exactly the
+    clusters with a triangle crossing w = 0) and have empty boxes."""
+    behind, crossing, near = camera_classes(rast, cam)
+    box = clb.permute(1, 0, 2).reshape(8, -1)
+    full, empty = box[0] == -1e8, box[0] == 1e8
+    res = dict(clusters=box.shape[1], full_screen_clusters=int(full.sum()),
+               full_screen_jax_rule=int(near.sum()),
+               behind_camera_clusters=int(behind.sum()),
+               empty_clusters=int(empty.sum()),
+               full_is_crossing=bool(torch.equal(full, crossing)),
+               behind_are_empty=bool(empty[behind].all()))
+    log(f"  screen boxes ({label}):", json.dumps(res))
+    if not (res["behind_camera_clusters"] > 0 and res["full_is_crossing"]
+            and res["behind_are_empty"]
+            and res["full_screen_jax_rule"] - res["full_screen_clusters"]
+            >= res["behind_camera_clusters"]):
+        raise AssertionError(f"screen-box rule failed ({label}): {res}")
+    return res
+
+
+def wall_pose_frame(rast) -> None:
+    """Phase 12's wall-pose probe at the full width: close to a wall,
+    where clusters wholly behind the camera exist, the full-screen set
+    dropped them and the edge frame still passes the ray-cast frame
+    gate."""
+    cam = wall_camera(rast.cfg.width, rast.cfg.height)
+    _, _, clb = edge.build_raster_setup(
+        rast.backend.tree,
+        torch.as_tensor(cam.view_matrix, device=rast.device),
+        torch.as_tensor(cam.projection_matrix, device=rast.device),
+        rast.cfg.width, rast.cfg.height)
+    full_screen_drop(rast, cam, clb, "wall pose")
+    wavefront_vs_edge(rast, cam, rast.render_async(cam))
 
 
 def raster_shapes(rast, cam) -> dict:
@@ -1068,8 +1274,10 @@ def raster_shapes(rast, cam) -> dict:
     sample 0, rounds 0 and 1; time the kernel over all 32 calls (each
     once, after a warm-up) and the plain version on sample 0's four calls
     (rounds 0 and 1 during the comparison, 2 and 3 once each); bound the
-    work of the 32 calls and of sample 0's four, leaving out the clusters
-    wholly behind the camera."""
+    work of the 32 calls and of sample 0's four (the clusters wholly
+    behind the camera need none; `pairs_*`: the (pixel, triangle) pairs
+    counted, [all, past edge 0, past all three edges]); check the setup's box rule at this pose
+    (`full_screen_drop`)."""
     with RecordingRaster() as rec:
         rast.render_async(cam)
         torch.cuda.synchronize()
@@ -1102,22 +1310,24 @@ def raster_shapes(rast, cam) -> dict:
     plain_s0 = sum(r["plain_ms"] for r in cmp) + sum(
         cuda_ms(lambda c=c: edge.raster_edge_plain(*c), 1, warmup=False)
         for c in calls[2:4])
-    behind = behind_camera(rast, cam)
+    behind = camera_classes(rast, cam)[0]
+    boxes = full_screen_drop(rast, cam, calls[0][2], "start pose")
     bounds = [raster_bound(*c, edge.raster_edge(*c)[0], behind)
               for c in calls]
     frame_b = add_bounds(bounds)
     s0_b = add_bounds(bounds[:4])
-    clb = calls[0][2]
-    res = dict(max_abs_err=err, ms=sum(per_call),
-               behind_camera_clusters=int(behind.sum()),
+    res = dict(max_abs_err=err, ms=sum(per_call), **boxes,
                ms_mean_per_call=float(np.mean(per_call)),
                ms_sample0=sum(per_call[:4]), ms_sample0_each=per_call[:4],
-               full_screen_clusters=int((clb[:, 0] == -1e8).sum()),
-               empty_clusters=int((clb[:, 0] == 1e8).sum()),
-               clusters=clb.shape[0] * K2,
-               ms_round0_each_sample=per_call[0::4], plain_ms_sample0=plain_s0,
+               ms_round0_each_sample=per_call[0::4],
+               ms_round1_each_sample=per_call[1::4],
+               ms_round2_each_sample=per_call[2::4],
+               plain_ms_sample0=plain_s0,
                round0_discards_each_sample=discards,
-               bound_frame=frame_b, bound_sample0=s0_b)
+               bound_frame=frame_b, bound_sample0=s0_b,
+               pairs_frame=np.sum([b["pairs"] for b in bounds], 0).tolist(),
+               pairs_sample0=np.sum([b["pairs"] for b in bounds[:4]],
+                                    0).tolist())
     log("  kernel G at the main path's shapes:", json.dumps(res))
     return res
 
@@ -1566,6 +1776,7 @@ def main() -> int:
     res_raster, first = drive_raster(rast, rcams)
     wavefront_vs_edge(rast, rcams[0], first)
     del first
+    wall_pose_frame(rast)
     log(f"== profile: {PROFILE_FRAMES} raster frames")
     profile_frames(rast, rcams[0], "raster", RASTER_RANGES)
 

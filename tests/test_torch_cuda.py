@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import duplicate_triangle
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.framebuffer import rmse
@@ -151,6 +152,31 @@ def test_kernels_e_f_match_plain(card, block):
     assert torch.equal(back, x)
 
 
+@pytest.mark.parametrize("block", [512, 1024])
+@pytest.mark.parametrize("channels", [1, 4, 5])
+def test_kernel_f_channels_match_plain(card, block, channels):
+    """Kernel F moves four lanes a thread and up to four channels a pass:
+    1, 4 and 5 channels (a full pass, and one past it), random in-block
+    permutations as ranks, plus ranks outside [0, block), which give 0."""
+    rng = np.random.default_rng(7 * block + channels)
+    nb = 64
+    rank = np.stack([rng.permutation(block) for _ in range(nb * 128 // block)])
+    rank = torch.as_tensor(rank.reshape(nb, 128).astype(np.int32), device=card)
+    res = torch.as_tensor(rng.normal(size=(channels, nb, 128))
+                          .astype(np.float32), device=card)
+    f0 = lanesort.lane_unsort.launches
+    got = lanesort.lane_unsort(res, rank, block=block)
+    assert lanesort.lane_unsort.launches == f0 + 1
+    assert torch.equal(got, lanesort.lane_unsort_plain(res, rank, block))
+    bad = rank.clone()
+    bad[3, 5], bad[9, 127] = -1, block
+    got = lanesort.lane_unsort(res, bad, block=block)
+    want = lanesort.lane_unsort_plain(res, rank, block)
+    want[:, 3, 5] = 0.0
+    want[:, 9, 127] = 0.0
+    assert torch.equal(got, want)
+
+
 def test_shipped_defaults_frame_equals_flags_off_on_card(renderer):
     """The depth>=1 reorder (C-F + group partition) on the card renders
     the flags-off frame bit for bit, with the same ray count."""
@@ -191,6 +217,83 @@ def test_kernel_g_matches_plain(renderer, card, off):
         for g, w in zip(got, want):
             assert torch.equal(g[same], w[same])
         zf = torch.where(got[1] >= 0, got[0], edge.ZFAR_PARK)
+
+
+def raster_inputs(renderer, card, off=(0.5, 0.5)):
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    cam = start_camera()
+    setup, scb, clb = edge.build_raster_setup(
+        renderer.backend.tree, torch.as_tensor(cam.view_matrix, device=card),
+        torch.as_tensor(cam.projection_matrix, device=card), 64, 48)
+    px, py, inside = sample_pixel_lanes(cfg, off, card)
+    return setup, scb, clb, px, py, torch.where(inside, 0.0, edge.ZFAR_PARK)
+
+
+def test_kernel_g_tie_goes_to_lower_slot(renderer, card):
+    """The same triangle in two clusters, the copy in the cluster of the
+    higher id and the lower zmin, which the kernel's front-to-back walk
+    visits first: every output equals the run without the copy, so the
+    lower slot won each tie."""
+    setup, scb, clb, px, py, zf = raster_inputs(renderer, card)
+    want = edge.raster_edge(setup, scb, clb, px, py, zf)
+    box = clb.permute(1, 0, 2).reshape(8, -1)
+    slots, counts = torch.unique(want[1][want[1] >= 0], return_counts=True)
+    cl = (slots // 128).long()
+    ok = (box[0][cl] > -1e8) & (box[2][cl] > 0)
+    slot = int(slots[ok][counts[ok].argmax()])
+    spare = int(torch.nonzero(box[0] == 1e8)[-1])
+    assert spare > slot // 128
+    dup = duplicate_triangle(setup, scb, clb, slot, spare)
+    before = edge.raster_edge.launches
+    got = edge.raster_edge(*dup, px, py, zf)
+    assert edge.raster_edge.launches == before + 1
+    assert (got[1] == slot).sum() == counts[ok].max() >= 8
+    for g, w, p in zip(got, want,
+                       edge.raster_edge_plain(*dup, px, py, zf)):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    alone = dup[0].clone()
+    alone[slot // 128, slot % 128] = 0.0
+    took = edge.raster_edge(alone, dup[1], dup[2], px, py, zf)
+    assert (took[1][want[1] == slot] == spare * 128).all()
+
+
+def test_kernel_g_single_live_pixel(renderer, card):
+    """Blocks with one live pixel, as the alpha-discard rounds leave them:
+    every pixel parked but a few scattered ones, one of them behind its
+    first hit; the live pixels get the plain version's answer and every
+    parked one a miss."""
+    setup, scb, clb, px, py, zf0 = raster_inputs(renderer, card,
+                                                 tuple(MSAA8[5]))
+    first = edge.raster_edge(setup, scb, clb, px, py, zf0)
+    zf = torch.full_like(zf0, edge.ZFAR_PARK)
+    hits = torch.nonzero(first[1].reshape(-1) >= 0).reshape(-1)
+    picks = hits[torch.linspace(0, hits.numel() - 1, 5).long()]
+    zf.reshape(-1)[picks] = 0.0
+    zf.reshape(-1)[picks[2]] = first[0].reshape(-1)[picks[2]]
+    got = edge.raster_edge(setup, scb, clb, px, py, zf)
+    want = edge.raster_edge_plain(setup, scb, clb, px, py, zf)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    live = zf < edge.ZFAR_PARK
+    assert int(live.sum()) == 5 and (got[1][~live] == -1).all()
+    assert torch.isinf(got[0][~live]).all()
+    assert (got[1][live] >= 0).sum() >= 4
+    assert torch.equal(got[1].reshape(-1)[picks[:2]],
+                       first[1].reshape(-1)[picks[:2]])
+
+
+def test_kernel_g_refuses_a_tree_beyond_its_work_list(card):
+    """More superclusters than the kernel's shared-memory work list
+    holds: the wrapper raises, and no launch is counted."""
+    n_sc = edge.MAX_SUPERCLUSTERS + 1
+    setup = torch.zeros((n_sc * 64, 128, edge.SETUP_W), device=card)
+    scb = torch.zeros((8, n_sc), device=card)
+    clb = torch.zeros((n_sc, 8, 64), device=card)
+    px = torch.zeros((2, 128), device=card)
+    before = edge.raster_edge.launches
+    with pytest.raises(ValueError, match="superclusters"):
+        edge.raster_edge(setup, scb, clb, px, px, px)
+    assert edge.raster_edge.launches == before
 
 
 def test_raster_frame_on_card_matches_cpu(renderer):

@@ -45,6 +45,30 @@ def test_lane_sort_and_unsort_match_jax(block, nkeys):
     np.testing.assert_array_equal(again.numpy(), ch)
 
 
+@pytest.mark.parametrize("block", [512, 1024])
+@pytest.mark.parametrize("channels", [1, 4, 5])
+def test_lane_unsort_matches_jax(block, channels):
+    """lane_unsort (kernel F's plain version) against the JAX function
+    (interpret) for 1, 4 and 5 channels: ranks that are a random
+    permutation inside every block, values bit-equal."""
+    rng = np.random.default_rng(10 * block + channels)
+    nb = 16
+    rank = np.stack([rng.permutation(block) for _ in range(nb * 128 // block)])
+    rank = rank.reshape(nb, 128).astype(np.int32)
+    res = rng.normal(size=(channels, nb, 128)).astype(np.float32)
+    want = jls.lane_unsort(jnp.asarray(res), jnp.asarray(rank, jnp.float32),
+                           block=block, interpret=True)
+    got = lanesort.lane_unsort(torch.from_numpy(res), torch.from_numpy(rank),
+                               block=block)
+    assert got.shape == res.shape and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # out[s, j] = res[s, base + rank[j]], block by block
+    r3 = res.reshape(channels, -1, block)
+    idx = np.broadcast_to(rank.reshape(1, -1, block), r3.shape)
+    np.testing.assert_array_equal(
+        got.numpy(), np.take_along_axis(r3, idx, 2).reshape(res.shape))
+
+
 def test_cell_key_fine_matches_jax():
     rng = np.random.default_rng(5)
     nb = 24

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import duplicate_triangle
 from vkrt_tpu import config as JC
 from vkrt_tpu.raster import edge as jedge
 from vkrt_tpu.raster import pipeline as jpipe
@@ -131,32 +132,159 @@ def test_setup_columns_match_jax(scene, pose):
                                rtol=1e-5, atol=1e-6)
 
 
+def w_classes(tree, cam):
+    """Per triangle of the tree ([C1p, 128] bool each), from the corners'
+    clip w in float64: valid; crossing (a corner at w <= 1e-9, but not
+    all three at w <= 0); behind (all three corners at w <= 0)."""
+    td = tree.tri_data.numpy().astype(np.float64)
+    wrow = (cam.projection_matrix.astype(np.float64)
+            @ cam.view_matrix.astype(np.float64))[3]
+    v0 = td[..., 0:3]
+    ws = [p @ wrow[:3] + wrow[3]
+          for p in (v0, v0 + td[..., 3:6], v0 + td[..., 6:9])]
+    valid = td[..., 0:9].any(-1)
+    near = valid & ((ws[0] <= 1e-9) | (ws[1] <= 1e-9) | (ws[2] <= 1e-9))
+    behind = valid & (ws[0] <= 0) & (ws[1] <= 0) & (ws[2] <= 0)
+    return valid, near & ~behind, behind
+
+
+def box_classes(clb):
+    """(full-screen, empty) per cluster id, from clb [n_sc, 8, 64]."""
+    big = np.float32(1e8)
+    box = np.moveaxis(clb, 1, 0).reshape(8, -1)
+    return (box[0] == -big) & (box[3] == big), box[0] == big
+
+
 @pytest.mark.parametrize("pose", ["start", "wall"])
 def test_screen_boxes_match_jax(scene, pose):
-    """scb and clb, full-screen and empty boxes included. The boxes are
-    the corners divided by w, in float64 in the port and float32 (with
-    FMAs) in the JAX package: x, y to 1e-6 relative plus 1e-4 pixel,
-    zmax to 1e-6 relative; the port's zmin lies below the JAX package's
-    (its pad for kernel G's depth error, measured here: at most 0.03);
-    the padding rows 6-7 are 0."""
-    (_, jscb, jclb), (_, tscb, tclb) = both_setups(scene, cameras()[pose])
+    """scb and clb, full-screen and empty boxes included. The port's
+    full-screen clusters are the JAX package's less those with no
+    triangle crossing w = 0 (a triangle wholly behind the camera bounds
+    nothing in the port); a cluster of nothing but such triangles is
+    empty in the port. Where both give a cluster the same kind of box:
+    the boxes are the corners divided by w, in float64 in the port and
+    float32 (with FMAs) in the JAX package: x, y to 1e-6 relative plus
+    1e-4 pixel, zmax to 1e-6 relative; the port's zmin lies below the JAX
+    package's (its pad for kernel G's depth error, measured here: at most
+    0.03); the padding rows 6-7 are 0. A supercluster's box is compared
+    where all of its clusters are of the same kind in both, and lies
+    inside the JAX package's otherwise."""
+    cam = cameras()[pose]
+    (_, jscb, jclb), (_, tscb, tclb) = both_setups(scene, cam)
     assert tscb.shape == jscb.shape and tclb.shape == jclb.shape
-    for t, j in ((tscb, jscb), (np.moveaxis(tclb, 1, 0),
-                                np.moveaxis(jclb, 1, 0))):
+    valid, crossing, behind = w_classes(scene[3].tree, cam)
+    jfull, jempty = box_classes(jclb)
+    full, empty = box_classes(tclb)
+    assert full.any(), "the pose should put some sheet across w = 0"
+    np.testing.assert_array_equal(full, jfull & crossing.any(1))
+    np.testing.assert_array_equal(full, crossing.any(1))
+    only_behind = valid.any(1) & ~(valid & ~behind).any(1)
+    np.testing.assert_array_equal(empty, jempty | only_behind)
+    assert (jfull[only_behind]).all()
+    if pose == "start":
+        assert only_behind.sum() >= 2      # the case is not vacuous
+    same = (full == jfull) & (empty == jempty)         # per cluster
+    n_sc = tclb.shape[0]
+    same_sc = np.zeros(tscb.shape[1], bool)
+    same_sc[:n_sc] = same.reshape(n_sc, -1).all(1)
+    same_sc[n_sc:] = True                              # padding columns
+    tcl = np.moveaxis(tclb, 1, 0).reshape(8, -1)
+    jcl = np.moveaxis(jclb, 1, 0).reshape(8, -1)
+    for t, j, ok in ((tscb, jscb, same_sc), (tcl, jcl, same)):
+        assert ok.any()
         for row in (0, 1, 3, 4):
-            np.testing.assert_allclose(t[row], j[row], rtol=1e-6, atol=1e-4)
-        np.testing.assert_allclose(t[5], j[5], rtol=1e-6)
+            np.testing.assert_allclose(t[row][ok], j[row][ok], rtol=1e-6,
+                                       atol=1e-4)
+        np.testing.assert_allclose(t[5][ok], j[5][ok], rtol=1e-6)
         pad = j[2].astype(np.float64) - t[2]
-        assert (pad >= -1e-6 * np.abs(j[2])).all() and (pad <= 0.05).all()
+        assert (pad[ok] >= -1e-6 * np.abs(j[2][ok])).all()
+        assert (pad[ok] <= 0.05).all()
         assert not t[6:].any()
-    big = np.float32(1e8)
-    full = (tclb[:, 0] == -big) & (tclb[:, 3] == big)
-    assert full.any(), "the pose should put some sheet behind the camera"
-    np.testing.assert_array_equal(full, (jclb[:, 0] == -big)
-                                  & (jclb[:, 3] == big))
-    assert (tclb[:, 2][full] == 0).all()
-    empty = tclb[:, 0] == big
-    np.testing.assert_array_equal(empty, jclb[:, 0] == big)
+        # elsewhere the port's box is the smaller one
+        assert (t[:2] >= j[:2] - 1e-4).all() and (t[3:5] <= j[3:5] + 1e-4).all()
+    assert (tcl[2][full] == 0).all()
+
+
+@pytest.mark.parametrize("pose", ["start", "wall"])
+def test_clusters_behind_camera_get_empty_boxes(full_tree, pose):
+    """On the full scene both poses leave many clusters wholly behind the
+    camera (every triangle with all three corners at w <= 0): they get
+    the empty, inverted box; a cluster is full-screen exactly when one of
+    its triangles crosses w = 0; a cluster that mixes triangles behind
+    with triangles in front (none crossing) keeps a bounded box."""
+    w, h = 160, 120
+    cam = cameras(w, h)[pose]
+    _, scb, clb = tedge.build_raster_setup(
+        full_tree, torch.from_numpy(cam.view_matrix),
+        torch.from_numpy(cam.projection_matrix), w, h)
+    valid, crossing, behind = w_classes(full_tree, cam)
+    full, empty = box_classes(clb.numpy())
+    only_behind = valid.any(1) & ~(valid & ~behind).any(1)
+    assert only_behind.sum() > 100
+    assert empty[only_behind].all()
+    np.testing.assert_array_equal(empty, only_behind | ~valid.any(1))
+    np.testing.assert_array_equal(full, crossing.any(1))
+    mixed = behind.any(1) & ~only_behind & ~crossing.any(1)
+    assert mixed.any()
+    box = np.moveaxis(clb.numpy(), 1, 0).reshape(8, -1)
+    assert (np.abs(box[:6, mixed]) < 1e7).all()
+    assert (box[0, mixed] <= box[3, mixed]).all()
+    # the superclusters' boxes hold their clusters' (empty ones aside)
+    n_sc = clb.shape[0]
+    lo = np.where(empty, np.inf, box[0]).reshape(n_sc, -1).min(1)
+    np.testing.assert_array_equal(
+        np.where(np.isinf(lo), np.float32(1e8), lo), scb.numpy()[0, :n_sc])
+
+
+def jax_rule_boxes(tree, cam, scb, clb):
+    """(scb, clb) under the JAX package's rule: every cluster holding a
+    triangle with any corner at w <= 1e-9, those wholly behind the camera
+    included, gets the full-screen box with zmin 0; the superclusters'
+    boxes follow."""
+    valid, crossing, behind = w_classes(tree, cam)
+    unb = torch.from_numpy((crossing | behind).any(1))
+    n_sc = clb.shape[0]
+    box = clb.permute(1, 0, 2).reshape(8, -1).clone()
+    big = 1e8
+    for row, value in ((0, -big), (1, -big), (2, 0.0), (3, big), (4, big),
+                       (5, big)):
+        box[row] = torch.where(unb, torch.tensor(value), box[row])
+    clb = box.reshape(8, n_sc, -1).permute(1, 0, 2).contiguous()
+    scb = scb.clone()
+    scb[0:3, :n_sc] = clb[:, 0:3].amin(dim=2).T
+    scb[3:6, :n_sc] = clb[:, 3:6].amax(dim=2).T
+    return scb, clb
+
+
+@pytest.mark.parametrize("which, pose", [("small", "start"),
+                                         ("small", "wall"),
+                                         ("full", "wall")])
+def test_plain_frame_equals_jax_box_rule(scene, full_tree, which, pose):
+    """Leaving the triangles wholly behind the camera out of the boxes
+    changes no pixel: raster_edge_plain on the port's boxes equals it on
+    the boxes of the JAX package's rule (rebuilt here: full-screen for
+    any corner at w <= 1e-9) bit for bit, in all five outputs."""
+    tree = scene[3].tree if which == "small" else full_tree
+    w, h = (W, H) if which == "small" else (80, 60)
+    cam = cameras(w, h)[pose]
+    setup, scb, clb = tedge.build_raster_setup(
+        tree, torch.from_numpy(cam.view_matrix),
+        torch.from_numpy(cam.projection_matrix), w, h)
+    oscb, oclb = jax_rule_boxes(tree, cam, scb, clb)
+    ofull, _ = box_classes(oclb.numpy())
+    full, _ = box_classes(clb.numpy())
+    assert (ofull | ~full).all()
+    if (which, pose) != ("small", "wall"):
+        assert ofull.sum() > full.sum()        # the rule did drop clusters
+    cfg = dataclasses.replace(TC.reference_config(), width=w, height=h)
+    px, py, inside = tpipe.sample_pixel_lanes(cfg, tuple(tpipe.MSAA8[2]),
+                                              "cpu")
+    zf = torch.where(inside, 0.0, tedge.ZFAR_PARK)
+    got = tedge.raster_edge_plain(setup, scb, clb, px, py, zf)
+    want = tedge.raster_edge_plain(setup, oscb, oclb, px, py, zf)
+    assert (got[1] >= 0).float().mean() > 0.3
+    for g, o in zip(got, want):
+        assert torch.equal(g, o)
 
 
 def lane_inputs(cam_cfg, seed=3):
@@ -170,11 +298,11 @@ def lane_inputs(cam_cfg, seed=3):
     return px, py, torch.from_numpy(zf.astype(np.float32))
 
 
-def test_plain_matches_jax_kernel(scene):
+def plain_vs_jax_kernel(scene, pose):
     """raster_edge_plain fed the JAX setup vs the JAX Pallas kernel
     (interpret) on the same pixels and random depth floors."""
     tcfg, _ = raster_cfg()
-    (jsetup, jscb, jclb), _ = both_setups(scene, cameras()["start"])
+    (jsetup, jscb, jclb), _ = both_setups(scene, cameras()[pose])
     px, py, zf = lane_inputs(tcfg)
     want = [np.asarray(x) for x in jedge.raster_edge(
         jnp.asarray(jsetup), jnp.asarray(jscb), jnp.asarray(jclb),
@@ -202,6 +330,50 @@ def test_plain_matches_jax_kernel(scene):
     np.testing.assert_array_equal(mat[same], jmat[same])
     assert (z[hit] > zf.numpy()[hit]).all() and (z[hit] <= 1).all()
     assert np.isinf(z[~hit]).all() and (mat[~hit] == 0).all()
+
+
+def test_plain_matches_jax_kernel(scene):
+    plain_vs_jax_kernel(scene, "start")
+
+
+def test_plain_matches_jax_kernel_wall_pose(scene):
+    """The same close to a wall, where sheets cross w = 0."""
+    plain_vs_jax_kernel(scene, "wall")
+
+
+def test_plain_tie_goes_to_lower_slot(scene):
+    """The same triangle in two clusters, the copy in the cluster of the
+    higher id and the lower zmin (chip_smoke.py's duplicate_triangle):
+    every sample that the original wins goes on to return the original's
+    slot, and no output changes at all."""
+    tcfg, _ = raster_cfg()
+    _, (tsetup, tscb, tclb) = both_setups(scene, cameras()["start"])
+    setup, scb, clb = (torch.from_numpy(x) for x in (tsetup, tscb, tclb))
+    px, py, inside = tpipe.sample_pixel_lanes(tcfg, (0.5, 0.5), "cpu")
+    zf = torch.where(inside, 0.0, tedge.ZFAR_PARK)
+    want = tedge.raster_edge_plain(setup, scb, clb, px, py, zf)
+    full, empty = box_classes(tclb)
+    zmin = np.moveaxis(tclb, 1, 0).reshape(8, -1)[2]
+    slots, counts = torch.unique(want[1][want[1] >= 0], return_counts=True)
+    ok = torch.from_numpy((~full & (zmin > 0))[(slots // 128).numpy()])
+    slot = int(slots[ok][counts[ok].argmax()])     # a much-seen triangle
+    spare = int(np.nonzero(empty)[0][-1])          # an empty cluster above
+    assert spare > slot // 128 and counts[ok].max() >= 8
+    dup = duplicate_triangle(setup, scb, clb, slot, spare)
+    assert dup[2][spare // 64, 2, spare % 64] < zmin[slot // 128]
+    got = tedge.raster_edge_plain(*dup, px, py, zf)
+    assert (got[1] == slot).sum() == counts[ok].max()
+    assert not (got[1] == spare * 128).any()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # the copy alone does cover those samples: with the original's row
+    # zeroed it takes them over, at the same depth
+    alone = dup[0].clone()
+    alone[slot // 128, slot % 128] = 0.0
+    took = tedge.raster_edge_plain(alone, dup[1], dup[2], px, py, zf)
+    seen = want[1] == slot
+    assert (took[1][seen] == spare * 128).all()
+    assert torch.equal(took[0][seen], want[0][seen])
 
 
 def test_wrapper_on_cpu_runs_plain(scene):

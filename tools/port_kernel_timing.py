@@ -1,0 +1,172 @@
+"""Times of the port's kernels F and G, for comparing two checkouts on one card.
+
+    python3 tools/port_kernel_timing.py [--frames N] [--no-raster]
+
+Run it from the root of a checkout of the repository on a machine with an
+NVIDIA GPU and nvcc; it imports `vkrt_tpu_torch` from the working
+directory, so the same file run from two checkouts (one unpacked beside the
+other, in turns) compares their kernels on one card, minutes apart.
+
+  * F (`lane_unsort`) and `torch.gather` on the same inputs, at the shape a
+    1080p config-4 frame gives F (4 channels, 510 blocks of 1024 lanes,
+    random in-block permutations): device time on a filled queue, as
+    chip_smoke.py's `queued_ms` reads it (a ~20 ms spin kernel first, 24
+    calls behind it, rotating over copies of the inputs that exceed the
+    L2), in the order kernel, gather, gather, kernel; the host's enqueue
+    time per call beside it.
+  * G (`raster_edge`): frames of Rasterizer(full procedural scene,
+    1600x1200, msaa 8) by CUDA events, then G alone on one frame's 32
+    recorded calls, summed per discard round.
+
+Prints the card's nvidia-smi name and power limit, then one JSON object.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+
+from vkrt_tpu_torch import config as C                       # noqa: E402
+from vkrt_tpu_torch import kernels, runtime                  # noqa: E402
+from vkrt_tpu_torch.app.flythrough import camera_path        # noqa: E402
+from vkrt_tpu_torch.raster import edge                       # noqa: E402
+from vkrt_tpu_torch.raster import pipeline as rp             # noqa: E402
+from vkrt_tpu_torch.scene.procedural import procedural_model  # noqa: E402
+from vkrt_tpu_torch.wavefront import lanesort                # noqa: E402
+
+SPIN_CYCLES = 40_000_000
+REPS = 24
+
+
+def queued_ms(calls) -> dict:
+    """Device ms per call of `calls` (taken in turn) behind a spin kernel,
+    and the host's enqueue ms per call. Fails if the device reached the
+    first call before the host had enqueued the last: the time read then
+    would be the host's."""
+    for f in calls:
+        f()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(REPS):
+        calls[i % len(calls)]()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    filled = not start.query()
+    torch.cuda.synchronize()
+    if not filled:
+        raise AssertionError(f"the host took {host_ms:.1f} ms to enqueue "
+                             f"{REPS} calls: the queue did not stay filled")
+    return {"ms": start.elapsed_time(end) / REPS,
+            "enqueue_ms": host_ms / REPS}
+
+
+def time_unsort(dev) -> dict:
+    rng = np.random.default_rng(0)
+    block, nblocks, s = 1024, 510, 4
+    copies = []
+    for _ in range(6):                      # 6 x 19 MB > the 50 MB L2
+        rank = np.stack([rng.permutation(block) for _ in range(nblocks)])
+        rank = torch.as_tensor(rank.reshape(-1, 128).astype(np.int32),
+                               device=dev)
+        res = torch.rand((s, rank.shape[0], 128), device=dev)
+        r3 = res.reshape(s, -1, block)
+        idx = rank.reshape(1, -1, block).long().expand(s, -1, -1)
+        copies.append((res, rank, r3, idx.contiguous()))
+    res, rank, r3, idx = copies[0]
+    same = torch.equal(lanesort.lane_unsort(res, rank, block=block),
+                       torch.gather(r3, 2, idx).reshape(res.shape))
+    f = [lambda c=c: lanesort.lane_unsort(c[0], c[1], block=block)
+         for c in copies]
+    g = [lambda c=c: torch.gather(c[2], 2, c[3]) for c in copies]
+    runs = [queued_ms(f), queued_ms(g), queued_ms(g), queued_ms(f)]
+    return {"shape": list(res.shape), "block": block,
+            "equal_to_gather": same,
+            "kernel": [runs[0], runs[3]], "gather": [runs[1], runs[2]]}
+
+
+def time_raster(dev, frames: int) -> dict:
+    cfg = C.reference_config()
+    rast = rp.Rasterizer(procedural_model("full", seed=0), cfg, dev, msaa=8)
+    cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
+                                 frames + 1))
+    rast.render_async(cams[0])
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(frames + 1)]
+    ev[0].record()
+    for k in range(frames):
+        rast.render_async(cams[k + 1])
+        ev[k + 1].record()
+    torch.cuda.synchronize()
+    frame_ms = [ev[k].elapsed_time(ev[k + 1]) for k in range(frames)]
+
+    calls, inner = [], rp.raster_edge
+
+    def record(*args):
+        calls.append(tuple(a.clone() for a in args))
+        return inner(*args)
+
+    rp.raster_edge = record
+    try:
+        rast.render_async(cams[0])
+        torch.cuda.synchronize()
+    finally:
+        rp.raster_edge = inner
+    edge.raster_edge(*calls[0])
+    spans = []
+    for c in calls:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        edge.raster_edge(*c)
+        b.record()
+        spans.append((a, b))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in spans]
+    return {"frame_ms": frame_ms, "g_calls": len(ms), "g_ms_frame": sum(ms),
+            "g_ms_by_round": [sum(ms[r::4]) for r in range(4)],
+            "g_ms_round_max": [max(ms[r::4]) for r in range(4)]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=2)
+    ap.add_argument("--no-raster", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    runtime.exact_f32()
+    b = kernels.build()
+    ptxas, keep = [], False       # -Xptxas -v's lines for kernels F and G
+    for ln in b.log.splitlines():
+        if "Compiling" in ln:
+            keep = "raster_edge" in ln or "unsort" in ln
+        if keep and ("Compiling" in ln or "registers" in ln or "spill" in ln):
+            ptxas.append(ln.strip())
+    out = {"cwd": os.getcwd(), "build_s": b.seconds,
+           "unsort": time_unsort(dev)}
+    if not args.no_raster:
+        out["raster"] = time_raster(dev, args.frames)
+    print(runtime.nvidia_smi_line())
+    for ln in ptxas:
+        print("ptxas:", ln)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

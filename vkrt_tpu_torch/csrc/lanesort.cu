@@ -19,8 +19,19 @@
 // so the stores of a block land in one 4 KB span per channel) and writes
 // the rank in ORIGINAL lane order. The TPU kernel built the permutation as
 // one-hot matmuls because its vector unit cannot scatter; here a store
-// does. F: one thread per lane, out[s, j] = res[s, base + rank[j]].
-// A rank outside [0, R) (never made by E) reads nothing and gives 0.
+// does.
+//
+// F moves 4 bytes in and 4 out per lane and channel plus the rank, a few
+// microseconds of memory traffic at the main path's shape (19 MB), so what
+// it can lose is time per instruction and bytes in flight, not bandwidth.
+// One thread takes four consecutive lanes (n is a multiple of 128, so a
+// quad never straddles a block): one 16-byte load of their ranks, then for
+// up to four channels at a time all 16 gathers before any store (they land
+// in the block's 2-4 KB span per channel, so they hit the same few lines),
+// then one 16-byte store a channel: a quarter of the threads, rank loads
+// and stores of a lane-per-thread kernel, and 16 independent loads in
+// flight a thread. out[s, j] = res[s, base + rank[j]]; a rank outside
+// [0, R) (never made by E) reads nothing and gives 0.
 #include <cuda_runtime.h>
 
 namespace vkrt {
@@ -55,15 +66,32 @@ lane_sort_kernel(const float* __restrict__ x,     // [c, n]
 
 __global__ void __launch_bounds__(256)
 lane_unsort_kernel(const float* __restrict__ res,  // [s, n] sorted order
-                   const int* __restrict__ rank,   // [n]
-                   int s, int n, int R, float* __restrict__ out) {  // [s, n]
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int base = i - i % R;
-  const int r = rank[i];
-  const bool ok = (unsigned)r < (unsigned)R;
-  for (int ch = 0; ch < s; ++ch)
-    out[(size_t)ch * n + i] = ok ? res[(size_t)ch * n + base + r] : 0.0f;
+                   const int4* __restrict__ rank,  // [n / 4] lane quads
+                   int s, int n, int R, float4* __restrict__ out) {  // [s, n/4]
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nq = n >> 2;
+  if (q >= nq) return;
+  const int i = q << 2;
+  const int4 r = __ldg(rank + q);
+  const bool ok0 = (unsigned)r.x < (unsigned)R, ok1 = (unsigned)r.y < (unsigned)R;
+  const bool ok2 = (unsigned)r.z < (unsigned)R, ok3 = (unsigned)r.w < (unsigned)R;
+  const float* src = res + (i - i % R);            // the quad's sort block
+  for (int ch0 = 0; ch0 < s; ch0 += 4) {
+    float4 v[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (ch0 + c < s) {
+        const float* p = src + (size_t)(ch0 + c) * n;
+        v[c].x = ok0 ? __ldg(p + r.x) : 0.0f;
+        v[c].y = ok1 ? __ldg(p + r.y) : 0.0f;
+        v[c].z = ok2 ? __ldg(p + r.z) : 0.0f;
+        v[c].w = ok3 ? __ldg(p + r.w) : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (ch0 + c < s) out[(size_t)(ch0 + c) * nq + q] = v[c];
+  }
 }
 
 }  // namespace vkrt
@@ -90,10 +118,11 @@ extern "C" int vkrt_lane_unsort(const float* res, const int* rank, int s,
                                 int n, int block, float* out, void* stream) {
   if (bad_block(n, block)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0 && s > 0) {
-    const int threads = 256;
-    vkrt::lane_unsort_kernel<<<(n + threads - 1) / threads, threads, 0,
+    const int threads = 256, quads = n / 4;   // block % 128 == 0 divides n
+    vkrt::lane_unsort_kernel<<<(quads + threads - 1) / threads, threads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
-        res, rank, s, n, block, out);
+        res, reinterpret_cast<const int4*>(rank), s, n, block,
+        reinterpret_cast<float4*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -31,7 +31,9 @@ Degenerate, culled and padding triangles have all-zero rows: beta =
 
 Which fragment wins: a fragment counts where beta_0,1,2 >= 0,
 sum(beta) > 0, 0 <= z <= 1 and z > zfloor (strict); the nearest z wins
-and ties go to the lowest slot (cluster id * 128 + triangle).
+and ties go to the lowest slot (cluster id * 128 + triangle), in
+whatever order the clusters are visited (the kernel walks them front to
+back by zmin, the plain version takes a minimum over all of them).
 """
 
 from __future__ import annotations
@@ -53,6 +55,7 @@ DEPTH_ULPS = 2.0 ** -20  # 16 float32 ulps: zmin's pad per unit of error
 PIX_CHUNK = 8192      # plain version: pixels gated at a time
 PAIR_CHUNK = 16384    # plain version: (pixel, cluster) pairs at a time
                       # (~15 KB each: the cluster's rows and temporaries)
+MAX_SUPERCLUSTERS = 256   # kernel G's shared-memory work list (MAX_LIST_SC)
 
 
 def _wvp(view, proj):
@@ -83,9 +86,19 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
     rows 0-2 lo (x, y, zmin), 3-5 hi, 6-7 zero. zmin sits below the
     corners' least z/w by a bound on the float32 depth error of kernel G
     (so no fragment it computes lies below it); the JAX package's is the
-    least z/w. Empty clusters get inverted boxes (lo +1e8, hi -1e8); a
-    cluster holding any triangle with a corner at w <= 1e-9 gets a
-    full-screen box with zmin 0."""
+    least z/w. A cluster holding a triangle that crosses w = 0 (a corner
+    at w <= 1e-9, another in front) gets a full-screen box with zmin 0.
+    Empty clusters get inverted boxes (lo +1e8, hi -1e8).
+
+    A triangle with all three corners at w <= 0 lies wholly behind the
+    camera. The JAX package counts it as unboundable too and gives its
+    cluster a full-screen box; here it bounds nothing: it adds to no box
+    extent, and a cluster that holds only such triangles (and padding)
+    gets the empty box. The frame cannot change by that: the rows satisfy
+    sum_i beta_i w_i = 1 at every sample, which no beta_i >= 0 solves when
+    every w_i <= 0, so such a triangle covers nothing wherever it is
+    evaluated. Its setup row stays as it was (the rows' zero pattern is
+    the JAX package's); only fewer pixels evaluate it."""
     td = tree.tri_data                                       # [C1p,K1,128]
     geo = td[..., 0:9].double()
     wvp = _wvp(view.double(), proj.double())
@@ -131,11 +144,14 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
     setup = torch.where((valid & (inv != 0))[..., None], setup, 0.0)
 
     # screen boxes: a triangle is boundable iff all three corners have
-    # w > 1e-9; otherwise its cluster gets a full-screen box
-    bounded = valid
+    # w > 1e-9; one wholly behind the camera (every w <= 0) covers
+    # nothing and is left out; any other gives its cluster a full-screen
+    # box
+    bounded = behind = valid
     for w in W:
         bounded = bounded & (w > _W_EPS)
-    unbounded = valid & ~bounded
+        behind = behind & (w <= 0)
+    unbounded = valid & ~bounded & ~behind
 
     def extent(vals, lo: bool):
         m = None
@@ -150,7 +166,7 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
     sy = [Y[i] / ws[i] for i in range(3)]
     sz = [Z[i] / ws[i] for i in range(3)]
     any_unb = unbounded.any(dim=1)
-    empty = ~valid.any(dim=1)
+    empty = ~(valid & ~behind).any(dim=1)
     lo_x = torch.where(any_unb, -_BIG, extent(sx, True))
     lo_y = torch.where(any_unb, -_BIG, extent(sy, True))
     hi_x = torch.where(any_unb, _BIG, extent(sx, False))
@@ -338,6 +354,9 @@ def raster_edge(setup, scb, clb, px, py, zfloor):
     if dev.type != "cuda":
         raise ValueError(f"raster_edge: unsupported device {dev}")
     _check(setup, scb, clb, px, py, zfloor)
+    if clb.shape[0] > MAX_SUPERCLUSTERS:
+        raise ValueError(f"raster_edge: {clb.shape[0]} superclusters, the "
+                         f"kernel's work list holds {MAX_SUPERCLUSTERS}")
     setup, scb, clb, px, py, zfloor = (
         t.contiguous() for t in (setup, scb, clb, px, py, zfloor))
     nb = px.shape[0]

@@ -14,9 +14,9 @@ Two methods, as in the JAX package:
     MAX_DISCARD_ROUNDS passes of kernel G. A discarded fragment's depth
     becomes the pixel's floor for the next round, so the next round
     finds the nearest fragment strictly behind it; every other pixel
-    parks (zfloor 1e9), which G dismisses at the first box test. The
-    rounds always run: no host wait decides to stop early. An MSAA-8
-    frame is 8 samples x 4 rounds = 32 launches of G.
+    parks (zfloor 1e9), and a block of G without a live pixel leaves at
+    once. The rounds always run: no host wait decides to stop early. An
+    MSAA-8 frame is 8 samples x 4 rounds = 32 launches of G.
   * "wavefront": the ray-cast equivalent on kernel A, a discarded hit
     continuing its ray just behind the surface.
 

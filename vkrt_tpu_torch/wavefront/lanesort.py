@@ -20,6 +20,8 @@ exact below 2**24). Not ported: `dir_cell_key_fine`, which only
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from vkrt_tpu_torch import kernels
@@ -54,6 +56,15 @@ def _check(name, x, idx, block, dev):
                          f"{idx.numel()} rays")
 
 
+def _on_device(dev):
+    """A scope in which `dev` is the current device for a launch: none
+    where it already is (the usual case), which spares the call two
+    device switches."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def lane_sort_plain(x, key, block: int):
     """Plain PyTorch version of kernel E: a stable sort of each block's
     keys (a [nbk, block] view), channels gathered in that order."""
@@ -85,7 +96,7 @@ def lane_sort(x, key, *, block: int):
     out = torch.empty_like(x)
     rank = torch.empty_like(key)
     lib = kernels.library()
-    with torch.cuda.device(dev):
+    with _on_device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vkrt_lane_sort(x.data_ptr(), key.data_ptr(), x.shape[0],
                                  key.numel(), block, out.data_ptr(),
@@ -119,12 +130,14 @@ def lane_unsort(res, rank, *, block: int):
         raise ValueError(f"lane_unsort: unsupported device {dev}")
     _check("lane_unsort", res, rank, block, dev)
     out = torch.empty_like(res)
-    lib = kernels.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vkrt_lane_unsort(res.data_ptr(), rank.data_ptr(),
-                                   res.shape[0], rank.numel(), block,
-                                   out.data_ptr(), stream)
+    ptrs = (res.data_ptr(), rank.data_ptr(), out.data_ptr())
+    if ptrs[1] % 16 or ptrs[2] % 16:
+        raise ValueError("lane_unsort: rank must start on a 16-byte "
+                         "boundary (the kernel moves four lanes at a time)")
+    with _on_device(dev):
+        err = kernels.library().vkrt_lane_unsort(
+            ptrs[0], ptrs[1], res.shape[0], rank.numel(), block, ptrs[2],
+            torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "lane_unsort")
     lane_unsort.launches += 1
     return out
