@@ -9,9 +9,15 @@ the profile after phase 9 and phase 10:
   2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
-              full procedural scene: camera + scattered rays, some parked)
+              full procedural scene: camera + scattered rays, some parked),
+              then the tie probe (the most-hit triangle copied into a
+              padding cluster of a higher id under the scene's box, which
+              the front-to-back walk visits first: no slot may differ from
+              the plain version, and the lower slot must win)
   4. kernel B vs its plain version (shadow segments of phase 3's hits,
-              with parked and near-light segments)
+              with parked and near-light segments), then the same segments
+              regrouped: in every set a group of only blocked, only parked,
+              only empty-interval segments and one with one live lane
   5. C-F      kernels C, D (live-ray pack) and E, F (in-block lane sort)
               vs their plain versions on probes: liveness 0, 0.1, 0.27,
               0.9, 1 and clustered; keys with many ties; blocks 512 and
@@ -34,7 +40,8 @@ the profile after phase 9 and phase 10:
               time is read and not the host's enqueue time, which is
               printed beside it), the bounds of that work and the one
               PyTorch call that computes the same function where there
-              is one (F: torch.gather)
+              is one (F: torch.gather); A's and B's ms per depth beside
+              their bound and the unfused-rate ceiling (UNFUSED x bound)
   then   two profiled main-path frames, then two flags-off frames (device
          time per engine range, busy share, top kernels)
  10. kernel G vs its plain version on probes: the full and the small
@@ -315,6 +322,68 @@ def compare_closest(tree, o, d, tmax, label: str = "", block: int = 0,
     return out
 
 
+def tie_tree(tree, slot: int, spare: int):
+    """A probe of kernel A's tie rule: a copy of `tree` in which the
+    padding cluster `spare` holds nothing but a copy of triangle `slot`'s
+    row (geometry and attributes) as its triangle 0, under the box of the
+    whole scene (and its supercluster's box grown to hold it), with
+    `leaf_tri` (padded with -1 to every slot) mapping the copy to the
+    same triangle. A ray that hits the triangle hits both copies at the
+    same t, u and v, and its entry t into the copy's box is at most its
+    entry t into the original's, so a walk by entry t meets the copy
+    first; the lower slot must win."""
+    sc_boxes, cl_boxes, tri, leaf = (x.clone() for x in tree)
+    real = sc_boxes[0] <= sc_boxes[3]
+    lo = sc_boxes[0:3][:, real].min(dim=1).values
+    hi = sc_boxes[3:6][:, real].max(dim=1).values
+    tri[spare] = 0.0
+    tri[spare, 0] = tree.tri_data[slot // K1, slot % K1]
+    s, c = divmod(spare, K2)
+    cl_boxes[s, 0:3, c], cl_boxes[s, 3:6, c] = lo, hi
+    sc_boxes[0:3, s], sc_boxes[3:6, s] = lo, hi
+    leaf = torch.cat([leaf, leaf.new_full((tri.shape[0] * K1 - leaf.numel(),),
+                                          -1)])
+    leaf[spare * K1] = tree.leaf_tri[slot]
+    return type(tree)(sc_boxes, cl_boxes, tri, leaf)
+
+
+def tie_slots(tree, slot_out):
+    """(slot, spare) for `tie_tree`: the slot most of `slot_out`'s rays hit
+    and the last padding cluster, whose id is above that slot's cluster."""
+    slots, counts = torch.unique(slot_out[slot_out >= 0], return_counts=True)
+    slot = int(slots[counts.argmax()])
+    spare = int(torch.nonzero(tree.cl_boxes[:, 0, :].reshape(-1)
+                              > tree.cl_boxes[:, 3, :].reshape(-1))[-1])
+    return slot, spare
+
+
+def closest_tie_probe(tree, o, d, tmax, label: str = "") -> float:
+    """What a front-to-back walk could get wrong: the most-hit triangle
+    is copied into a padding cluster of a higher id under the scene's box
+    (`tie_tree`), which the walk visits first. Kernel A must agree with
+    its plain version on every ray (no slot differs), return the lower
+    slot (every output equal to the run without the copy) and, with the
+    original's row zeroed, hand the same rays to the copy."""
+    want = trace_dense(tree, o, d, tmax)
+    slot, spare = tie_slots(tree, want[1])
+    tt = tie_tree(tree, slot, spare)
+    out = compare_closest(tt, o, d, tmax, f" (tie probe{label})")
+    got = trace_dense(tt, o, d, tmax)
+    alone = tt._replace(tri_data=tt.tri_data.clone())
+    alone.tri_data[slot // K1, slot % K1] = 0.0
+    took = trace_dense(alone, o, d, tmax)
+    seen = want[1] == slot
+    res = dict(slot=slot, copy_slot=spare * K1, rays=int(seen.sum()),
+               slots_differ=out["slots_differ"],
+               unchanged=all(torch.equal(g, w) for g, w in zip(got, want)),
+               copy_alone_takes_over=bool((took[1][seen] == spare * K1).all()))
+    log(f"  kernel A tie probe{label}:", json.dumps(res))
+    if not (spare > slot // K1 and res["rays"] >= 8 and res["slots_differ"] == 0
+            and res["unchanged"] and res["copy_alone_takes_over"]):
+        raise AssertionError(f"kernel A tie probe failed: {res}")
+    return out["max_abs_err"]
+
+
 def compare_occl(tree, lp, sd, st, near: bool = True,
                  label: str = "") -> dict:
     """Kernel B vs its plain version on the same inputs; parked
@@ -337,6 +406,38 @@ def compare_occl(tree, lp, sd, st, near: bool = True,
         raise AssertionError(f"kernel B disagrees with its plain version: "
                              f"{out}")
     return out
+
+
+def occl_group_probe(tree, lp, sd, st) -> float:
+    """Phase 4's edge groups: kernel B on phase 4's segments, rearranged
+    so that in every set group 0 holds only blocked segments (gathered
+    from the plain version's), group 1 only parked ones, group 2 only
+    empty intervals (0 < tmax <= TMIN) and group 3 one live, blocked lane.
+    Masks must equal the plain version's, and those four groups come out
+    as they must. Returns the largest error."""
+    want = occluded_multi_plain(tree, lp, sd, st)
+    sd, st = sd.clone(), st.clone()
+    for s in range(lp.shape[0]):
+        idx = torch.nonzero(want[s].reshape(-1))[:L.LANES, 0]
+        if idx.numel() < L.LANES:
+            raise AssertionError(f"set {s}: fewer than 128 blocked segments")
+        sd[s, :, 0] = sd[s].reshape(3, -1)[:, idx]
+        st[s, 0] = st[s].reshape(-1)[idx]
+    st[:, 1] = 0.0
+    st[:, 2] = 0.0009
+    st[:, 3] = 0.0
+    st[:, 3, 127] = st[:, 0, 5]
+    sd[:, :, 3, 127] = sd[:, :, 0, 5]
+    out = compare_occl(tree, lp, sd, st, near=False,
+                       label=" (edge groups: all blocked, parked, empty, "
+                             "one live lane)")
+    kb = occluded_multi(tree, lp, sd, st)
+    ok = (out["masks_differ"] == 0 and bool(kb[:, 0].all())
+          and not bool(kb[:, 1:3].any()) and not bool(kb[:, 3, :127].any())
+          and bool(kb[:, 3, 127].all()))
+    if not ok:
+        raise AssertionError(f"kernel B edge groups: {out}")
+    return out["max_abs_err"]
 
 
 def compare_move(k: str, args, kw, label: str = "") -> float:
@@ -474,6 +575,11 @@ class RecordingBackend:
 # --- bounds: the least time the card could take for a kernel's work ----
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+UNFUSED = 2   # the f32 rate above counts an FMA as two operations; the
+              # trace kernels build with -fmad=false (bit-equal to their
+              # plain versions), so the card issues at most half of it
+              # (132 SMs x 128 lanes x ~1.98 GHz = 33.5 T operations/s):
+              # their reachable time is UNFUSED x the bound
 OPS_A = 46    # kernel A per (ray, triangle): Möller–Trumbore terms 41,
               # 1/det, u, v, t products, u + v
 OPS_B = 47    # kernel B per (segment, triangle): terms 41, three sign
@@ -692,6 +798,13 @@ def main_path_shapes(renderer: Renderer, cam: Camera, transform=None,
             + (f", library call {r['library_ms']:.4f} ms"
                if r.get("library_ms") is not None else "")
             for r in rows))
+    for k in "AB":
+        log(f"  kernel {k} ms per depth ({label}): " + "; ".join(
+            f"d{dep} {r['ms']:.3f} ms, bound {r['bound_ms']:.3f} "
+            f"({r['ms'] / r['bound_ms']:.1f}x; unfused ceiling "
+            f"{UNFUSED * r['bound_ms']:.3f})" for dep, r in enumerate(res[k]))
+            + f"; per frame {sum(r['ms'] for r in res[k]):.3f} ms, bound "
+            f"{sum(r['bound_ms'] for r in res[k]):.3f} ms")
     if len(res["A"]) != want or len(res["B"]) != want:
         raise AssertionError(f"recorded {len(res['A'])} A and {len(res['B'])}"
                              f" B inputs, want {want} each")
@@ -1671,11 +1784,15 @@ def main() -> int:
     log("== 3. kernel A vs plain")
     o, d, tmax = probe_rays(dev)
     res_a = compare_closest(tree, o, d, tmax)
+    res_a["max_abs_err"] = max(res_a["max_abs_err"],
+                               closest_tie_probe(tree, o, d, tmax))
 
     log("== 4. kernel B vs plain")
     _, slot, u, v, attrs = trace_dense(tree, o, d, tmax)
     lp, sd, st = shadow_inputs(u, v, attrs, slot >= 0, renderer.lights)
     res_b = compare_occl(tree, lp, sd, st)
+    res_b["max_abs_err"] = max(res_b["max_abs_err"],
+                               occl_group_probe(tree, lp, sd, st))
 
     log("== 5. kernels C-F vs plain on probes")
     probe_err = probe_moves(dev)

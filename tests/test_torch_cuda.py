@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import duplicate_triangle
+from chip_smoke import duplicate_triangle, tie_slots, tie_tree
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.framebuffer import rmse
@@ -29,10 +29,12 @@ from vkrt_tpu_torch.accel.refit import refit_clusters
 from vkrt_tpu_torch.rt.dense import (broadcast_points, trace_dense,
                                      trace_dense_plain, trace_occluded,
                                      trace_occluded_plain)
-from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
+from vkrt_tpu_torch.rt.occl_multi import (MAX_SETS, occluded_multi,
+                                          occluded_multi_plain)
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import lanesort, pack
-from vkrt_tpu_torch.wavefront.engine import REBUILD_MODES, Renderer
+from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
+                                             camera_ray_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +103,109 @@ def test_kernel_b_matches_plain(renderer, card):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert not got[:, 0, :8].any()
+
+
+def camera_rays(renderer, card):
+    """The 64x48 start-pose camera rays of the small scene, lane-major."""
+    cfg = small_config()
+    cam = start_camera()
+    opt, d, valid = camera_ray_blocks(
+        torch.as_tensor(cam.proj_inverse, device=card),
+        torch.as_tensor(cam.view_inverse, device=card), cfg)
+    o = opt[:, None, None].expand(d.shape).contiguous()
+    return o, d.contiguous(), torch.where(valid, C.RAY_TMAX, 0.0)
+
+
+def test_kernel_a_tie_goes_to_lower_slot(renderer, card):
+    """The most-hit triangle copied into a padding cluster of a higher id
+    under the scene's box, which kernel A's front-to-back walk visits
+    first: every output equals the run without the copy (the lower slot
+    won each tie) and the plain version's; with the original row zeroed
+    the copy takes those rays."""
+    tree = renderer.backend.tree
+    o, d, tmax = camera_rays(renderer, card)
+    want = trace_dense(tree, o, d, tmax)
+    slot, spare = tie_slots(tree, want[1])
+    assert spare > slot // 128
+    tt = tie_tree(tree, slot, spare)
+    before = trace_dense.launches
+    got = trace_dense(tt, o, d, tmax)
+    assert trace_dense.launches == before + 1
+    seen = want[1] == slot
+    assert int(seen.sum()) >= 8
+    for g, w, p in zip(got, want, trace_dense_plain(tt, o, d, tmax)):
+        assert torch.equal(g, w) and torch.equal(g, p)
+    alone = tt._replace(tri_data=tt.tri_data.clone())
+    alone.tri_data[slot // 128, slot % 128] = 0.0
+    took = trace_dense(alone, o, d, tmax)
+    assert (took[1][seen] == spare * 128).all()
+
+
+@pytest.mark.parametrize("live", ["one_lane", "one_lane_a_warp"])
+def test_kernel_a_sparse_groups_match_plain(renderer, card, live):
+    """Groups with a single live lane (every 7th group: lane 77) or one
+    live lane a warp, the rest parked: every output equals the plain
+    version's, and parked lanes miss."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, n=8192, seed=11)
+    keep = torch.zeros_like(tmax, dtype=torch.bool)
+    if live == "one_lane":
+        keep[::7, 77] = True
+    else:
+        keep[:, ::32] = True
+    tmax = torch.where(keep, C.RAY_TMAX, 0.0)
+    got = trace_dense(tree, o, d, tmax)
+    want = trace_dense_plain(tree, o, d, tmax)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (got[1][~keep] == -1).all() and (got[1][keep] >= 0).any()
+
+
+@pytest.mark.parametrize("ns", [1, 2, 3, 4])
+def test_kernel_b_edge_groups_match_plain(renderer, card, ns):
+    """Kernel B at NS 1-4 on groups that are all blocked, all parked, all
+    empty-interval (0 < tmax <= TMIN), one live lane, and random: masks
+    equal to the plain version's; the first three as they must be."""
+    tree = renderer.backend.tree
+    lights = renderer.lights[:ns].contiguous()
+    o, d, tmax = random_rays(card, n=16384, seed=20 + ns)
+    pts = o + d * 6.0                       # points in and beyond the hall
+    seg = pts[None] - lights[:, :, None, None]
+    dist = seg.norm(dim=1)
+    sd = (seg / dist[:, None]).contiguous()
+    st = (dist - C.RAY_TMIN).contiguous()
+    blk = occluded_multi_plain(tree, lights, sd, st)
+    # group 0: the first 128 blocked segments of each set, gathered
+    for s in range(ns):
+        idx = torch.nonzero(blk[s].reshape(-1))[:128, 0]
+        assert idx.numel() == 128
+        sd[s, :, 0] = sd[s].reshape(3, -1)[:, idx]
+        st[s, 0] = st[s].reshape(-1)[idx]
+    st[:, 1] = 0.0                          # group 1: parked
+    st[:, 2] = 0.0009                       # group 2: empty intervals
+    st[:, 3, :127] = 0.0                    # group 3: one live lane
+    st[:, 3, 127] = st[:, 0, 5]             # (a blocked one)
+    sd[:, :, 3, 127] = sd[:, :, 0, 5]
+    before = occluded_multi.launches
+    got = occluded_multi(tree, lights, sd, st)
+    assert occluded_multi.launches == before + 1
+    assert torch.equal(got, occluded_multi_plain(tree, lights, sd, st))
+    assert got[:, 0].all() and not got[:, 1:3].any()
+    assert not got[:, 3, :127].any()
+    assert 0.05 < got[:, 4:].float().mean().item() < 0.95
+
+
+@pytest.mark.parametrize("ns", [0, MAX_SETS + 1])
+def test_kernel_b_refuses_set_counts_it_does_not_take(renderer, card, ns):
+    """NS outside 1..MAX_SETS: the wrapper raises, no launch counted."""
+    o, d, tmax = random_rays(card, n=256)
+    lights = torch.zeros(ns, 3, device=card)
+    before = occluded_multi.launches
+    with pytest.raises(ValueError, match="segment sets"):
+        occluded_multi(renderer.backend.tree, lights,
+                       d[None].expand(ns, -1, -1, -1).contiguous(),
+                       tmax[None].expand(ns, -1, -1).contiguous())
+    assert occluded_multi.launches == before
 
 
 def test_frame_on_card_matches_cpu(renderer):

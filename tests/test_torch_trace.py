@@ -186,3 +186,72 @@ def test_unsupported_device_raises(scene, fn):
             trace_dense(ttree, meta, meta, meta[0])
         else:
             occluded_multi(ttree, meta[:1, 0, :3], meta[None], meta[:1, 0])
+
+
+def test_tie_goes_to_lower_slot(scene):
+    """One triangle in two clusters: the copy in a padding cluster of a
+    higher id under the scene's box, which a walk by entry t meets first
+    (chip_smoke.tie_tree). The plain version returns the lower slot with
+    the same t, u, v and attributes as without the copy. The JAX kernel
+    keeps the first cluster it visits, the copy, at the same t, u, v:
+    the same triangle through leaf_tri (inside tests/test_dense.py's
+    near-tie contract; the port's rule is the lower slot)."""
+    from chip_smoke import tie_slots, tie_tree
+    from vkrt_tpu.accel.clusters import ClusterTree as JaxTree
+
+    _, _, _, jtree, ttree = scene
+    o, d, tmax = (torch.from_numpy(x) for x in lanes(*make_rays()))
+    want = trace_dense_plain(ttree, o, d, tmax)
+    slot, spare = tie_slots(ttree, want[1])
+    assert spare > slot // 128
+    tt = tie_tree(ttree, slot, spare)
+    seen = want[1] == slot
+    assert int(seen.sum()) >= 8
+    for g, w in zip(trace_dense_plain(tt, o, d, tmax), want):
+        assert torch.equal(g, w)
+    jt = JaxTree(*(jnp.asarray(x.numpy()) for x in tt))
+    args = (jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+            jnp.asarray(tmax.numpy()))
+    kw = dict(block=512, with_attributes=True, interpret=True)
+    jt_out = [np.asarray(x) for x in jax_trace_dense(jt, *args, **kw)]
+    j0_out = [np.asarray(x) for x in jax_trace_dense(jtree, *args, **kw)]
+    s = seen.numpy()
+    leaf = tt.leaf_tri.numpy()
+    assert (leaf[jt_out[1][s]] == leaf[slot]).all()
+    for k in (0, 2, 3):                  # t, u, v: unchanged by the copy
+        np.testing.assert_array_equal(jt_out[k][s], j0_out[k][s])
+    np.testing.assert_array_equal(jt_out[4][:, s], j0_out[4][:, s])
+    np.testing.assert_allclose(jt_out[0][s], want[0].numpy()[s], rtol=1e-6)
+
+
+def test_work_split_walks_end_at_plain_hits(scene):
+    """tools/trace_work_split.py's walks (ascending id, nearest-first and
+    the two group orders) end at trace_dense_plain's (t, slot) for every
+    ray, and its shadow walks at occluded_multi_plain's masks."""
+    from tools.trace_work_split import occl_split, walks
+    from vkrt_tpu_torch.rt.occl_multi import occluded_multi_plain
+
+    _, _, _, _, ttree = scene
+    o, d, tmax = (torch.from_numpy(x) for x in lanes(*make_rays(seed=9)))
+    want = trace_dense_plain(ttree, o, d, tmax)
+    counts, ends = walks(ttree, o.reshape(3, -1), d.reshape(3, -1),
+                         tmax.reshape(-1))
+    assert set(ends) == {"ascending", "nearest", "group_two_level",
+                         "group_whole_tree"}
+    for t, slot in ends.values():
+        assert torch.equal(t, want[0].reshape(-1))
+        assert torch.equal(slot.int(), want[1].reshape(-1))
+    assert counts["nearest"] == counts["bound"] <= counts["ascending"]
+    assert counts["ascending"] <= counts["ascending_warp"]
+
+    lights, _, dirs, tm = (torch.from_numpy(x) for x in shadow_segments(13))
+    ns, n = lights.shape[0], tm[0].numel()
+    blocked = occluded_multi_plain(ttree, lights, dirs, tm)
+    o2 = lights.T[:, :, None].expand(3, ns, n).reshape(3, -1)
+    d2 = dirs.reshape(ns, 3, -1).permute(1, 0, 2).reshape(3, -1)
+    counts, ends = walks(ttree, o2.contiguous(), d2.contiguous(),
+                         tm.reshape(-1), occlusion=True, lanes_per_ray=n)
+    for mask in ends.values():
+        assert torch.equal(mask, blocked.reshape(-1))
+    assert 0 < counts["group_two_level"] <= counts["group_two_level_warp"]
+    assert occl_split(ttree, lights, dirs, tm, 2)["rays"] == ns * n // 2

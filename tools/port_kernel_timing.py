@@ -1,20 +1,29 @@
-"""Times of the port's kernels F and G, for comparing two checkouts on one card.
+"""Times of the port's kernels A, B, F and G, for comparing two checkouts on one card.
 
-    python3 tools/port_kernel_timing.py [--frames N] [--no-raster]
+    python3 tools/port_kernel_timing.py [--frames N] [--parts trace,unsort,raster]
 
 Run it from the root of a checkout of the repository on a machine with an
-NVIDIA GPU and nvcc; it imports `vkrt_tpu_torch` from the working
-directory, so the same file run from two checkouts (one unpacked beside the
-other, in turns) compares their kernels on one card, minutes apart.
+NVIDIA GPU and nvcc; it imports `vkrt_tpu_torch` (and chip_smoke.py's
+recording backend) from the working directory, so the same file run from
+two checkouts (one unpacked beside the other, in turns) compares their
+kernels on one card, minutes apart.
 
-  * F (`lane_unsort`) and `torch.gather` on the same inputs, at the shape a
-    1080p config-4 frame gives F (4 channels, 510 blocks of 1024 lanes,
-    random in-block permutations): device time on a filled queue, as
-    chip_smoke.py's `queued_ms` reads it (a ~20 ms spin kernel first, 24
-    calls behind it, rotating over copies of the inputs that exceed the
-    L2), in the order kernel, gather, gather, kernel; the host's enqueue
-    time per call beside it.
-  * G (`raster_edge`): frames of Rasterizer(full procedural scene,
+  * trace: A (`trace_dense`) and B (`occluded_multi`) on the full
+    procedural scene at 1920x1080: config-4 frames at the shipped
+    defaults and config-5 `refit` frames under a y-rotation that grows
+    each frame, by CUDA events between frames enqueued back to back (one
+    warm-up frame first); then A and B alone on the inputs one frame at
+    the start camera gives them (config 4: depths 0-1; config 5 under
+    rot_y(0.02): depths 0-3), per depth, mean of 10 calls after a
+    warm-up.
+  * unsort: F (`lane_unsort`) and `torch.gather` on the same inputs, at
+    the shape a 1080p config-4 frame gives F (4 channels, 510 blocks of
+    1024 lanes, random in-block permutations): device time on a filled
+    queue, as chip_smoke.py's `queued_ms` reads it (a ~20 ms spin kernel
+    first, 24 calls behind it, rotating over copies of the inputs that
+    exceed the L2), in the order kernel, gather, gather, kernel; the
+    host's enqueue time per call beside it.
+  * raster: G (`raster_edge`): frames of Rasterizer(full procedural scene,
     1600x1200, msaa 8) by CUDA events, then G alone on one frame's 32
     recorded calls, summed per discard round.
 
@@ -24,6 +33,7 @@ Prints the card's nvidia-smi name and power limit, then one JSON object.
 from __future__ import annotations
 
 import argparse
+import copy
 import itertools
 import json
 import os
@@ -40,8 +50,12 @@ from vkrt_tpu_torch import kernels, runtime                  # noqa: E402
 from vkrt_tpu_torch.app.flythrough import camera_path        # noqa: E402
 from vkrt_tpu_torch.raster import edge                       # noqa: E402
 from vkrt_tpu_torch.raster import pipeline as rp             # noqa: E402
+from vkrt_tpu_torch.rt.dense import trace_dense              # noqa: E402
+from vkrt_tpu_torch.rt.occl_multi import occluded_multi      # noqa: E402
 from vkrt_tpu_torch.scene.procedural import procedural_model  # noqa: E402
 from vkrt_tpu_torch.wavefront import lanesort                # noqa: E402
+from vkrt_tpu_torch.wavefront.engine import (Renderer,       # noqa: E402
+                                             render_frame_u8)
 
 SPIN_CYCLES = 40_000_000
 REPS = 24
@@ -140,26 +154,91 @@ def time_raster(dev, frames: int) -> dict:
             "g_ms_round_max": [max(ms[r::4]) for r in range(4)]}
 
 
+def event_ms(fn, reps: int) -> float:
+    """Mean device ms of `fn()` by CUDA events, after one warm-up call."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def frames_ms(r, cams, transforms=None) -> list:
+    """Device ms of each frame after a warm-up, enqueued back to back."""
+    tf = (lambda k: ()) if transforms is None else (lambda k:
+                                                    (transforms[k],))
+    r.render_async(cams[0], *tf(0))
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in cams]
+    ev[0].record()
+    for k in range(1, len(cams)):
+        r.render_async(cams[k], *tf(k))
+        ev[k].record()
+    torch.cuda.synchronize()
+    return [ev[k - 1].elapsed_time(ev[k]) for k in range(1, len(cams))]
+
+
+def kernels_by_depth(r, cam, transform=None) -> dict:
+    """A and B alone on one frame's recorded inputs, ms per depth."""
+    from chip_smoke import RecordingBackend
+    backend = r.backend
+    if transform is not None:
+        backend = backend._replace(tree=r.update_tree(transform))
+    rec = RecordingBackend(backend)
+    render_frame_u8(rec, r.tex, torch.as_tensor(cam.proj_inverse, device=r.device),
+                    torch.as_tensor(cam.view_inverse, device=r.device),
+                    r.lights, r.cfg)
+    torch.cuda.synchronize()
+    tree = backend.tree
+    a = [event_ms(lambda c=c: trace_dense(tree, *c), 10)
+         for c in rec.closest_in]
+    b = [event_ms(lambda c=c: occluded_multi(tree, *c), 10)
+         for c in rec.occl_in]
+    return {"A_ms": a, "B_ms": b, "A_frame_ms": sum(a), "B_frame_ms": sum(b)}
+
+
+def time_trace(dev, frames: int) -> dict:
+    from chip_smoke import rot_y, start_camera
+    cfg = C.config4_flythrough()
+    r = Renderer(procedural_model("full", seed=0), cfg, dev, quantize=True)
+    cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
+                                 frames + 1))
+    r5 = copy.copy(r)
+    r5.cfg, r5.rebuild = C.config5_stress(), "refit"
+    cam = start_camera(cfg.width, cfg.height)
+    c4 = frames_ms(r, cams)
+    c5 = frames_ms(r5, cams, [rot_y(0.01 * k) for k in range(len(cams))])
+    return {"config4_frame_ms": c4, "config4_frame_ms_mean": float(np.mean(c4)),
+            "config5_refit_frame_ms": c5,
+            "config5_refit_frame_ms_mean": float(np.mean(c5)),
+            "config4": kernels_by_depth(r, cam),
+            "config5_refit": kernels_by_depth(r5, cam, rot_y(0.02))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=2)
-    ap.add_argument("--no-raster", action="store_true")
+    ap.add_argument("--parts", default="trace,unsort,raster")
     args = ap.parse_args()
+    parts = args.parts.split(",")
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 2
     dev = torch.device("cuda", 0)
     runtime.exact_f32()
     b = kernels.build()
-    ptxas, keep = [], False       # -Xptxas -v's lines for kernels F and G
-    for ln in b.log.splitlines():
-        if "Compiling" in ln:
-            keep = "raster_edge" in ln or "unsort" in ln
-        if keep and ("Compiling" in ln or "registers" in ln or "spill" in ln):
-            ptxas.append(ln.strip())
-    out = {"cwd": os.getcwd(), "build_s": b.seconds,
-           "unsort": time_unsort(dev)}
-    if not args.no_raster:
+    ptxas = [ln.strip() for ln in b.log.splitlines()   # -Xptxas -v
+             if "Compiling" in ln or "registers" in ln or "spill" in ln]
+    out = {"cwd": os.getcwd(), "build_s": b.seconds}
+    if "trace" in parts:
+        out["trace"] = time_trace(dev, args.frames)
+    if "unsort" in parts:
+        out["unsort"] = time_unsort(dev)
+    if "raster" in parts:
         out["raster"] = time_raster(dev, args.frames)
     print(runtime.nvidia_smi_line())
     for ln in ptxas:

@@ -1,5 +1,6 @@
-// Shared gating and layout helpers of the three trace kernels
-// (trace_closest.cu: kernel A, trace_occluded.cu: A', occl_multi.cu: B).
+// Shared helpers of the trace kernels (trace_closest.cu: kernel A,
+// trace_occluded.cu: A', occl_multi.cu: B) and of the raster kernel
+// (raster_edge.cu: G, which uses the list and key helpers at the end).
 //
 // Tree layout (vkrt_tpu_torch/accel/clusters.py, identical to the JAX
 // package's ClusterTree):
@@ -17,6 +18,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace vkrt {
 
@@ -26,6 +28,8 @@ constexpr int K1 = 128;               // triangles per cluster
 constexpr int K2 = 64;                // clusters per supercluster
 constexpr int ROWS = 128;             // columns per triangle row
 constexpr int N_ATTR = 36;            // attribute columns 0-35
+
+typedef unsigned long long u64;
 
 __device__ __forceinline__ float safe_inv(float x) {
   const float tiny = 1e-20f;
@@ -39,20 +43,31 @@ struct Ray {
   float ix, iy, iz;
 };
 
-// Slab test of one box against one ray whose current far bound is t_s.
-// The `t_s > TMIN` clause makes parked rays (t_s = 0) gate nothing.
+// Slab test of one box against one ray whose current far bound is t_s;
+// `tn` receives the entry t (the walks' sort key). The `t_s > TMIN`
+// clause makes parked rays (t_s = 0) gate nothing.
+__device__ __forceinline__ bool slab(float ox, float oy, float oz, float ix,
+                                     float iy, float iz, float lo_x,
+                                     float lo_y, float lo_z, float hi_x,
+                                     float hi_y, float hi_z, float t_s,
+                                     float& tn) {
+  float t0x = (lo_x - ox) * ix;
+  float t1x = (hi_x - ox) * ix;
+  float t0y = (lo_y - oy) * iy;
+  float t1y = (hi_y - oy) * iy;
+  float t0z = (lo_z - oz) * iz;
+  float t1z = (hi_z - oz) * iz;
+  tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  return (tn <= tf) && (tf >= TMIN) && (tn <= t_s) && (t_s > TMIN);
+}
+
 __device__ __forceinline__ bool slab_hit(const Ray& r, float lo_x, float lo_y,
                                          float lo_z, float hi_x, float hi_y,
                                          float hi_z, float t_s) {
-  float t0x = (lo_x - r.ox) * r.ix;
-  float t1x = (hi_x - r.ox) * r.ix;
-  float t0y = (lo_y - r.oy) * r.iy;
-  float t1y = (hi_y - r.oy) * r.iy;
-  float t0z = (lo_z - r.oz) * r.iz;
-  float t1z = (hi_z - r.oz) * r.iz;
-  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  return (tn <= tf) && (tf >= TMIN) && (tn <= t_s) && (t_s > TMIN);
+  float tn;
+  return slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, lo_x, lo_y, lo_z, hi_x,
+              hi_y, hi_z, t_s, tn);
 }
 
 __device__ __forceinline__ bool sc_gate(const Ray& r,
@@ -75,17 +90,19 @@ __device__ __forceinline__ bool cl_gate(const Ray& r,
                   __ldg(b + 4 * K2), __ldg(b + 5 * K2), t_s);
 }
 
-// Möller–Trumbore terms of one triangle row, in the JAX kernel's
-// operation order (vkrt_tpu/rt/dense.py:354-365).
+// Möller–Trumbore terms of one triangle (v0, e1, e2), in the JAX kernel's
+// operation order (vkrt_tpu/rt/dense.py:354-365). The one definition of
+// the arithmetic: A and B pass the nine values of a staged row (cols 0-8
+// of 3 float4 in shared memory), A' reads them from the tree
+// (`mt_terms`), so all three decide every pair alike.
 struct MT {
   float det, up, vp, tp;
 };
 
-__device__ __forceinline__ MT mt_terms(const Ray& r,
-                                       const float* __restrict__ row) {
-  float v0x = __ldg(row + 0), v0y = __ldg(row + 1), v0z = __ldg(row + 2);
-  float e1x = __ldg(row + 3), e1y = __ldg(row + 4), e1z = __ldg(row + 5);
-  float e2x = __ldg(row + 6), e2y = __ldg(row + 7), e2z = __ldg(row + 8);
+__device__ __forceinline__ MT mt_values(const Ray& r, float v0x, float v0y,
+                                        float v0z, float e1x, float e1y,
+                                        float e1z, float e2x, float e2y,
+                                        float e2z) {
   float hx = r.dy * e2z - r.dz * e2y;
   float hy = r.dz * e2x - r.dx * e2z;
   float hz = r.dx * e2y - r.dy * e2x;
@@ -99,6 +116,64 @@ __device__ __forceinline__ MT mt_terms(const Ray& r,
   m.vp = r.dx * qx + r.dy * qy + r.dz * qz;
   m.tp = e2x * qx + e2y * qy + e2z * qz;
   return m;
+}
+
+// The same terms of a triangle row in device memory.
+__device__ __forceinline__ MT mt_terms(const Ray& r,
+                                       const float* __restrict__ row) {
+  return mt_values(r, __ldg(row + 0), __ldg(row + 1), __ldg(row + 2),
+                   __ldg(row + 3), __ldg(row + 4), __ldg(row + 5),
+                   __ldg(row + 6), __ldg(row + 7), __ldg(row + 8));
+}
+
+// The any-hit test of kernels A' and B: division-free, against the
+// sign-corrected determinant (dense.py:367-375).
+__device__ __forceinline__ bool occludes(const MT& m, float t_s) {
+  float adet = fabsf(m.det);
+  float sgn = m.det < 0.0f ? -1.0f : 1.0f;
+  float su = m.up * sgn, sv = m.vp * sgn, st = m.tp * sgn;
+  return adet > DET_EPS && su >= 0.0f && sv >= 0.0f && su + sv <= adet &&
+         st > TMIN * adet && st < t_s * adet;
+}
+
+// Append `item` to list[*count] for every lane with `hit`: one shared
+// atomic a warp. Every lane of the warp must call it.
+template <typename T>
+__device__ __forceinline__ void push_hits(bool hit, T item, T* list,
+                                          int* count, int lane) {
+  const unsigned m = __ballot_sync(0xffffffffu, hit);
+  int base = 0;
+  if (lane == 0 && m) base = atomicAdd(count, __popc(m));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (hit) list[base + __popc(m & ((1u << lane) - 1u))] = item;
+}
+
+// Order-preserving map of a float onto unsigned integers, and back.
+__device__ __forceinline__ uint32_t ordered(float f) {
+  uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+__device__ __forceinline__ float unordered(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace vkrt

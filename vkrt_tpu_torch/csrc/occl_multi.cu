@@ -3,91 +3,139 @@
 // Replaces the Pallas kernel vkrt_tpu/rt/occl_multi.py::_occl_multi_kernel
 // (:40), entry occluded_multi (:559).
 //
-// What bounds it on the H100: Möller–Trumbore sweeps, as in kernel A, but
-// an occlusion ray may stop at its first blocker. The TPU kernel shared
-// one block's gating, work list and cluster DMA across all NS light sets
-// because each cluster slab had to be copied into VMEM once; on a GPU the
-// triangle rows come through the L2 and read-only caches, so there is
-// nothing to share by hand. One thread takes one (set, ray) pair and
-// returns at its first blocking triangle; threads are numbered set-major,
-// so a warp holds 32 neighbouring segments of one light (one origin
-// point, a tight cone) and walks mostly the same boxes.
+// What bounds it on the H100: the Möller–Trumbore sweeps up to each
+// segment's first blocker, 47 float operations a (segment, triangle)
+// pair, none of them an FMA (-fmad=false, as in kernel A), so at most
+// half the published f32 rate. A kernel with one thread a segment,
+// numbered set-major over the whole wavefront, has a warp issue the
+// union of its 32 segments' sweeps (4.7x the needed pairs at config 4's
+// depth 1, up to 14x at config 5's depth 3; tools/trace_work_split.py),
+// and the NS lights' segments of one surface point run in unrelated
+// blocks, each fetching the same cluster rows. Here, as the TPU kernel
+// did, one block of 128 threads owns one 128-lane group of surface
+// points and all NS segment sets (NS x 128 segments in shared memory).
+// It walks the union of its segments' clusters front to back (walk.cuh),
+// each entry keyed by the least entry t over every set, stages each
+// cluster once for all lights, and sweeps it pair-parallel (thread k:
+// triangle k against every unblocked segment whose own box tests pass).
+// A segment stops at its first blocker, and the block leaves once no
+// live segment is left unblocked.
 //
 // Semantics kept from the Pallas kernel: the division-free test against
-// the sign-corrected determinant (dense.py:367-375): |det| > 1e-12,
+// the sign-corrected determinant (common.cuh `occludes`): |det| > 1e-12,
 // su, sv >= 0, su + sv <= |det|, st > TMIN*|det|, st < tmax*|det|.
 // A parked segment (tmax = 0) is not blocked, and neither is a live one
 // with 0 < tmax <= TMIN: its interval is empty (tests/test_dense.py:271).
-#include "common.cuh"
+// The answer is whether any gated cluster holds a blocker, so the visit
+// order cannot change it.
+#include "walk.cuh"
 
 namespace vkrt {
 
-__global__ void __launch_bounds__(128)
+struct Occl {
+  typedef unsigned char State;           // 1: blocked
+
+  template <int NS>
+  static __device__ __forceinline__ float far(
+      const WalkShared<NS, unsigned char>& sh, int j) {
+    return sh.state[j] ? 0.0f : sh.org[j].w;
+  }
+
+  template <int NS>
+  static __device__ __forceinline__ void pair(
+      WalkShared<NS, unsigned char>& sh, int j, float4 q0, float4 q1,
+      float4 q2, int) {
+    const float4 o = sh.org[j], d = sh.dir[j];
+    Ray r;
+    r.ox = o.x;
+    r.oy = o.y;
+    r.oz = o.z;
+    r.dx = d.x;
+    r.dy = d.y;
+    r.dz = d.z;
+    if (occludes(mt_values(r, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                           q2.x),
+                 o.w))
+      sh.state[j] = 1;
+  }
+};
+
+template <int NS>
+__global__ void __launch_bounds__(K1, 4)
 occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                   const float* __restrict__ cl_boxes,
                   const float* __restrict__ tri_data,
                   const float* __restrict__ light_pts,  // [ns, 3]
                   const float* __restrict__ dirs,       // [ns, 3, n]
                   const float* __restrict__ tmax,       // [ns, n]
-                  int ns, int n, unsigned char* __restrict__ blocked) {  // [ns, n]
-  size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)ns * n) return;
-  int s = (int)(idx / n);
-  int i = (int)(idx - (size_t)s * n);
-  Ray r;
-  r.ox = __ldg(light_pts + 3 * s + 0);
-  r.oy = __ldg(light_pts + 3 * s + 1);
-  r.oz = __ldg(light_pts + 3 * s + 2);
-  const float* d = dirs + (size_t)s * 3 * n;
-  r.dx = d[i];
-  r.dy = d[(size_t)n + i];
-  r.dz = d[2 * (size_t)n + i];
-  r.ix = safe_inv(r.dx);
-  r.iy = safe_inv(r.dy);
-  r.iz = safe_inv(r.dz);
-  const float t_s = tmax[idx];
-  unsigned char hit = 0;
+                  int n, unsigned char* __restrict__ blocked) {  // [ns, n]
+  extern __shared__ __align__(16) unsigned char dyn[];
+  u64* sc_list = reinterpret_cast<u64*>(dyn);                  // [n_sc]
+  uint32_t* sc_key = reinterpret_cast<uint32_t*>(sc_list + n_sc);
+  __shared__ WalkShared<NS, unsigned char> sh;
 
-  if (t_s > TMIN) {
-    for (int sc = 0; sc < n_sc && !hit; ++sc) {
-      if (!sc_gate(r, sc_boxes, c2p, sc, t_s)) continue;
-      for (int c = 0; c < K2 && !hit; ++c) {
-        if (!cl_gate(r, cl_boxes, sc, c, t_s)) continue;
-        const float* tri = tri_data + (size_t)(sc * K2 + c) * K1 * ROWS;
-        for (int k = 0; k < K1; ++k) {
-          MT m = mt_terms(r, tri + (size_t)k * ROWS);
-          float adet = fabsf(m.det);
-          float sgn = m.det < 0.0f ? -1.0f : 1.0f;
-          float su = m.up * sgn, sv = m.vp * sgn, st = m.tp * sgn;
-          if (adet > DET_EPS && su >= 0.0f && sv >= 0.0f && su + sv <= adet &&
-              st > TMIN * adet && st < t_s * adet) {
-            hit = 1;
-            break;
-          }
-        }
-      }
-    }
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * K1 + t;               // n is a multiple of 128
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {                   // lane j = t + 128 s
+    const int j = t + s * K1;
+    const float* d = dirs + (size_t)s * 3 * n;
+    const float dx = d[i], dy = d[(size_t)n + i], dz = d[2 * (size_t)n + i];
+    sh.org[j] = make_float4(__ldg(light_pts + 3 * s + 0),
+                            __ldg(light_pts + 3 * s + 1),
+                            __ldg(light_pts + 3 * s + 2),
+                            tmax[(size_t)s * n + i]);
+    sh.dir[j] = make_float4(dx, dy, dz, 0.0f);
+    sh.inv[j] = make_float4(safe_inv(dx), safe_inv(dy), safe_inv(dz), 0.0f);
+    sh.state[j] = 0;
   }
-  blocked[idx] = hit;
+
+  group_walk<NS, Occl>(sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key,
+                       sc_list);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) blocked[(size_t)s * n + i] = sh.state[t + s * K1];
+}
+
+template <int NS>
+int launch(const float* sc_boxes, int c2p, int n_sc, const float* cl_boxes,
+           const float* tri_data, const float* light_pts, const float* dirs,
+           const float* tmax, int n, unsigned char* blocked,
+           cudaStream_t stream) {
+  const size_t dyn = (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      occl_multi_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  occl_multi_kernel<NS><<<n / K1, K1, dyn, stream>>>(
+      sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, n,
+      blocked);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace vkrt
 
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
-// after the launch; the launch does not synchronise.
+// after the launch, or cudaErrorInvalidValue for ns outside 1..4, a ray
+// count that is not a multiple of 128 or a tree whose supercluster keys
+// do not fit in shared memory; the launch does not synchronise.
 extern "C" int vkrt_occl_multi(const float* sc_boxes, int c2p, int n_sc,
                                const float* cl_boxes, const float* tri_data,
                                const float* light_pts, const float* dirs,
                                const float* tmax, int ns, int n,
                                unsigned char* blocked, void* stream) {
-  long long total = (long long)ns * n;
-  if (total > 0) {
-    const int threads = 128;
-    const int blocks = (int)((total + threads - 1) / threads);
-    vkrt::occl_multi_kernel<<<blocks, threads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, ns, n,
-        blocked);
+  using namespace vkrt;
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (ns) {
+    case 1: return launch<1>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
+                             light_pts, dirs, tmax, n, blocked, st);
+    case 2: return launch<2>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
+                             light_pts, dirs, tmax, n, blocked, st);
+    case 3: return launch<3>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
+                             light_pts, dirs, tmax, n, blocked, st);
+    case 4: return launch<4>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
+                             light_pts, dirs, tmax, n, blocked, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

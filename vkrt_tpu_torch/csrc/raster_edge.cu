@@ -69,8 +69,7 @@
 //   is kept, and the answer is the nearest fragment of the gated
 //   clusters, ties to the lowest slot, whatever the visit order;
 //   miss: z = +inf, slot = -1, u = v = 0, mat = 0.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace vkrt {
 
@@ -85,36 +84,6 @@ constexpr float ZFAR_PARK = 1.0e9f;
 constexpr float BOX_PAD = 0.015625f;
 constexpr float BIG = 3.0e38f;
 
-typedef unsigned long long u64;
-
-// Order-preserving map of a float onto unsigned integers, and back.
-__device__ __forceinline__ uint32_t ordered(float f) {
-  uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float unordered(uint32_t k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Box b (rows lo x, y at 0-1 and hi x, y at 3-4, `stride` floats apart),
 // widened by BOX_PAD, against the rectangle [xlo, xhi] x [ylo, yhi]. With
 // xlo == xhi and ylo == yhi this is the per-pixel gate of the plain
@@ -127,18 +96,6 @@ __device__ __forceinline__ bool box_meets(const float* __restrict__ b,
          (xlo <= __ldg(b + 3 * stride) + BOX_PAD) &&
          (__ldg(b + 1 * stride) - BOX_PAD <= yhi) &&
          (ylo <= __ldg(b + 4 * stride) + BOX_PAD);
-}
-
-// Append `item` to list[*count] for every lane with `hit`: one shared
-// atomic a warp. Every lane of the warp must call it.
-template <typename T>
-__device__ __forceinline__ void push_hits(bool hit, T item, T* list,
-                                          int* count, int lane) {
-  const unsigned m = __ballot_sync(0xffffffffu, hit);
-  int base = 0;
-  if (lane == 0 && m) base = atomicAdd(count, __popc(m));
-  base = __shfl_sync(0xffffffffu, base, 0);
-  if (hit) list[base + __popc(m & ((1u << lane) - 1u))] = item;
 }
 
 // Sort list[0..n) ascending: the bitonic network with every comparator

@@ -4,36 +4,87 @@
 // in its closest-hit mode, with and without the attribute select and
 // point_origin (:257-265), entry trace_dense (:802).
 //
-// What bounds it on the H100: the Möller–Trumbore sweeps, ~30 float ops
-// per (ray, triangle) pair, and the divergence between neighbouring rays
-// that gate different clusters. The TPU kernel swept whole 512-ray
-// blocks against each gated cluster because its vector unit wants dense
-// [128, R] tiles; on a GPU one thread per ray walks the tree on its own,
-// gating each supercluster and cluster box against its own current hit
-// distance, so a ray never sweeps a cluster that only its neighbours
-// reach and skips every box beyond its nearest hit so far. Triangle rows
-// are read through the read-only cache; rays of one warp are camera- or
-// reflection-coherent (the engine's 8x16-pixel subtiles), so they mostly
-// read the same rows. The 36 attributes of the winning triangle are
-// loaded once at the end, by direct indexed loads in place of the TPU's
-// one-hot MXU matmul.
+// What bounds it on the H100: the Möller–Trumbore sweeps, 46 float
+// operations a (ray, triangle) pair, none of them an FMA (-fmad=false:
+// the plain version rounds every product and sum, and the two agree bit
+// for bit), so the card issues them at most at half its published f32
+// rate; the bytes are small beside them. One thread a ray loses 2-29x on
+// top of that (tools/trace_work_split.py): a warp issues the union of
+// its 32 rays' cluster sweeps (reflection rays scatter: 6.7x the needed
+// pairs at depth 1, up to 29x at config 5's depth 3), and every (thread,
+// triangle) pair reads 9 scalars of a 512-byte row through the cache.
+// Walking clusters in ascending id costs at most 1.5x. This kernel walks
+// each 128-lane group front to back in shared memory (walk.cuh): the
+// clusters by the least entry t of any lane, a block-wide stop at the
+// first cluster that no lane can still need, every cluster's rows staged
+// once by cp.async while the previous one is swept, and a pair-parallel
+// sweep (thread k: triangle k against every lane whose own box tests
+// pass at its own t_cur), which issues the pairs the lanes need and no
+// others.
 //
 // Semantics kept from the Pallas kernel:
-//   commit needs |det| > 1e-12, u, v >= 0, u + v <= 1, TMIN < t < t_cur,
-//   with exact IEEE division (no approximate reciprocal);
-//   ties keep the smaller t, then the lower triangle index in a cluster;
-//   across clusters a strict < keeps the first visited (here: the lower
-//   cluster id, so every tie resolves to the lowest slot);
+//   a hit needs |det| > 1e-12, u, v >= 0, u + v <= 1, TMIN < t < tmax,
+//   with exact IEEE division (no approximate reciprocal); it commits
+//   where t < the committed t, or t equals it and its slot is lower
+//   (`hit_key`: the tie rule is explicit because clusters are visited by
+//   entry t, not by id); a lane sweeps a cluster only where its slab
+//   tests pass at its committed t, which keeps a box whose entry t equals
+//   it; so the answer is the nearest hit of the gated clusters, ties to
+//   the lowest slot, as trace_dense_plain's; u, v are those of the
+//   winner, recomputed with the same arithmetic;
 //   miss: t = inf, slot = -1, u = v = 0, attrs = 0.
 // With `block` > 0 the rays of one block share an origin: ray i starts at
 // o_pts[i / block] (the TPU kernel's point_origin operands); the
 // arithmetic is the same, so the result equals the broadcast origins'.
 // A null attr_out skips the attribute select (with_attributes=False).
-#include "common.cuh"
+#include "walk.cuh"
 
 namespace vkrt {
 
-__global__ void __launch_bounds__(128)
+// A committed hit as one 64-bit key: t's bits (t > 0, so they order as
+// the floats do) above the slot. The least key is the nearest hit, and
+// among hits of equal t the lowest slot: a shared atomicMin commits by
+// the tie rule whatever order the pairs arrive in. A lane starts at
+// (tmax, NO_KEY), and a hit must also have t < tmax.
+__device__ __forceinline__ u64 hit_key(float t, uint32_t slot) {
+  return ((u64)__float_as_uint(t) << 32) | slot;
+}
+
+struct Closest {
+  typedef u64 State;
+
+  static __device__ __forceinline__ float far(
+      const WalkShared<1, u64>& sh, int j) {
+    return __uint_as_float((uint32_t)(sh.state[j] >> 32));
+  }
+
+  static __device__ __forceinline__ void pair(WalkShared<1, u64>& sh, int j,
+                                              float4 q0, float4 q1,
+                                              float4 q2, int slot) {
+    const float4 o = sh.org[j], d = sh.dir[j];
+    Ray r;
+    r.ox = o.x;
+    r.oy = o.y;
+    r.oz = o.z;
+    r.dx = d.x;
+    r.dy = d.y;
+    r.dz = d.z;
+    const MT m = mt_values(r, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z,
+                           q1.w, q2.x);
+    if (!(fabsf(m.det) > DET_EPS)) return;
+    const float inv_det = 1.0f / m.det;
+    const float uu = m.up * inv_det;
+    const float vv = m.vp * inv_det;
+    const float tt = m.tp * inv_det;
+    if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > TMIN &&
+        tt < o.w) {
+      const u64 key = hit_key(tt, (uint32_t)slot);
+      if (key < sh.state[j]) atomicMin(&sh.state[j], key);
+    }
+  }
+};
+
+__global__ void __launch_bounds__(K1, 8)
 trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      const float* __restrict__ cl_boxes,
                      const float* __restrict__ tri_data,
@@ -44,8 +95,13 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      int n, float* __restrict__ t_out, int* __restrict__ slot_out,
                      float* __restrict__ u_out, float* __restrict__ v_out,
                      float* __restrict__ attr_out) {   // [36, n]
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  u64* sc_list = reinterpret_cast<u64*>(dyn);                  // [n_sc]
+  uint32_t* sc_key = reinterpret_cast<uint32_t*>(sc_list + n_sc);
+  __shared__ WalkShared<1, u64> sh;
+
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * K1 + t;               // n is a multiple of 128
   Ray r;
   if (block > 0) {
     const float* p = orig + (size_t)(i / block) * 3;
@@ -63,38 +119,29 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   r.ix = safe_inv(r.dx);
   r.iy = safe_inv(r.dy);
   r.iz = safe_inv(r.dz);
-  float t_cur = tmax[i];
-  int best = -1;
-  float bu = 0.0f, bv = 0.0f;
+  const float tm = tmax[i];
+  sh.org[t] = make_float4(r.ox, r.oy, r.oz, tm);
+  sh.dir[t] = make_float4(r.dx, r.dy, r.dz, 0.0f);
+  sh.inv[t] = make_float4(r.ix, r.iy, r.iz, 0.0f);
+  sh.state[t] = hit_key(tm, NO_KEY);
 
-  for (int s = 0; s < n_sc; ++s) {
-    if (!sc_gate(r, sc_boxes, c2p, s, t_cur)) continue;
-    for (int c = 0; c < K2; ++c) {
-      if (!cl_gate(r, cl_boxes, s, c, t_cur)) continue;
-      int cid = s * K2 + c;
-      const float* tri = tri_data + (size_t)cid * K1 * ROWS;
-      for (int k = 0; k < K1; ++k) {
-        MT m = mt_terms(r, tri + (size_t)k * ROWS);
-        if (!(fabsf(m.det) > DET_EPS)) continue;
-        float inv_det = 1.0f / m.det;
-        float uu = m.up * inv_det;
-        float vv = m.vp * inv_det;
-        float tt = m.tp * inv_det;
-        if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > TMIN &&
-            tt < t_cur) {
-          t_cur = tt;
-          best = cid * K1 + k;
-          bu = uu;
-          bv = vv;
-        }
-      }
-    }
-  }
+  group_walk<1, Closest>(sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key,
+                         sc_list);
 
-  t_out[i] = best >= 0 ? t_cur : __int_as_float(0x7f800000);  // +inf
+  const u64 key = sh.state[t];
+  const int best = (uint32_t)key == NO_KEY ? -1 : (int)(uint32_t)key;
   slot_out[i] = best;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  if (best < 0) {
+    t_out[i] = __int_as_float(0x7f800000);                   // +inf
+    u_out[i] = v_out[i] = 0.0f;
+  } else {
+    // the winner's u, v, recomputed once with the sweep's arithmetic
+    const MT m = mt_terms(r, tri_data + (size_t)best * ROWS);
+    const float inv_det = 1.0f / m.det;
+    t_out[i] = __uint_as_float((uint32_t)(key >> 32));
+    u_out[i] = m.up * inv_det;
+    v_out[i] = m.vp * inv_det;
+  }
   if (attr_out == nullptr) return;
   const float* row = tri_data + (size_t)(best >= 0 ? best : 0) * ROWS;
   for (int a = 0; a < N_ATTR; ++a)
@@ -104,7 +151,9 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
 }  // namespace vkrt
 
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
-// after the launch; the launch does not synchronise.
+// after the launch, or cudaErrorInvalidValue for a ray count that is not
+// a multiple of 128 (the wrapper's lanes) or a tree whose supercluster
+// keys do not fit in shared memory; the launch does not synchronise.
 extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
                                   const float* cl_boxes, const float* tri_data,
                                   const float* orig, int block,
@@ -112,11 +161,16 @@ extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
                                   int n, float* t_out,
                                   int* slot_out, float* u_out, float* v_out,
                                   float* attr_out, void* stream) {
+  using namespace vkrt;
   if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    vkrt::trace_closest_kernel<<<blocks, threads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+    if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t dyn = (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
+    cudaError_t err = cudaFuncSetAttribute(
+        trace_closest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)dyn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    trace_closest_kernel<<<n / K1, K1, dyn,
+                           static_cast<cudaStream_t>(stream)>>>(
         sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
         t_out, slot_out, u_out, v_out, attr_out);
   }

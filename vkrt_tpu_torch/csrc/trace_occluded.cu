@@ -14,9 +14,10 @@
 // with `block` > 0 ray i starts at o_pts[i / block], else at orig[:, i].
 //
 // Semantics kept from the Pallas kernel: the division-free test against
-// the sign-corrected determinant, in kernel B's operation order, so the
-// two kernels decide every segment alike: |det| > 1e-12, su, sv >= 0,
-// su + sv <= |det|, st > TMIN*|det|, st < tmax*|det|. A parked ray
+// the sign-corrected determinant, kernel B's own (common.cuh `mt_values`
+// and `occludes`), so the two kernels decide every segment alike:
+// |det| > 1e-12, su, sv >= 0, su + sv <= |det|, st > TMIN*|det|,
+// st < tmax*|det|. A parked ray
 // (tmax = 0) is not blocked, and neither is a live one with
 // 0 < tmax <= TMIN (its interval is empty). Outputs as the Pallas kernel
 // leaves them: blocked → slot 1, t = TMIN; free → slot -1, t = +inf;
@@ -64,12 +65,7 @@ trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
         if (!cl_gate(r, cl_boxes, sc, c, t_s)) continue;
         const float* tri = tri_data + (size_t)(sc * K2 + c) * K1 * ROWS;
         for (int k = 0; k < K1; ++k) {
-          MT m = mt_terms(r, tri + (size_t)k * ROWS);
-          float adet = fabsf(m.det);
-          float sgn = m.det < 0.0f ? -1.0f : 1.0f;
-          float su = m.up * sgn, sv = m.vp * sgn, st = m.tp * sgn;
-          if (adet > DET_EPS && su >= 0.0f && sv >= 0.0f && su + sv <= adet &&
-              st > TMIN * adet && st < t_s * adet) {
+          if (occludes(mt_terms(r, tri + (size_t)k * ROWS), t_s)) {
             hit = true;
             break;
           }

@@ -1,0 +1,246 @@
+// The front-to-back group walk of kernels A (trace_closest.cu) and B
+// (occl_multi.cu). One block of 128 threads owns one 128-lane group (an
+// 8x16-pixel subtile in the engine's tile order) and, for B, that
+// group's segments toward each of NS lights: NL = 128 x NS lanes, whose
+// rays and results live in shared memory.
+//
+//   1. Every supercluster gets a key: the least entry t of its box over
+//      the block's live lanes whose slab test passes at their far bound
+//      (A: tmax; B: the segment's end). A thread per (supercluster, 32
+//      live lanes), a shared atomicMin; the gated keys are sorted (rank
+//      sort: keys are unique, the id sits in their low bits).
+//   2. The superclusters are visited in that order. Each lane tests the
+//      box against its own current far bound (A: the t of its nearest
+//      hit so far); the lanes that pass are compacted into a list, and
+//      the block gates the 64 clusters for them the same way, a thread
+//      per (cluster, half of that list), into a sorted list of at most 64
+//      keys.
+//   3. The list is walked in order. Cluster q+1's rows (cols 0-11, 48 of
+//      a row's 512 bytes) arrive by cp.async while q is swept. Before
+//      each cluster the block asks whether any lane's far bound is still
+//      >= the entry's key: a lane's entry t into a box is at least the
+//      key, and keys only grow along a list, so the first "no" ends the
+//      list for every lane (at the supercluster level, the walk).
+//      Equality is kept: a box whose entry t equals a lane's far bound
+//      may hold a hit at that t with a lower slot.
+//   4. The lanes whose own tests of the supercluster's and the cluster's
+//      box pass at their own far bound (those that the one-thread-a-ray
+//      kernels would have swept it for) are compacted into a list, and
+//      the sweep is pair-parallel: thread k takes staged triangle k and
+//      runs it against every listed lane in turn (the ray a broadcast
+//      from shared memory), so a warp never idles on lanes that do not
+//      need the cluster. A hit is committed through shared memory
+//      (`P::pair`).
+//
+// Shared memory: WalkShared (static, 22.6 KB for A, 42.8 KB for B at NS 4)
+// and 12 bytes a supercluster (dynamic: the keys and the sorted list).
+#pragma once
+
+#include "common.cuh"
+
+namespace vkrt {
+
+constexpr uint32_t NO_KEY = 0xffffffffu;
+constexpr int STAGE_Q = 3;               // float4 a staged row (cols 0-11)
+
+template <int NS, class State>
+struct WalkShared {
+  static constexpr int NL = NS * K1;
+  float4 stage[2][K1 * STAGE_Q];         // two clusters' rows
+  float4 org[NL];                        // ox oy oz, tmax
+  float4 dir[NL];                        // dx dy dz, -
+  float4 inv[NL];                        // ix iy iz, far bound of the gates
+  State state[NL];                       // A: (t, slot) key; B: blocked
+  short live[NL];                        // lanes with tmax > TMIN
+  short need[NL];                        // lanes that need the cluster
+  short pass[NL];                        // lanes that pass the supercluster
+  float box[6][K2];                      // the supercluster's cluster boxes
+  uint32_t cl_key[K2];
+  u64 cl_list[K2];                       // sorted cluster keys
+  int n_live, n_gated, n_pass, n_need[2];
+};
+
+// The least entry t, as an ordered key (NO_KEY if none), over the lanes
+// list[begin, end) whose slab test of the box passes at their gate bound
+// (inv.w; 0 for a lane that wants nothing).
+template <int NS, class State>
+__device__ __forceinline__ uint32_t least_entry(
+    const WalkShared<NS, State>& sh, const short* list, int begin, int end,
+    float lx, float ly, float lz, float hx, float hy, float hz) {
+  uint32_t best = NO_KEY;
+  for (int q = begin; q < end; ++q) {
+    const int j = list[q];
+    const float4 o = sh.org[j], v = sh.inv[j];
+    float tn;
+    if (slab(o.x, o.y, o.z, v.x, v.y, v.z, lx, ly, lz, hx, hy, hz, v.w, tn))
+      best = min(best, ordered(tn));
+  }
+  return best;
+}
+
+// The key of a list entry: its least entry t above, its id below.
+__device__ __forceinline__ u64 list_key(uint32_t key, int id) {
+  return ((u64)key << 32) | (uint32_t)id;
+}
+
+// Walk the tree for the block's lanes. Before the call each thread has
+// written org, dir, inv (xyz) and state of its lanes t + 128 k; after it
+// (the last step is a barrier) every lane's state is final. The policy P
+// gives `far(sh, j)`, lane j's current far bound (0 once it wants
+// nothing), and `pair(sh, j, q0, q1, q2, slot)`, one (lane, staged
+// triangle) test. Every thread of the block must call it.
+template <int NS, class P>
+__device__ __forceinline__ void group_walk(
+    WalkShared<NS, typename P::State>& sh, const float* __restrict__ sc_boxes,
+    int c2p, int n_sc, const float* __restrict__ cl_boxes,
+    const float* __restrict__ tri_data, uint32_t* sc_key, u64* sc_list) {
+  const int t = threadIdx.x, lane = t & 31;
+  if (t == 0) sh.n_live = sh.n_gated = sh.n_pass = 0;
+  for (int s = t; s < n_sc; s += K1) sc_key[s] = NO_KEY;
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int j = t + k * K1;
+    const float far = P::far(sh, j);
+    sh.inv[j].w = far;
+    push_hits(far > TMIN, (short)j, sh.live, &sh.n_live, lane);
+  }
+  __syncthreads();
+  const int nlive = sh.n_live;
+  if (nlive == 0) return;                       // (the whole block)
+
+  // 1. supercluster keys: neighbouring threads on neighbouring
+  // superclusters and the same 32 live lanes (broadcast reads)
+  const int chunks = (nlive + 31) / 32;
+  for (int it = t; it < n_sc * chunks; it += K1) {
+    const int chunk = it / n_sc, s = it - chunk * n_sc;
+    const uint32_t k = least_entry(
+        sh, sh.live, chunk * 32, min(nlive, chunk * 32 + 32),
+        __ldg(sc_boxes + 0 * c2p + s), __ldg(sc_boxes + 1 * c2p + s),
+        __ldg(sc_boxes + 2 * c2p + s), __ldg(sc_boxes + 3 * c2p + s),
+        __ldg(sc_boxes + 4 * c2p + s), __ldg(sc_boxes + 5 * c2p + s));
+    if (k != NO_KEY) atomicMin(&sc_key[s], k);
+  }
+  __syncthreads();
+  int gated = 0;
+  for (int s = t; s < n_sc; s += K1) {
+    const u64 key = list_key(sc_key[s], s);
+    int rank = 0;
+    for (int j = 0; j < n_sc; ++j) rank += list_key(sc_key[j], j) < key;
+    sc_list[rank] = key;
+    gated += sc_key[s] != NO_KEY;
+  }
+  if (gated) atomicAdd(&sh.n_gated, gated);
+  __syncthreads();
+  const int nsc = sh.n_gated;
+
+  auto stage = [&](int q, int buf) {
+    const int cid = (int)(uint32_t)sh.cl_list[q];
+    const float* src = tri_data + (size_t)cid * K1 * ROWS;
+    float4* dst = sh.stage[buf];
+    for (int i = t; i < K1 * STAGE_Q; i += K1) {
+      const int row = i / STAGE_Q, part = i - row * STAGE_Q;
+      cp_async16(dst + i, src + (size_t)row * ROWS + part * 4);
+    }
+    cp_async_commit();
+  };
+
+  for (int e = 0; e < nsc; ++e) {
+    // 2. this supercluster: each lane's own test, then the cluster keys
+    const u64 skey = sc_list[e];
+    const int s = (int)(uint32_t)skey;
+    const float entry = unordered((uint32_t)(skey >> 32));
+    bool want = false;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int j = t + k * K1;
+      const float far = P::far(sh, j);
+      const float4 o = sh.org[j], v = sh.inv[j];
+      float tn;
+      const bool pass = slab(
+          o.x, o.y, o.z, v.x, v.y, v.z, __ldg(sc_boxes + 0 * c2p + s),
+          __ldg(sc_boxes + 1 * c2p + s), __ldg(sc_boxes + 2 * c2p + s),
+          __ldg(sc_boxes + 3 * c2p + s), __ldg(sc_boxes + 4 * c2p + s),
+          __ldg(sc_boxes + 5 * c2p + s), far, tn);
+      sh.inv[j].w = pass ? far : 0.0f;
+      want |= far > TMIN && entry <= far;
+      push_hits(pass, (short)j, sh.pass, &sh.n_pass, lane);
+    }
+    if (t < K2) sh.cl_key[t] = NO_KEY;
+    if (t == 0) sh.n_need[0] = sh.n_need[1] = 0;
+    // (every lane is past the previous supercluster's walk here)
+    if (!__syncthreads_or(want)) break;
+    {
+      const int npass = sh.n_pass;
+      const int c = t & (K2 - 1), h = t / K2, half = (npass + 1) / 2;
+      const float* b = cl_boxes + (size_t)s * 8 * K2 + c;
+      const float lx = __ldg(b + 0 * K2), ly = __ldg(b + 1 * K2);
+      const float lz = __ldg(b + 2 * K2), hx = __ldg(b + 3 * K2);
+      const float hy = __ldg(b + 4 * K2), hz = __ldg(b + 5 * K2);
+      if (h == 0) {
+        sh.box[0][c] = lx;
+        sh.box[1][c] = ly;
+        sh.box[2][c] = lz;
+        sh.box[3][c] = hx;
+        sh.box[4][c] = hy;
+        sh.box[5][c] = hz;
+      }
+      if (lx <= hx) {                       // padding clusters: min > max
+        const uint32_t k = least_entry(sh, sh.pass, h * half,
+                                       min(npass, h * half + half), lx, ly,
+                                       lz, hx, hy, hz);
+        if (k != NO_KEY) atomicMin(&sh.cl_key[c], k);
+      }
+    }
+    __syncthreads();
+    if (t == 0) sh.n_pass = 0;             // (read above, pushed next time)
+    bool hit = false;
+    if (t < K2) {
+      const u64 key = list_key(sh.cl_key[t], s * K2 + t);
+      int rank = 0;
+      for (int j = 0; j < K2; ++j)
+        rank += list_key(sh.cl_key[j], s * K2 + j) < key;
+      sh.cl_list[rank] = key;
+      hit = sh.cl_key[t] != NO_KEY;
+    }
+    const int ncl = __syncthreads_count(hit);
+
+    // 3. the clusters, front to back
+    if (ncl > 0) stage(0, 0);
+    for (int q = 0; q < ncl; ++q) {
+      cp_async_wait_all();                 // my copies of cluster q
+      __syncthreads();                     // cluster q staged, q-1 swept
+      const u64 ckey = sh.cl_list[q];
+      const float centry = unordered((uint32_t)(ckey >> 32));
+      const int cid = (int)(uint32_t)ckey, c = cid & (K2 - 1);
+      bool wanted = false;
+#pragma unroll
+      for (int k = 0; k < NS; ++k) {
+        const int j = t + k * K1;
+        const float far = P::far(sh, j);
+        const float4 o = sh.org[j], v = sh.inv[j];
+        float tn;
+        const bool need =
+            v.w > 0.0f &&
+            slab(o.x, o.y, o.z, v.x, v.y, v.z, sh.box[0][c], sh.box[1][c],
+                 sh.box[2][c], sh.box[3][c], sh.box[4][c], sh.box[5][c], far,
+                 tn);
+        wanted |= far > TMIN && centry <= far;
+        push_hits(need, (short)j, sh.need, &sh.n_need[q & 1], lane);
+      }
+      // the list is sorted, so a cluster no lane wants ends it
+      if (!__syncthreads_or(wanted)) break;
+      if (q + 1 < ncl) stage(q + 1, (q + 1) & 1);
+      if (t == 0) sh.n_need[(q + 1) & 1] = 0;
+      // 4. thread t: triangle t against every lane that needs the cluster
+      const int nn = sh.n_need[q & 1];
+      const float4* row = sh.stage[q & 1] + STAGE_Q * t;
+      const float4 q0 = row[0], q1 = row[1], q2 = row[2];
+      const int slot = cid * K1 + t;
+      for (int p = 0; p < nn; ++p) P::pair(sh, sh.need[p], q0, q1, q2, slot);
+    }
+    __syncthreads();                       // the last sweep's commits
+  }
+}
+
+}  // namespace vkrt

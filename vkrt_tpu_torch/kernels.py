@@ -9,7 +9,9 @@ runs at import time: the CPU tests import every module on a machine
 without nvcc.
 
 Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
-occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G).
+occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G);
+headers common.cuh (shared by A, A', B and G) and walk.cuh (the
+front-to-back group walk of A and B).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product
@@ -33,7 +35,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
            "pack.cu", "lanesort.cu", "raster_edge.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "walk.cuh")
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-fmad=false", "-Xptxas", "-v"]

@@ -14,7 +14,10 @@ launch count.
 Outputs, as trace_dense in the JAX package: t (inf on a miss), slot
 (leaf order, -1 on a miss), u, v — all [Nb, 128] — and, with
 with_attributes, attrs f32[36, Nb, 128] (tri_data columns 0-35 of the
-hit, 0 on a miss). Ties go to the smaller t, then the lower slot. In
+hit, 0 on a miss). The answer is the nearest hit of the gated clusters,
+and among hits of equal t the lowest slot, whatever order a kernel visits
+the clusters in: kernel A walks them front to back by entry t and commits
+a hit where t < the committed t, or t equals it and the slot is lower. In
 occlusion mode slot >= 0 means blocked: a blocked ray reads slot 1,
 t = TMIN, a free one slot -1, t = inf; u, v (and attrs) are 0.
 """
@@ -24,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from vkrt_tpu_torch import kernels
-from vkrt_tpu_torch.accel.clusters import K1, K2, ClusterTree
+from vkrt_tpu_torch.accel.clusters import K1, K2, ROWS, ClusterTree
 
 TMIN = 0.001          # ref: shaders/shader.rgen:59
 _DET_EPS = 1e-12
@@ -41,13 +44,16 @@ def _safe_inv(x):
 
 
 def _check_tree(tree: ClusterTree, device) -> None:
-    if tree.tri_data.shape[1] != K1:
-        raise ValueError(f"tree k1 {tree.tri_data.shape[1]} != {K1}")
+    if tree.tri_data.shape[1:] != (K1, ROWS):
+        raise ValueError(f"tree rows {tuple(tree.tri_data.shape[1:])} != "
+                         f"({K1}, {ROWS})")
     for name, x in zip(tree._fields, tree):
         if x.device != device:
             raise ValueError(f"tree.{name} on {x.device}, rays on {device}")
         if not x.is_contiguous():
             raise ValueError(f"tree.{name} is not contiguous")
+    if tree.tri_data.data_ptr() % 16:      # kernels A, B copy 16-byte pieces
+        raise ValueError("tree.tri_data is not 16-byte aligned")
 
 
 def _slab(o, inv, lo, hi, t_s):

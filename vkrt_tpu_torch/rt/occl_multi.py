@@ -20,6 +20,9 @@ from vkrt_tpu_torch.rt.dense import (LANES, _check_tree,
                                      trace_occluded_plain)
 from vkrt_tpu_torch.accel.clusters import ClusterTree
 
+MAX_SETS = 4          # kernel B keeps a group's 128 x NS segments in shared
+                      # memory; it is built for NS = 1..4
+
 
 def occluded_multi_plain(tree: ClusterTree, light_pts, dirs, tmax):
     """Plain PyTorch version of kernel B (same inputs and outputs as
@@ -37,14 +40,18 @@ def occluded_multi(tree: ClusterTree, light_pts, dirs, tmax):
     """NS-segment-set occlusion trace (lane-major I/O).
 
     light_pts: f32[NS, 3]; dirs: f32[NS, 3, Nb, 128]; tmax: f32[NS, Nb, 128].
-    A CUDA tensor launches kernel B and counts it in
-    `occluded_multi.launches`; a CPU tensor runs `occluded_multi_plain`."""
+    A CUDA tensor launches kernel B (NS from 1 to MAX_SETS; other counts
+    raise) and counts it in `occluded_multi.launches`; a CPU tensor runs
+    `occluded_multi_plain`."""
     dev = dirs.device
     if dev.type == "cpu":
         return occluded_multi_plain(tree, light_pts, dirs, tmax)
     if dev.type != "cuda":
         raise ValueError(f"occluded_multi: unsupported device {dev}")
     ns, nb = dirs.shape[0], dirs.shape[2]
+    if not 1 <= ns <= MAX_SETS:
+        raise ValueError(f"occluded_multi: {ns} segment sets; kernel B "
+                         f"takes 1 to {MAX_SETS}")
     if (dirs.shape != (ns, 3, nb, LANES) or tmax.shape != (ns, nb, LANES)
             or light_pts.shape != (ns, 3)):
         raise ValueError(f"occluded_multi: shapes lights "
