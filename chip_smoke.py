@@ -20,8 +20,11 @@ the profile after phase 9 and phase 10:
               only empty-interval segments and one with one live lane
   5. C-F      kernels C, D (live-ray pack) and E, F (in-block lane sort)
               vs their plain versions on probes: liveness 0, 0.1, 0.27,
-              0.9, 1 and clustered; keys with many ties; blocks 512 and
-              1024; bit-equal, dead tail 0
+              0.9, 1 and clustered; keys with many ties at blocks 512 and
+              1024; adversarial keys for E's radix passes (all equal,
+              strictly descending, 2**24 - 1, all zero, dead tails of
+              2**18, both signs) at blocks 128, 256, 512 and 1024;
+              bit-equal, dead tail 0
   6. frame    a 64x48 config-4 frame of the small scene at the shipped
               defaults vs the numpy brute-force oracle
               (vkrt_tpu_torch.golden.cpu_tracer)
@@ -71,7 +74,9 @@ the profile after phase 9 and phase 10:
  14. kernel A' (any-hit, per-ray or per-block origins) vs its plain
               version on probes: phase 3's rays with per-ray origins, random
               block origins and phase 4's light segments at blocks 512 and
-              1024, parked and empty-interval rays; the point-origin masks
+              1024, parked and empty-interval rays, and phase 4's edge
+              groups (all blocked, parked, empty, one live lane) per light;
+              the point-origin masks
               must equal kernel B's, and DenseBackend.occluded /
               occluded_point return the same masks; kernel A with point
               origins and without attributes vs A's plain version, and with
@@ -408,13 +413,11 @@ def compare_occl(tree, lp, sd, st, near: bool = True,
     return out
 
 
-def occl_group_probe(tree, lp, sd, st) -> float:
-    """Phase 4's edge groups: kernel B on phase 4's segments, rearranged
-    so that in every set group 0 holds only blocked segments (gathered
-    from the plain version's), group 1 only parked ones, group 2 only
-    empty intervals (0 < tmax <= TMIN) and group 3 one live, blocked lane.
-    Masks must equal the plain version's, and those four groups come out
-    as they must. Returns the largest error."""
+def edge_groups(tree, lp, sd, st) -> tuple:
+    """Phase 4's segments rearranged so that in every set group 0 holds
+    only blocked segments (gathered from the plain version's), group 1
+    only parked ones, group 2 only empty intervals (0 < tmax <= TMIN) and
+    group 3 one live, blocked lane. Returns the new (sd, st)."""
     want = occluded_multi_plain(tree, lp, sd, st)
     sd, st = sd.clone(), st.clone()
     for s in range(lp.shape[0]):
@@ -428,14 +431,27 @@ def occl_group_probe(tree, lp, sd, st) -> float:
     st[:, 3] = 0.0
     st[:, 3, 127] = st[:, 0, 5]
     sd[:, :, 3, 127] = sd[:, :, 0, 5]
+    return sd, st
+
+
+def edge_groups_ok(mask) -> bool:
+    """Whether blocked masks [.., Nb, 128] of `edge_groups`' segments come
+    out as those groups must."""
+    return (bool(mask[..., 0, :].all()) and not bool(mask[..., 1:3, :].any())
+            and not bool(mask[..., 3, :127].any())
+            and bool(mask[..., 3, 127].all()))
+
+
+def occl_group_probe(tree, lp, sd, st) -> float:
+    """Phase 4's edge groups (`edge_groups`): kernel B's masks must equal
+    the plain version's, and those four groups come out as they must.
+    Returns the largest error."""
+    sd, st = edge_groups(tree, lp, sd, st)
     out = compare_occl(tree, lp, sd, st, near=False,
                        label=" (edge groups: all blocked, parked, empty, "
                              "one live lane)")
     kb = occluded_multi(tree, lp, sd, st)
-    ok = (out["masks_differ"] == 0 and bool(kb[:, 0].all())
-          and not bool(kb[:, 1:3].any()) and not bool(kb[:, 3, :127].any())
-          and bool(kb[:, 3, 127].all()))
-    if not ok:
+    if not (out["masks_differ"] == 0 and edge_groups_ok(kb)):
         raise AssertionError(f"kernel B edge groups: {out}")
     return out["max_abs_err"]
 
@@ -464,14 +480,39 @@ def compare_move(k: str, args, kw, label: str = "") -> float:
     return err
 
 
+DEAD_KEY = 1 << 18       # cell_key_fine's key of a dead ray
+
+
+def adversarial_keys(rng, nb: int, block: int) -> dict:
+    """Key sets that stress kernel E's radix passes, i32 [nb,128] each:
+    all equal, strictly descending, random 24-bit keys with a quarter at
+    2**24 - 1 (three full passes), all zero (no pass), each block's
+    tail from a random lane on at DEAD_KEY (the packed prefix's shape:
+    live keys below 2**18, then the dead ones), and keys of both signs
+    (four passes on the sign-flipped bits)."""
+    n = nb * 128
+    lane = np.arange(n) % block
+    cut = np.repeat(rng.integers(0, block + 1, n // block), block)
+    top = (1 << 24) - 1
+    keys = {"equal": np.full(n, 12345),
+            "descending": np.arange(n)[::-1],
+            "max_key": np.where(rng.random(n) < 0.25, top,
+                                rng.integers(0, top, n)),
+            "zero": np.zeros(n),
+            "dead_tail": np.where(lane < cut, rng.integers(0, DEAD_KEY, n),
+                                  DEAD_KEY),
+            "signed": rng.integers(-(1 << 23), 1 << 23, n)}
+    return {k: v.reshape(nb, 128).astype(np.int32) for k, v in keys.items()}
+
+
 def probe_moves(device) -> dict:
     """Phase 5: kernels C-F vs their plain versions on probes of 1024 rows
     (131,072 rays). C and D at liveness 0, 0.1, 0.27, 0.9, 1 and
     clustered, 16 channels (values past the last live rank planted as
     777, which must not come back); E and F at blocks 512 and 1024 with
-    keys of many ties, mostly-dead keys and the full 18-bit range, and
-    unsort(sort(x)) == x. C and D take no block. Returns each kernel's
-    largest error."""
+    keys of many ties, mostly-dead keys and the full 18-bit range, and at
+    blocks 128-1024 with `adversarial_keys`; unsort(sort(x)) == x. C and
+    D take no block. Returns each kernel's largest error."""
     rng = np.random.default_rng(SEED)
     nb = 1024
     errs = dict.fromkeys("CDEF", 0.0)
@@ -495,27 +536,29 @@ def probe_moves(device) -> dict:
         if (pack.scatter_back(res, grank) == 777.0).any():
             raise AssertionError(f"scatter_back leaked past the last live "
                                  f"rank (live {name})")
-    dead = 1 << 18
+    dead = DEAD_KEY
     keys = {"ties": rng.integers(0, 40, (nb, L.LANES)),
             "mostly_dead": np.where(rng.random((nb, L.LANES)) < 0.27,
                                     rng.integers(0, dead, (nb, L.LANES)),
                                     dead),
             "full": rng.integers(0, dead + 1, (nb, L.LANES))}
+    cases = [(block, name, key) for block in (512, 1024)
+             for name, key in keys.items()]
+    cases += [(block, name, key) for block in (128, 256, 512, 1024)
+              for name, key in adversarial_keys(rng, nb, block).items()]
     x4 = x[:4].contiguous()
-    for block in (512, 1024):
-        for name, key in keys.items():
-            key = torch.as_tensor(key.astype(np.int32), device=device)
-            label = f" (block {block}, keys {name})"
-            errs["E"] = max(errs["E"], compare_move(
-                "E", (x4, key), {"block": block}, label))
-            srt, rank = lanesort.lane_sort(x4, key, block=block)
-            errs["F"] = max(errs["F"], compare_move(
-                "F", (srt, rank), {"block": block}, label))
-            if not torch.equal(lanesort.lane_unsort(srt, rank, block=block),
-                               x4):
-                raise AssertionError(f"lane_unsort(lane_sort(x)) != x{label}")
+    for block, name, key in cases:
+        key = torch.as_tensor(key.astype(np.int32), device=device)
+        label = f" (block {block}, keys {name})"
+        errs["E"] = max(errs["E"], compare_move(
+            "E", (x4, key), {"block": block}, label))
+        srt, rank = lanesort.lane_sort(x4, key, block=block)
+        errs["F"] = max(errs["F"], compare_move(
+            "F", (srt, rank), {"block": block}, label))
+        if not torch.equal(lanesort.lane_unsort(srt, rank, block=block), x4):
+            raise AssertionError(f"lane_unsort(lane_sort(x)) != x{label}")
     log(f"  C-F vs plain on probes: {len(lives)} liveness cases (C, D), "
-        f"{2 * len(keys)} block/key cases (E, F), all equal; max abs err "
+        f"{len(cases)} block/key cases (E, F), all equal; max abs err "
         + json.dumps(errs))
     return errs
 
@@ -662,18 +705,17 @@ def move_bound(k: str, args, kw) -> dict:
     once. C and D touch the packed side only at live ranks (C reads a
     channel value per live ray and writes the whole zeroed output; D
     reads one per live ray and writes every ray), so their input counts
-    this run's live rays, not the tensor's size. E also does `block`
-    integer compares per ray (its rank count), counted at the f32 rate."""
+    this run's live rays, not the tensor's size. E also writes a rank
+    per ray; its sort (a few integer operations a key and radix pass)
+    is far below the bytes' time, so its bound is its bytes."""
     x, idx = args
     moved = x.numel()
     if k in "CD":
         moved = x.shape[0] * int((idx >= 0).sum())
     nbytes = moved * 4 + idx.numel() * 4 + x.numel() * 4
-    ops = 0
     if k == "E":
         nbytes += idx.numel() * 4                     # the ranks it writes
-        ops = idx.numel() * kw["block"]
-    return bound(nbytes, ops)
+    return bound(nbytes, 0)
 
 
 def library_move(k: str, args, kw):
@@ -1486,8 +1528,9 @@ def probe_occluded(backend, o, d, tmax, lp, sd, st) -> tuple:
     """Phase 14: kernel A' on probes. Per-ray origins: phase 3's rays cut
     to segments of 15 units (parked rays stay parked, 16 get an empty
     interval). Point origins at blocks 512 and 1024: random points in the
-    hall, and phase 4's light segments, whose masks must equal kernel
-    B's. `backend.occluded` and `backend.occluded_point` (the entry
+    hall, and phase 4's light segments and its edge groups
+    (`edge_groups`), whose masks must equal kernel B's (the edge groups
+    coming out as they must). `backend.occluded` and `backend.occluded_point` (the entry
     points a caller uses) must return the same masks. Kernel A's
     point-origin form (both blocks) and its form without attributes are
     held against A's plain version, and the point-origin form against the
@@ -1504,6 +1547,8 @@ def probe_occluded(backend, o, d, tmax, lp, sd, st) -> tuple:
     errs_a = [compare_closest(tree, o, d, tmax, " (no attributes)",
                               with_attributes=False)]
     kb = occluded_multi(tree, lp, sd, st)
+    gd, gt = edge_groups(tree, lp, sd, st)
+    kg = occluded_multi(tree, lp, gd, gt)
     rng = np.random.default_rng(SEED + 14)
     for block in (512, 1024):
         pts = torch.as_tensor(rng.uniform([-15, 0, -9], [15, 12, 10],
@@ -1534,9 +1579,18 @@ def probe_occluded(backend, o, d, tmax, lp, sd, st) -> tuple:
                                      f"{int((mask != kb[s]).sum())} segments")
             if bool(mask[0, :16].any()):
                 raise AssertionError("near-light segment blocked")
+            r, mask = compare_occluded(
+                tree, light_points(lp, s, n, block), gd[s].contiguous(),
+                gt[s].contiguous(), block,
+                f" (edge groups, light {s}, block {block})")
+            errs.append(r)
+            if not (torch.equal(mask, kg[s]) and edge_groups_ok(mask)):
+                raise AssertionError(f"kernel A' on the edge groups (light "
+                                     f"{s}, block {block}): {r}")
     log(f"  A' vs plain on probes: {len(errs)} cases agree; the backend's "
         f"occluded / occluded_point return the same masks; point-origin "
-        f"masks equal kernel B's; A with point origins and A without "
+        f"masks equal kernel B's, on the edge groups too; A with point "
+        f"origins and A without "
         f"attributes agree with A's plain version ({len(errs_a)} cases)")
     return (max(r["max_abs_err"] for r in errs),
             max(r["max_abs_err"] for r in errs_a))
@@ -1935,7 +1989,9 @@ def main() -> int:
                "plain_ms": sum(r["plain_ms"] for r in res_15),
                **{key: add_bounds(res_15)[key]
                   for key in ("bound_ms", "bound_by")},
-               "library_ms": None}
+               "library_ms": None,
+               "design": "redesigned: kernel B's group walk (walk.cuh) "
+                         "with one segment set"}
     log(f"== total {time.perf_counter() - t_start:.1f} s from the build on")
     log(smi)
     log(json.dumps({"kernels": [
@@ -1948,8 +2004,10 @@ def main() -> int:
               "vkrt_tpu/wavefront/pack.py:98"),
         entry("scatter_back", "D", "vkrt_tpu_torch/csrc/pack.cu",
               "vkrt_tpu/wavefront/pack.py:200"),
-        entry("lane_sort", "E", "vkrt_tpu_torch/csrc/lanesort.cu",
-              "vkrt_tpu/wavefront/lanesort.py:79"),
+        {**entry("lane_sort", "E", "vkrt_tpu_torch/csrc/lanesort.cu",
+                 "vkrt_tpu/wavefront/lanesort.py:79"),
+         "design": "redesigned: a shared-memory LSD radix sort, 8 bits a "
+                   "pass"},
         entry("lane_unsort", "F", "vkrt_tpu_torch/csrc/lanesort.cu",
               "vkrt_tpu/wavefront/lanesort.py:162"),
         g,

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import duplicate_triangle, tie_slots, tie_tree
+from chip_smoke import (adversarial_keys, duplicate_triangle, tie_slots,
+                        tie_tree)
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.framebuffer import rmse
@@ -257,6 +258,26 @@ def test_kernels_e_f_match_plain(card, block):
     assert torch.equal(back, x)
 
 
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+@pytest.mark.parametrize("keys", ["equal", "descending", "max_key", "zero",
+                                  "dead_tail", "signed"])
+def test_kernel_e_adversarial_keys_match_plain(card, block, keys):
+    """Kernel E's radix sort on keys that stress its passes (none for all
+    zero, three full 8-bit passes for 2**24 - 1, four for keys of both
+    signs, ties everywhere, a reversed block, dead tails): channels and
+    ranks equal the plain version's (torch.sort, stable)."""
+    rng = np.random.default_rng(block)
+    nb = 64
+    key = torch.as_tensor(adversarial_keys(rng, nb, block)[keys], device=card)
+    x = torch.as_tensor(rng.normal(size=(4, nb, 128)).astype(np.float32),
+                        device=card)
+    e0 = lanesort.lane_sort.launches
+    got, rank = lanesort.lane_sort(x, key, block=block)
+    assert lanesort.lane_sort.launches == e0 + 1
+    want, want_rank = lanesort.lane_sort_plain(x, key, block)
+    assert torch.equal(got, want) and torch.equal(rank, want_rank)
+
+
 @pytest.mark.parametrize("block", [512, 1024])
 @pytest.mark.parametrize("channels", [1, 4, 5])
 def test_kernel_f_channels_match_plain(card, block, channels):
@@ -449,6 +470,65 @@ def test_kernel_a_prime_matches_plain(renderer, card, block):
         got = trace_dense(tree, pts, d, tmax, **kw)
         for g, w in zip(got, trace_dense(tree, o, d, tmax)):
             assert torch.equal(g, w)
+
+
+def occluded_coded(out, blocked) -> bool:
+    """Kernel A''s outputs as the any-hit mode leaves them."""
+    t, slot, u, v = out
+    return (torch.equal(slot, torch.where(blocked, 1, -1).to(torch.int32))
+            and torch.equal(t, torch.where(blocked, 0.001, torch.inf))
+            and not u.any() and not v.any())
+
+
+@pytest.mark.parametrize("case", ["all_blocked", "all_parked", "one_live",
+                                  "empty", "mixed_origins"])
+def test_kernel_a_prime_edge_groups_match_plain(renderer, card, case):
+    """Kernel A' on edge groups (group 0: all blocked, all parked, one
+    live and blocked lane, or all empty intervals 0 < tmax <= TMIN) of
+    light 0's segments, with per-ray origins and with one origin per 512
+    rays: masks equal the plain version's and, in the point-origin form,
+    kernel B's at NS 1; outputs coded. "mixed_origins": per-ray origins
+    that differ inside every group (random points in the hall)."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, n=16384, seed=40)
+    if case == "mixed_origins":
+        tmax = torch.where(tmax > 0, 12.0, 0.0)
+        out = trace_occluded(tree, o, d, tmax)
+        want = trace_occluded_plain(tree, o, d, tmax)
+        assert torch.equal(out[1] >= 0, want) and occluded_coded(out, want)
+        assert 0.05 < want.float().mean().item() < 0.95
+        return
+    light = renderer.lights[:1].contiguous()
+    seg = o + d * 6.0 - light[0][:, None, None]
+    dist = seg.norm(dim=0)
+    sd, st = (seg / dist).contiguous(), (dist - C.RAY_TMIN).contiguous()
+    blk = occluded_multi_plain(tree, light, sd[None], st[None])[0]
+    idx = torch.nonzero(blk.reshape(-1))[:128, 0]
+    assert idx.numel() == 128
+    sd[:, 0] = sd.reshape(3, -1)[:, idx]
+    st[0] = st.reshape(-1)[idx]
+    if case == "all_parked":
+        st[0] = 0.0
+    elif case == "empty":
+        st[0] = 0.0009
+    elif case == "one_live":
+        st[0, :127] = 0.0
+    want = trace_occluded_plain(
+        tree, light[0][:, None, None].expand(sd.shape).contiguous(), sd, st)
+    assert bool(want[0].any()) == (case in ("all_blocked", "one_live"))
+    assert case != "all_blocked" or bool(want[0].all())
+    assert case != "one_live" or (bool(want[0, 127])
+                                  and not want[0, :127].any())
+    before = trace_occluded.launches
+    per_ray = trace_occluded(
+        tree, light[0][:, None, None].expand(sd.shape).contiguous(), sd, st)
+    pts = light.expand(sd[0].numel() // 512, 3).contiguous()
+    point = trace_occluded(tree, pts, sd, st, block=512, point_origin=True)
+    assert trace_occluded.launches == before + 2
+    kb = occluded_multi(tree, light, sd[None], st[None])[0]
+    for out in (per_ray, point):
+        assert torch.equal(out[1] >= 0, want) and occluded_coded(out, want)
+    assert torch.equal(point[1] >= 0, kb)
 
 
 @pytest.mark.parametrize("form", ["no_attributes", "point_512",

@@ -3,7 +3,11 @@
 
 lane_sort (kernel E's plain version) and lane_unsort (kernel F's) against
 the JAX functions with their Pallas kernels in interpret mode, at blocks
-512 and 1024 with many tied keys; cell_key_fine against the JAX keys.
+128 to 1024 with many tied keys and with the adversarial key sets that
+chip_smoke.py holds kernel E to on the card (all equal, strictly
+descending, 2**24 - 1, all zero, dead tails of 2**18, both signs): this
+pins the stable tie rule that the kernel's radix sort reproduces;
+cell_key_fine against the JAX keys.
 Both sides move f32 values without arithmetic and rank by the same stable
 rule, so channels, ranks and keys are compared bit for bit (the JAX rank
 is f32, exact below 2**24).
@@ -14,16 +18,26 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import adversarial_keys
 from vkrt_tpu.wavefront import lanesort as jls
 from vkrt_tpu_torch.wavefront import lanesort
 
+ADVERSARIAL = ["equal", "descending", "max_key", "zero", "dead_tail",
+               "signed"]
 
-@pytest.mark.parametrize("block", [512, 1024])
-@pytest.mark.parametrize("nkeys", [40, 600, 1 << 18 | 1])
+
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+@pytest.mark.parametrize("nkeys", [40, 600, 1 << 18 | 1] + ADVERSARIAL)
 def test_lane_sort_and_unsort_match_jax(block, nkeys):
-    rng = np.random.default_rng(block + nkeys)
+    """Random keys below `nkeys`, or one of chip_smoke's adversarial
+    key sets by name."""
     nb = 16
-    key = rng.integers(0, nkeys, (nb, 128)).astype(np.int32)
+    if isinstance(nkeys, str):
+        rng = np.random.default_rng(block + ADVERSARIAL.index(nkeys))
+        key = adversarial_keys(rng, nb, block)[nkeys]
+    else:
+        rng = np.random.default_rng(block + nkeys)
+        key = rng.integers(0, nkeys, (nb, 128)).astype(np.int32)
     ch = rng.normal(size=(4, nb, 128)).astype(np.float32)
     want, want_rank = jls.lane_sort([jnp.asarray(c) for c in ch],
                                     jnp.asarray(key), block=block,

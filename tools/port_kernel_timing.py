@@ -1,10 +1,11 @@
-"""Times of the port's kernels A, B, F and G, for comparing two checkouts on one card.
+"""Times of the port's kernels A, A', B, E, F and G, for comparing two checkouts on one card.
 
-    python3 tools/port_kernel_timing.py [--frames N] [--parts trace,unsort,raster]
+    python3 tools/port_kernel_timing.py [--frames N]
+        [--parts trace,occluded,sort,unsort,raster]
 
 Run it from the root of a checkout of the repository on a machine with an
 NVIDIA GPU and nvcc; it imports `vkrt_tpu_torch` (and chip_smoke.py's
-recording backend) from the working directory, so the same file run from
+recording helpers) from the working directory, so the same file run from
 two checkouts (one unpacked beside the other, in turns) compares their
 kernels on one card, minutes apart.
 
@@ -16,6 +17,19 @@ kernels on one card, minutes apart.
     the start camera gives them (config 4: depths 0-1; config 5 under
     rot_y(0.02): depths 0-3), per depth, mean of 10 calls after a
     warm-up.
+  * occluded: A' (`trace_occluded`): config-4 frames with the per-light
+    shadow dispatch (`DenseBackend.per_light`: 8 A' launches a frame, no
+    B) by CUDA events as above; then the shadow segments of one config-4
+    frame at the start camera, per depth: its NS point-origin A' calls
+    (one per light, as the per-light dispatch makes them), mean of 10
+    after a warm-up, beside B's one call on the same segments, and
+    whether A''s masks equal B's.
+  * sort: E (`lane_sort`) on the depth-1 call of that frame (4 channels,
+    the packed prefix in blocks of 1024 lanes), device time on a filled
+    queue as for unsort below, in the order kernel, sort, sort, kernel;
+    `torch.sort(stable=True)` of the keys alone beside it as a note (E
+    also moves the channels and writes the ranks); whether E equals its
+    plain version.
   * unsort: F (`lane_unsort`) and `torch.gather` on the same inputs, at
     the shape a 1080p config-4 frame gives F (4 channels, 510 blocks of
     1024 lanes, random in-block permutations): device time on a filled
@@ -50,7 +64,7 @@ from vkrt_tpu_torch import kernels, runtime                  # noqa: E402
 from vkrt_tpu_torch.app.flythrough import camera_path        # noqa: E402
 from vkrt_tpu_torch.raster import edge                       # noqa: E402
 from vkrt_tpu_torch.raster import pipeline as rp             # noqa: E402
-from vkrt_tpu_torch.rt.dense import trace_dense              # noqa: E402
+from vkrt_tpu_torch.rt.dense import trace_dense, trace_occluded  # noqa: E402
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi      # noqa: E402
 from vkrt_tpu_torch.scene.procedural import procedural_model  # noqa: E402
 from vkrt_tpu_torch.wavefront import lanesort                # noqa: E402
@@ -201,6 +215,68 @@ def kernels_by_depth(r, cam, transform=None) -> dict:
     return {"A_ms": a, "B_ms": b, "A_frame_ms": sum(a), "B_frame_ms": sum(b)}
 
 
+def record_frame(r, cam):
+    """The trace inputs (chip_smoke's RecordingBackend) and the C-F inputs
+    (RecordingMoves) of one frame of `r` at `cam`."""
+    from chip_smoke import RecordingBackend, RecordingMoves
+    rec = RecordingBackend(r.backend)
+    with RecordingMoves() as moves:
+        render_frame_u8(rec, r.tex,
+                        torch.as_tensor(cam.proj_inverse, device=r.device),
+                        torch.as_tensor(cam.view_inverse, device=r.device),
+                        r.lights, r.cfg)
+        torch.cuda.synchronize()
+    return rec, moves
+
+
+def time_occluded(r, cams, rec) -> dict:
+    """Per-light frames, then A' per depth on the recorded segments (its
+    NS point-origin calls) beside B on the same segments."""
+    from chip_smoke import light_points
+    pl = copy.copy(r)
+    pl.backend = r.backend._replace(per_light=True)
+    frame = frames_ms(pl, cams)
+    tree = r.backend.tree
+    a, b, equal = [], [], []
+    for (lp, sd, st), block in zip(rec.occl_in, rec.occl_block):
+        n = st[0].numel()
+        calls = [(light_points(lp, s, n, block), sd[s].contiguous(),
+                  st[s].contiguous()) for s in range(lp.shape[0])]
+
+        def run_all(calls=calls, block=block):
+            return [trace_occluded(tree, *c, block=block, point_origin=True)
+                    for c in calls]
+
+        kb = occluded_multi(tree, lp, sd, st)
+        equal.append(all(torch.equal(out[1] >= 0, kb[s])
+                         for s, out in enumerate(run_all())))
+        a.append(event_ms(run_all, 10))
+        b.append(event_ms(lambda: occluded_multi(tree, lp, sd, st), 10))
+    return {"per_light_frame_ms": frame,
+            "per_light_frame_ms_mean": float(np.mean(frame)),
+            "launches_per_depth": [int(x[0].shape[0]) for x in rec.occl_in],
+            "A'_ms": a, "B_ms": b, "A'_frame_ms": sum(a),
+            "B_frame_ms": sum(b), "masks_equal_B": equal}
+
+
+def time_sort(moves) -> dict:
+    """E on the frame's depth-1 call and torch.sort of its keys alone, on
+    a filled queue, rotating over copies that exceed the L2."""
+    from chip_smoke import input_copies
+    (x, key), kw = moves.inputs["E"][0]
+    block = kw["block"]
+    want = lanesort.lane_sort_plain(x, key, block)
+    got = lanesort.lane_sort(x, key, block=block)
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    copies = input_copies((x, key), 2 * x.numel() * 4 + 2 * key.numel() * 4)
+    f = [lambda c=c: lanesort.lane_sort(*c, block=block) for c in copies]
+    g = [lambda c=c: torch.sort(c[1].reshape(-1, block), dim=1, stable=True)
+         for c in copies]
+    runs = [queued_ms(f), queued_ms(g), queued_ms(g), queued_ms(f)]
+    return {"shape": list(x.shape), "block": block, "equal_to_plain": same,
+            "kernel": [runs[0], runs[3]], "keys_sort": [runs[1], runs[2]]}
+
+
 def time_trace(dev, frames: int) -> dict:
     from chip_smoke import rot_y, start_camera
     cfg = C.config4_flythrough()
@@ -222,7 +298,7 @@ def time_trace(dev, frames: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=2)
-    ap.add_argument("--parts", default="trace,unsort,raster")
+    ap.add_argument("--parts", default="trace,occluded,sort,unsort,raster")
     args = ap.parse_args()
     parts = args.parts.split(",")
     if not torch.cuda.is_available():
@@ -236,6 +312,18 @@ def main() -> int:
     out = {"cwd": os.getcwd(), "build_s": b.seconds}
     if "trace" in parts:
         out["trace"] = time_trace(dev, args.frames)
+    if "occluded" in parts or "sort" in parts:
+        from chip_smoke import start_camera
+        cfg = C.config4_flythrough()
+        r = Renderer(procedural_model("full", seed=0), cfg, dev, quantize=True)
+        rec, moves = record_frame(r, start_camera(cfg.width, cfg.height))
+        if "occluded" in parts:
+            cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
+                                         args.frames + 1))
+            out["occluded"] = time_occluded(r, cams, rec)
+        if "sort" in parts:
+            out["sort"] = time_sort(moves)
+        del r, rec, moves
     if "unsort" in parts:
         out["unsort"] = time_unsort(dev)
     if "raster" in parts:

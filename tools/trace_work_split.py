@@ -67,7 +67,7 @@ INF = float("inf")
 
 
 def _slab_tn(o, inv, lo, hi, t_s):
-    """Slab test of R rays against B boxes, as the kernels' `slab_hit`:
+    """Slab test of R rays against B boxes, as the kernels' `slab`:
     (gate bool[R,B], entry t tn f32[R,B])."""
     tn = tf = None
     for a in range(3):

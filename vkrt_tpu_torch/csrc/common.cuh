@@ -43,58 +43,41 @@ struct Ray {
   float ix, iy, iz;
 };
 
-// Slab test of one box against one ray whose current far bound is t_s;
-// `tn` receives the entry t (the walks' sort key). The `t_s > TMIN`
-// clause makes parked rays (t_s = 0) gate nothing.
-__device__ __forceinline__ bool slab(float ox, float oy, float oz, float ix,
-                                     float iy, float iz, float lo_x,
-                                     float lo_y, float lo_z, float hi_x,
-                                     float hi_y, float hi_z, float t_s,
-                                     float& tn) {
-  float t0x = (lo_x - ox) * ix;
-  float t1x = (hi_x - ox) * ix;
-  float t0y = (lo_y - oy) * iy;
-  float t1y = (hi_y - oy) * iy;
-  float t0z = (lo_z - oz) * iz;
-  float t1z = (hi_z - oz) * iz;
+// Slab test of one box against one ray whose current far bound is t_s,
+// given the box's corners relative to the ray's origin (lo - o, hi - o:
+// taken once a box for rays that share an origin); `tn` receives the
+// entry t (the walks' sort key). The `t_s > TMIN` clause makes parked
+// rays (t_s = 0) gate nothing.
+__device__ __forceinline__ bool slab_rel(float ax, float ay, float az,
+                                         float bx, float by, float bz,
+                                         float ix, float iy, float iz,
+                                         float t_s, float& tn) {
+  float t0x = ax * ix;
+  float t1x = bx * ix;
+  float t0y = ay * iy;
+  float t1y = by * iy;
+  float t0z = az * iz;
+  float t1z = bz * iz;
   tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   return (tn <= tf) && (tf >= TMIN) && (tn <= t_s) && (t_s > TMIN);
 }
 
-__device__ __forceinline__ bool slab_hit(const Ray& r, float lo_x, float lo_y,
-                                         float lo_z, float hi_x, float hi_y,
-                                         float hi_z, float t_s) {
-  float tn;
-  return slab(r.ox, r.oy, r.oz, r.ix, r.iy, r.iz, lo_x, lo_y, lo_z, hi_x,
-              hi_y, hi_z, t_s, tn);
-}
-
-__device__ __forceinline__ bool sc_gate(const Ray& r,
-                                        const float* __restrict__ sc_boxes,
-                                        int c2p, int s, float t_s) {
-  return slab_hit(r, __ldg(sc_boxes + 0 * c2p + s), __ldg(sc_boxes + 1 * c2p + s),
-                  __ldg(sc_boxes + 2 * c2p + s), __ldg(sc_boxes + 3 * c2p + s),
-                  __ldg(sc_boxes + 4 * c2p + s), __ldg(sc_boxes + 5 * c2p + s),
-                  t_s);
-}
-
-// Cluster c of supercluster s; false for padding clusters (min > max).
-__device__ __forceinline__ bool cl_gate(const Ray& r,
-                                        const float* __restrict__ cl_boxes,
-                                        int s, int c, float t_s) {
-  const float* b = cl_boxes + (size_t)s * 8 * K2 + c;
-  float lo_x = __ldg(b + 0 * K2), hi_x = __ldg(b + 3 * K2);
-  if (!(lo_x <= hi_x)) return false;
-  return slab_hit(r, lo_x, __ldg(b + 1 * K2), __ldg(b + 2 * K2), hi_x,
-                  __ldg(b + 4 * K2), __ldg(b + 5 * K2), t_s);
+// The same test from the box's corners and the ray's origin.
+__device__ __forceinline__ bool slab(float ox, float oy, float oz, float ix,
+                                     float iy, float iz, float lo_x,
+                                     float lo_y, float lo_z, float hi_x,
+                                     float hi_y, float hi_z, float t_s,
+                                     float& tn) {
+  return slab_rel(lo_x - ox, lo_y - oy, lo_z - oz, hi_x - ox, hi_y - oy,
+                  hi_z - oz, ix, iy, iz, t_s, tn);
 }
 
 // Möller–Trumbore terms of one triangle (v0, e1, e2), in the JAX kernel's
 // operation order (vkrt_tpu/rt/dense.py:354-365). The one definition of
-// the arithmetic: A and B pass the nine values of a staged row (cols 0-8
-// of 3 float4 in shared memory), A' reads them from the tree
-// (`mt_terms`), so all three decide every pair alike.
+// the arithmetic: A, A' and B pass the nine values of a staged row (cols
+// 0-8 of 3 float4 in shared memory), and A recomputes its winner from the
+// tree (`mt_terms`), so every kernel decides every pair alike.
 struct MT {
   float det, up, vp, tp;
 };

@@ -32,34 +32,6 @@
 
 namespace vkrt {
 
-struct Occl {
-  typedef unsigned char State;           // 1: blocked
-
-  template <int NS>
-  static __device__ __forceinline__ float far(
-      const WalkShared<NS, unsigned char>& sh, int j) {
-    return sh.state[j] ? 0.0f : sh.org[j].w;
-  }
-
-  template <int NS>
-  static __device__ __forceinline__ void pair(
-      WalkShared<NS, unsigned char>& sh, int j, float4 q0, float4 q1,
-      float4 q2, int) {
-    const float4 o = sh.org[j], d = sh.dir[j];
-    Ray r;
-    r.ox = o.x;
-    r.oy = o.y;
-    r.oz = o.z;
-    r.dx = d.x;
-    r.dy = d.y;
-    r.dz = d.z;
-    if (occludes(mt_values(r, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
-                           q2.x),
-                 o.w))
-      sh.state[j] = 1;
-  }
-};
-
 template <int NS>
 __global__ void __launch_bounds__(K1, 4)
 occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,

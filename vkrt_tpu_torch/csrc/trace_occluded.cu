@@ -5,28 +5,36 @@
 // point_origin (:257-265), entry trace_dense (:802).
 //
 // What bounds it on the H100: the Möller–Trumbore sweeps up to each
-// ray's first blocker, as in kernel B. The TPU kernel kept a whole
-// block's rays in flight until the block's last ray was blocked (a
-// per-block max-t culled later gates) and read a shared origin from
-// scalar memory to shrink its [K1,R] products; on a GPU one thread takes
-// one ray, walks the boxes against its own segment and returns at its
-// first blocking triangle, and a shared origin is just a broadcast load:
-// with `block` > 0 ray i starts at o_pts[i / block], else at orig[:, i].
+// ray's first blocker, 47 float operations a (ray, triangle) pair, none
+// of them an FMA (-fmad=false), as in kernel B. One thread a ray would
+// have a warp issue the union of its 32 rays' sweeps (1.5-14x the needed
+// pairs, tools/trace_work_split.py) with 9 scalar loads a pair. So A' is
+// kernel B's body with one segment set: one block of 128 threads owns
+// one 128-lane group and walks it front to back (walk.cuh `group_walk`
+// with the `Occl` policy), each cluster staged once by cp.async and
+// swept pair-parallel. A lane stops at its first blocker, and the block
+// leaves once no live lane is left unblocked. With `block` > 0 ray i
+// starts at o_pts[i / block], else at orig[:, i]. `block` is a multiple
+// of 128, so a group never spans two origins: the point-origin kernel
+// (ONE_ORIGIN) keys each box against the group's origin with one
+// `lo - o` a box, not a lane (the same floats, so the same keys; timed
+// against the per-lane form with tools/port_kernel_timing.py, PERF.md).
+// Per-ray origins differ inside a group, and there every gate uses the
+// lane's own.
 //
 // Semantics kept from the Pallas kernel: the division-free test against
-// the sign-corrected determinant, kernel B's own (common.cuh `mt_values`
-// and `occludes`), so the two kernels decide every segment alike:
-// |det| > 1e-12, su, sv >= 0, su + sv <= |det|, st > TMIN*|det|,
-// st < tmax*|det|. A parked ray
-// (tmax = 0) is not blocked, and neither is a live one with
-// 0 < tmax <= TMIN (its interval is empty). Outputs as the Pallas kernel
-// leaves them: blocked → slot 1, t = TMIN; free → slot -1, t = +inf;
-// u = v = 0 always.
-#include "common.cuh"
+// the sign-corrected determinant, kernel B's own (common.cuh `occludes`),
+// so the two kernels decide every segment alike: |det| > 1e-12, su, sv
+// >= 0, su + sv <= |det|, st > TMIN*|det|, st < tmax*|det|. A parked ray
+// (tmax = 0) is not blocked, and neither is a live one with 0 < tmax <=
+// TMIN (its interval is empty). Outputs as the Pallas kernel leaves
+// them: blocked → slot 1, t = TMIN; free → slot -1, t = +inf; u = v = 0.
+#include "walk.cuh"
 
 namespace vkrt {
 
-__global__ void __launch_bounds__(128)
+template <bool ONE_ORIGIN>
+__global__ void __launch_bounds__(K1, 4)
 trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                       const float* __restrict__ cl_boxes,
                       const float* __restrict__ tri_data,
@@ -36,43 +44,34 @@ trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                       const float* __restrict__ tmax,   // [n]
                       int n, float* __restrict__ t_out, int* __restrict__ slot_out,
                       float* __restrict__ u_out, float* __restrict__ v_out) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  u64* sc_list = reinterpret_cast<u64*>(dyn);                  // [n_sc]
+  uint32_t* sc_key = reinterpret_cast<uint32_t*>(sc_list + n_sc);
+  __shared__ WalkShared<1, unsigned char> sh;
+
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * K1 + t;               // n is a multiple of 128
+  float ox, oy, oz;
   if (block > 0) {
     const float* p = orig + (size_t)(i / block) * 3;
-    r.ox = __ldg(p + 0);
-    r.oy = __ldg(p + 1);
-    r.oz = __ldg(p + 2);
+    ox = __ldg(p + 0);
+    oy = __ldg(p + 1);
+    oz = __ldg(p + 2);
   } else {
-    r.ox = orig[i];
-    r.oy = orig[(size_t)n + i];
-    r.oz = orig[2 * (size_t)n + i];
+    ox = orig[i];
+    oy = orig[(size_t)n + i];
+    oz = orig[2 * (size_t)n + i];
   }
-  r.dx = dirs[i];
-  r.dy = dirs[(size_t)n + i];
-  r.dz = dirs[2 * (size_t)n + i];
-  r.ix = safe_inv(r.dx);
-  r.iy = safe_inv(r.dy);
-  r.iz = safe_inv(r.dz);
-  const float t_s = tmax[i];
-  bool hit = false;
+  const float dx = dirs[i], dy = dirs[(size_t)n + i], dz = dirs[2 * (size_t)n + i];
+  sh.org[t] = make_float4(ox, oy, oz, tmax[i]);
+  sh.dir[t] = make_float4(dx, dy, dz, 0.0f);
+  sh.inv[t] = make_float4(safe_inv(dx), safe_inv(dy), safe_inv(dz), 0.0f);
+  sh.state[t] = 0;
 
-  if (t_s > TMIN) {
-    for (int sc = 0; sc < n_sc && !hit; ++sc) {
-      if (!sc_gate(r, sc_boxes, c2p, sc, t_s)) continue;
-      for (int c = 0; c < K2 && !hit; ++c) {
-        if (!cl_gate(r, cl_boxes, sc, c, t_s)) continue;
-        const float* tri = tri_data + (size_t)(sc * K2 + c) * K1 * ROWS;
-        for (int k = 0; k < K1; ++k) {
-          if (occludes(mt_terms(r, tri + (size_t)k * ROWS), t_s)) {
-            hit = true;
-            break;
-          }
-        }
-      }
-    }
-  }
+  group_walk<1, Occl, ONE_ORIGIN>(sh, sc_boxes, c2p, n_sc, cl_boxes,
+                                  tri_data, sc_key, sc_list);
+  // (an all-parked group returns from the walk at once: written here too)
+  const bool hit = sh.state[t];
   t_out[i] = hit ? TMIN : __int_as_float(0x7f800000);  // +inf
   slot_out[i] = hit ? 1 : -1;
   u_out[i] = 0.0f;
@@ -82,7 +81,9 @@ trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
 }  // namespace vkrt
 
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
-// after the launch; the launch does not synchronise.
+// after the launch, or cudaErrorInvalidValue for a ray count that is not
+// a multiple of 128 or a tree whose supercluster keys do not fit in
+// shared memory; the launch does not synchronise.
 extern "C" int vkrt_trace_occluded(const float* sc_boxes, int c2p, int n_sc,
                                    const float* cl_boxes,
                                    const float* tri_data, const float* orig,
@@ -90,11 +91,16 @@ extern "C" int vkrt_trace_occluded(const float* sc_boxes, int c2p, int n_sc,
                                    const float* tmax, int n, float* t_out,
                                    int* slot_out, float* u_out, float* v_out,
                                    void* stream) {
+  using namespace vkrt;
   if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    vkrt::trace_occluded_kernel<<<blocks, threads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+    if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t dyn = (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
+    auto kern = block > 0 ? trace_occluded_kernel<true>
+                          : trace_occluded_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<n / K1, K1, dyn, static_cast<cudaStream_t>(stream)>>>(
         sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
         t_out, slot_out, u_out, v_out);
   }

@@ -1,12 +1,13 @@
-// The front-to-back group walk of kernels A (trace_closest.cu) and B
-// (occl_multi.cu). One block of 128 threads owns one 128-lane group (an
-// 8x16-pixel subtile in the engine's tile order) and, for B, that
-// group's segments toward each of NS lights: NL = 128 x NS lanes, whose
-// rays and results live in shared memory.
+// The front-to-back group walk of kernels A (trace_closest.cu), A'
+// (trace_occluded.cu) and B (occl_multi.cu). One block of 128 threads
+// owns one 128-lane group (an 8x16-pixel subtile in the engine's tile
+// order) and, for B, that group's segments toward each of NS lights:
+// NL = 128 x NS lanes, whose rays and results live in shared memory
+// (A and A' walk with NS = 1).
 //
 //   1. Every supercluster gets a key: the least entry t of its box over
 //      the block's live lanes whose slab test passes at their far bound
-//      (A: tmax; B: the segment's end). A thread per (supercluster, 32
+//      (A: tmax; A', B: the segment's end). A thread per (supercluster, 32
 //      live lanes), a shared atomicMin; the gated keys are sorted (rank
 //      sort: keys are unique, the id sits in their low bits).
 //   2. The superclusters are visited in that order. Each lane tests the
@@ -32,8 +33,9 @@
 //      need the cluster. A hit is committed through shared memory
 //      (`P::pair`).
 //
-// Shared memory: WalkShared (static, 22.6 KB for A, 42.8 KB for B at NS 4)
-// and 12 bytes a supercluster (dynamic: the keys and the sorted list).
+// Shared memory: WalkShared (static, 22.6 KB for A, 21.7 KB for A' and
+// B at NS 1, 42.8 KB for B at NS 4) and 12 bytes a supercluster
+// (dynamic: the keys and the sorted list).
 #pragma once
 
 #include "common.cuh"
@@ -50,7 +52,7 @@ struct WalkShared {
   float4 org[NL];                        // ox oy oz, tmax
   float4 dir[NL];                        // dx dy dz, -
   float4 inv[NL];                        // ix iy iz, far bound of the gates
-  State state[NL];                       // A: (t, slot) key; B: blocked
+  State state[NL];                       // A: (t, slot) key; A', B: blocked
   short live[NL];                        // lanes with tmax > TMIN
   short need[NL];                        // lanes that need the cluster
   short pass[NL];                        // lanes that pass the supercluster
@@ -62,12 +64,26 @@ struct WalkShared {
 
 // The least entry t, as an ordered key (NO_KEY if none), over the lanes
 // list[begin, end) whose slab test of the box passes at their gate bound
-// (inv.w; 0 for a lane that wants nothing).
-template <int NS, class State>
+// (inv.w; 0 for a lane that wants nothing). ONE_ORIGIN: every lane
+// starts at lane 0's origin, so the box's corners relative to it are
+// taken once (bit for bit the values each lane's own test computes).
+template <bool ONE_ORIGIN, int NS, class State>
 __device__ __forceinline__ uint32_t least_entry(
     const WalkShared<NS, State>& sh, const short* list, int begin, int end,
     float lx, float ly, float lz, float hx, float hy, float hz) {
   uint32_t best = NO_KEY;
+  if (ONE_ORIGIN) {
+    const float4 o = sh.org[0];
+    const float ax = lx - o.x, ay = ly - o.y, az = lz - o.z;
+    const float bx = hx - o.x, by = hy - o.y, bz = hz - o.z;
+    for (int q = begin; q < end; ++q) {
+      const float4 v = sh.inv[list[q]];
+      float tn;
+      if (slab_rel(ax, ay, az, bx, by, bz, v.x, v.y, v.z, v.w, tn))
+        best = min(best, ordered(tn));
+    }
+    return best;
+  }
   for (int q = begin; q < end; ++q) {
     const int j = list[q];
     const float4 o = sh.org[j], v = sh.inv[j];
@@ -88,8 +104,9 @@ __device__ __forceinline__ u64 list_key(uint32_t key, int id) {
 // (the last step is a barrier) every lane's state is final. The policy P
 // gives `far(sh, j)`, lane j's current far bound (0 once it wants
 // nothing), and `pair(sh, j, q0, q1, q2, slot)`, one (lane, staged
-// triangle) test. Every thread of the block must call it.
-template <int NS, class P>
+// triangle) test. ONE_ORIGIN: every lane has the same origin (A' with
+// point origins). Every thread of the block must call it.
+template <int NS, class P, bool ONE_ORIGIN = false>
 __device__ __forceinline__ void group_walk(
     WalkShared<NS, typename P::State>& sh, const float* __restrict__ sc_boxes,
     int c2p, int n_sc, const float* __restrict__ cl_boxes,
@@ -114,7 +131,7 @@ __device__ __forceinline__ void group_walk(
   const int chunks = (nlive + 31) / 32;
   for (int it = t; it < n_sc * chunks; it += K1) {
     const int chunk = it / n_sc, s = it - chunk * n_sc;
-    const uint32_t k = least_entry(
+    const uint32_t k = least_entry<ONE_ORIGIN>(
         sh, sh.live, chunk * 32, min(nlive, chunk * 32 + 32),
         __ldg(sc_boxes + 0 * c2p + s), __ldg(sc_boxes + 1 * c2p + s),
         __ldg(sc_boxes + 2 * c2p + s), __ldg(sc_boxes + 3 * c2p + s),
@@ -186,9 +203,9 @@ __device__ __forceinline__ void group_walk(
         sh.box[5][c] = hz;
       }
       if (lx <= hx) {                       // padding clusters: min > max
-        const uint32_t k = least_entry(sh, sh.pass, h * half,
-                                       min(npass, h * half + half), lx, ly,
-                                       lz, hx, hy, hz);
+        const uint32_t k = least_entry<ONE_ORIGIN>(
+            sh, sh.pass, h * half, min(npass, h * half + half), lx, ly, lz,
+            hx, hy, hz);
         if (k != NO_KEY) atomicMin(&sh.cl_key[c], k);
       }
     }
@@ -242,5 +259,37 @@ __device__ __forceinline__ void group_walk(
     __syncthreads();                       // the last sweep's commits
   }
 }
+
+// The any-hit policy of kernels A' (NS = 1) and B: a lane's far bound is
+// its segment's end until a blocker is found, then 0 (it wants nothing
+// more). The answer is whether any gated cluster holds a blocker, so
+// the visit order cannot change it.
+struct Occl {
+  typedef unsigned char State;           // 1: blocked
+
+  template <int NS>
+  static __device__ __forceinline__ float far(
+      const WalkShared<NS, unsigned char>& sh, int j) {
+    return sh.state[j] ? 0.0f : sh.org[j].w;
+  }
+
+  template <int NS>
+  static __device__ __forceinline__ void pair(
+      WalkShared<NS, unsigned char>& sh, int j, float4 q0, float4 q1,
+      float4 q2, int) {
+    const float4 o = sh.org[j], d = sh.dir[j];
+    Ray r;
+    r.ox = o.x;
+    r.oy = o.y;
+    r.oz = o.z;
+    r.dx = d.x;
+    r.dy = d.y;
+    r.dz = d.z;
+    if (occludes(mt_values(r, q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w,
+                           q2.x),
+                 o.w))
+      sh.state[j] = 1;
+  }
+};
 
 }  // namespace vkrt

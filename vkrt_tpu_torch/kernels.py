@@ -11,7 +11,7 @@ without nvcc.
 Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
 occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G);
 headers common.cuh (shared by A, A', B and G) and walk.cuh (the
-front-to-back group walk of A and B).
+front-to-back group walk of A, A' and B).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product

@@ -58,7 +58,7 @@ def _check_tree(tree: ClusterTree, device) -> None:
 
 def _slab(o, inv, lo, hi, t_s):
     """Slab test of R rays (o, inv [3,R], far bound t_s [R]) against B
-    boxes (lo, hi [3,B]) → bool [R,B]; the kernels' `slab_hit`."""
+    boxes (lo, hi [3,B]) → bool [R,B]; the kernels' `slab`."""
     tn = tf = None
     for a in range(3):
         t0 = (lo[a][None, :] - o[a][:, None]) * inv[a][:, None]

@@ -82,7 +82,9 @@ def lane_sort(x, key, *, block: int):
 
     x f32[C,Nb,128], key i32[Nb,128] with values below 2**24 (larger keys
     are the caller's fault: the JAX package's f32 keys are exact only
-    below that). Returns (sorted f32[C,Nb,128], rank i32[Nb,128]): rank[j]
+    below that; kernel E, a radix sort of as many 8-bit passes as the
+    block's keys need, and the plain version agree on any int32 key).
+    Returns (sorted f32[C,Nb,128], rank i32[Nb,128]): rank[j]
     is the position in its block that lane j moved to, in ORIGINAL lane
     order — `lane_unsort` inverts with it. A CUDA tensor launches kernel E
     and counts it in `lane_sort.launches`; a CPU tensor runs
