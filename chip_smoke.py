@@ -4,7 +4,8 @@
 
 Phases; any failure raises and the run exits non-zero. They run in this
 order, except that 14-18 (which share the config-4 renderer) run between
-the profile after phase 9 and phase 10:
+the profile after phase 9 and phase 10, and 19-22 (the app surface, the
+golden gate, the reference backend and mip_lod) after phase 13:
   1. device   fail at once without CUDA; print the device report
   2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
@@ -105,6 +106,34 @@ the profile after phase 9 and phase 10:
               B at all four depths and C-F at depths 1-3, each vs its plain
               version on the inputs one 1080p frame gives it on the tree
               the accel update makes under rot_y(0.02); kernel ms per depth
+ 19. CLI       app/cli.main(["--config", "4", "--frames", "9", "--metrics",
+              "--output", png, "--checkpoint", json], scene=model) on the
+              card: the pipelined fly-through (3 frames in flight,
+              runtime.FrameScheduler) at 1920x1080; exactly A 2, B 2, C-F
+              1 launches a frame; its last frame bit-equal to
+              Renderer.render of the ninth camera, the checkpoint at frame
+              9; the FrameTimer summary (wall clock: device, u8 download
+              and host work); then 40 frames, whose steady wall ms/frame
+              (retirements 5-37) and Mrays/s are printed beside phase 7's
+              CUDA-event ms/frame
+ 19b. CLI raster  --raster --frames 1 at 1600x1200, msaa 8 (32 launches of
+              G): equal to Rasterizer.render_async of the start camera on
+              every pixel outside the FPS text
+ 20. golden   bench.py's gate: a 640x480 reference_config() f32 frame from
+              render_frame vs the native C++ oracle with its stability
+              mask (golden_metrics): rmse_stable, rmse_trimmed and
+              flip_frac each <= 1e-3; stable_frac printed beside 0.90
+              (the oracle's mask on the stand-in scene is below it
+              whatever tracer runs: PERF.md); the oracle's seconds; then
+              golden/harness.main(--oracle native, 160x120) must exit 0
+ 21. reference  the reference backend (LBVH built on the card, plain-PyTorch
+              traversal, no kernel launches) at 320x240, reference_config():
+              RMSE <= 1e-3 against the dense frame, ray counts within 0.1%;
+              the LBVH build ms and the frame's ms
+ 22. mip_lod  config 4 at 1080p with mip_lod (1 + 2 frames, their ms beside
+              phase 7's); ray_diff_lod and sample_material_trilinear on
+              one frame's depth-0 inputs, card vs CPU within rtol = atol =
+              1e-6
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path (phase 7 for A-F, phase 15 for A', phase
 12 for G), its largest error, its time per frame and the bound of that
@@ -113,13 +142,17 @@ work, and, as the last line, {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import itertools
 import json
 import sys
+import tempfile
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -129,9 +162,13 @@ from vkrt_tpu_torch import kernels, runtime
 from vkrt_tpu_torch.accel import clusters
 from vkrt_tpu_torch.accel.clusters import K1, K2
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
+from vkrt_tpu_torch.accel.lbvh import build_lbvh
+from vkrt_tpu_torch.app import cli
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.flythrough import camera_path
-from vkrt_tpu_torch.app.framebuffer import rmse
+from vkrt_tpu_torch.app.framebuffer import golden_metrics, rmse, to_unorm8
+from vkrt_tpu_torch.app.state import load_state
+from vkrt_tpu_torch.golden import harness
 from vkrt_tpu_torch.golden.cpu_tracer import render_golden
 from vkrt_tpu_torch.golden.raster_oracle import render_golden_raster
 from vkrt_tpu_torch.raster import edge
@@ -142,7 +179,7 @@ from vkrt_tpu_torch.rt.dense import (broadcast_points, gated_pairs,
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
 from vkrt_tpu_torch.scene import build_texture_heap
 from vkrt_tpu_torch.scene.procedural import procedural_model
-from vkrt_tpu_torch.shade import shading
+from vkrt_tpu_torch.shade import sampling, shading
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import engine, lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
@@ -170,6 +207,22 @@ REBUILD_RMSE = 1e-3      # config 5: full-rebuild f32 frame vs refit frame
 REBUILD_HIT_AGREE = 0.999  # ... and their camera-ray hit masks
 SAH_VS_HOST = 1.30       # device-SAH cluster area vs the host build's
 SAH_VS_MORTON = 0.8      # ... and vs the Morton order's
+CLI_FRAMES = 9           # phase 19: the pipelined fly-through (3 in flight)
+CLI_STEADY_FRAMES = 40   # ... and a longer one, read between its first 4
+                         # retirements (warm-up) and its last 3 (drain)
+OVERLAY_ROWS = slice(8, 22)   # raster CLI: rows of the FPS text (5x7 font,
+                              # scale 2, at y 8); its columns start at x 8
+GATE_RMSE = 1e-3         # golden gate (bench.py:150-160): rmse_stable,
+GATE_FLIP = 1e-3         # rmse_trimmed <= 1e-3, flip_frac <= 1e-3,
+GATE_STABLE = 0.90       # stable_frac >= 0.90 (printed: see phase 20)
+GATE_SIZE = (640, 480)   # phase 20's frame (bench.py::golden_check)
+HARNESS_SIZE = (160, 120)
+REF_SIZE = (320, 240)    # phase 21's frame
+REF_RMSE = 1e-3          # reference vs dense frame (test_backends.py:34)
+REF_RAY_TOL = 1e-3       # ... ray counts, relative (two tracers may part
+                         # on a boundary ray: tests/test_torch_engine.py)
+MIP_TOL = 1e-6           # mip_lod card vs CPU, rtol and atol
+                         # (tests/test_torch_mip.py)
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
 # kernel → wrapper whose `launches` counts its launches
@@ -1802,6 +1855,235 @@ def config5_gates(base: Renderer, cam: Camera, dev) -> dict:
     return out
 
 
+def zero_counts() -> None:
+    for f in COUNTED.values():
+        f.launches = 0
+
+
+def read_counts(label: str, want: dict) -> dict:
+    """The launch counts since zero_counts(); each kernel must have been
+    launched exactly want.get(k, 0) times."""
+    got = {k: f.launches for k, f in COUNTED.items()}
+    full = {k: want.get(k, 0) for k in COUNTED}
+    log(f"  {label}: launches {json.dumps(got)}")
+    if got != full:
+        raise AssertionError(f"{label}: expected launches {full}, got {got}")
+    return got
+
+
+def run_cli(main_fn, argv, model) -> tuple:
+    """main_fn(argv, scene=model) with its standard output and error
+    captured (the CLI's metrics JSON, its per-frame lines); returns (exit
+    code, stdout lines, stderr lines, wall s)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(argv, scene=model)
+    torch.cuda.synchronize()
+    return (rc, out.getvalue().strip().splitlines(),
+            err.getvalue().strip().splitlines(), time.perf_counter() - t0)
+
+
+def frame_walls(lines) -> list:
+    """The CLI's per-frame wall ms from its "frame i: X ms" lines."""
+    return [float(ln.split()[2][:-2]) for ln in lines
+            if ln.startswith("frame ")]
+
+
+def read_png(path) -> np.ndarray:
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def cli_rt(model, tmp: Path, event_ms: float, dev):
+    """Phase 19: the CLI's pipelined fly-through at config 4, 1920x1080,
+    on the card. Returns the synchronous Renderer it was checked with."""
+    png, ckpt = tmp / "cli_rt.png", tmp / "cli_rt.json"
+    argv = ["--config", "4", "--frames", str(CLI_FRAMES), "--metrics",
+            "--output", str(png), "--checkpoint", str(ckpt)]
+    zero_counts()
+    rc, lines, errs, wall_s = run_cli(cli.main, argv, model)
+    read_counts("CLI fly-through", {k: n * CLI_FRAMES for k, n in
+                                    dict(A=2, B=2, C=1, D=1, E=1,
+                                         F=1).items()})
+    summary = json.loads(lines[-1])
+    cfg = C.config4_flythrough()
+    cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
+                                 CLI_FRAMES))
+    sync = Renderer(model, cfg, dev, quantize=True)
+    want, rays = sync.render(cams[-1])
+    got = read_png(png)
+    _, ck_cam, ck_frame, _ = load_state(str(ckpt))
+    diff = int((got != want).any(axis=-1).sum())
+    log(f"  exit {rc}, {wall_s:.1f} s with setup; FrameTimer (wall clock "
+        f"between retired frames: device, u8 download and host work): "
+        f"{json.dumps(summary)}; per frame {frame_walls(errs)}")
+    log(f"  last frame vs Renderer.render of camera {CLI_FRAMES - 1}: "
+        f"{diff} pixels differ, rays {rays} (per frame in the CLI: "
+        f"{summary['total_rays'] / summary['frames']:.0f}); checkpoint "
+        f"frame {ck_frame}")
+    if rc != 0 or diff or ck_frame != CLI_FRAMES or summary["frames"] != \
+            CLI_FRAMES or summary["total_rays"] <= 0 or not np.array_equal(
+                ck_cam.view_matrix, cams[-1].view_matrix):
+        raise AssertionError("CLI fly-through failed its checks")
+    argv = ["--config", "4", "--frames", str(CLI_STEADY_FRAMES), "--metrics"]
+    rc, lines, errs, wall_s = run_cli(cli.main, argv, model)
+    walls = frame_walls(errs)
+    steady = walls[4:-3]
+    rays = json.loads(lines[-1])["total_rays"] / len(walls)
+    log(f"  {CLI_STEADY_FRAMES} frames: exit {rc}, {wall_s:.1f} s with "
+        f"setup; FrameTimer {lines[-1]}; steady (retirements 5 to "
+        f"{len(walls) - 3}): {np.mean(steady):.3f} ms a frame (wall), "
+        f"{rays / np.mean(steady) / 1e3:.1f} Mrays/s; phase 7's CUDA-event "
+        f"frame {event_ms:.3f} ms")
+    if rc != 0 or len(walls) != CLI_STEADY_FRAMES:
+        raise AssertionError("CLI steady fly-through failed")
+    return sync
+
+
+def cli_raster(model, rast, tmp: Path) -> None:
+    """Phase 19b: the CLI's raster path, one frame at 1600x1200, MSAA 8:
+    equal to Rasterizer.render_async of the start camera outside the FPS
+    text (its pixels change with the measured rate)."""
+    png = tmp / "cli_raster.png"
+    zero_counts()
+    rc, _, _, wall_s = run_cli(cli.main, ["--raster", "--frames", "1",
+                                          "--output", str(png)], model)
+    read_counts("CLI raster", {"G": 32})
+    cfg = rast.cfg
+    want = to_unorm8(rast.render_async(
+        start_camera(cfg.width, cfg.height)).cpu().numpy())
+    got = read_png(png)
+    keep = np.ones((cfg.height, cfg.width), bool)
+    keep[OVERLAY_ROWS, 8:] = False
+    diff = int((got != want).any(axis=-1)[keep].sum())
+    text = int((got != want).any(axis=-1)[~keep].sum())
+    log(f"  exit {rc}, {wall_s:.1f} s with setup; {diff} pixels differ "
+        f"outside the FPS text, {text} inside it")
+    if rc != 0 or diff or got.shape != want.shape:
+        raise AssertionError("CLI raster frame differs from render_async")
+
+
+def golden_gate(model, sync, dev) -> dict:
+    """Phase 20: bench.py's golden gate on the card: a 640x480
+    reference_config() f32 frame through render_frame against the native
+    oracle with its stability mask."""
+    cfg = dataclasses.replace(C.reference_config(), width=GATE_SIZE[0],
+                              height=GATE_SIZE[1])
+    cam = start_camera(cfg.width, cfg.height)
+    zero_counts()
+    fb, _ = engine.render_frame(
+        sync.backend, sync.tex, engine.upload_matrix(cam.proj_inverse, dev),
+        engine.upload_matrix(cam.view_inverse, dev), sync.lights, cfg)
+    fb = fb.cpu().numpy()
+    read_counts("golden frame", dict(A=2, B=2, C=1, D=1, E=1, F=1))
+    t0 = time.perf_counter()
+    golden, stable = render_golden(
+        sync.flat, build_texture_heap(model.images), cam.proj_inverse,
+        cam.view_inverse, cfg, accel="native", with_stable=True)
+    oracle_s = time.perf_counter() - t0
+    m = golden_metrics(fb, golden, stable=stable)
+    log(f"  native oracle {oracle_s:.2f} s; " + json.dumps(m))
+    log(f"  bars: rmse_stable {m['rmse_stable']:.3e} <= {GATE_RMSE}, "
+        f"rmse_trimmed {m['rmse_trimmed']:.3e} <= {GATE_RMSE}, flip_frac "
+        f"{m['flip_frac']:.3e} <= {GATE_FLIP}; stable_frac "
+        f"{m['stable_frac']:.4f} beside {GATE_STABLE} (the oracle's own "
+        f"mask on this stand-in scene, whatever tracer runs: printed, "
+        f"not a gate)")
+    if not (np.isfinite(fb).all() and fb.shape == (cfg.height, cfg.width, 3)
+            and m["rmse_stable"] <= GATE_RMSE
+            and m["rmse_trimmed"] <= GATE_RMSE
+            and m["flip_frac"] <= GATE_FLIP):
+        raise AssertionError(f"golden gate failed: {m}")
+    argv = ["--oracle", "native", "--width", str(HARNESS_SIZE[0]),
+            "--height", str(HARNESS_SIZE[1])]
+    zero_counts()
+    rc, lines, _, wall_s = run_cli(harness.main, argv, model)
+    read_counts("harness", dict(A=2, B=2, C=1, D=1, E=1, F=1))
+    log(f"  harness {' '.join(argv)}: exit {rc}, {wall_s:.1f} s with "
+        f"setup: {lines[-1]}")
+    if rc != 0:
+        raise AssertionError("golden harness failed")
+    return {**m, "oracle_s": oracle_s}
+
+
+def reference_backend(sync, dev) -> None:
+    """Phase 21: the reference backend (LBVH, plain-PyTorch traversal)
+    at 320x240, reference_config(), against the dense frame."""
+    cfg = dataclasses.replace(C.reference_config(), width=REF_SIZE[0],
+                              height=REF_SIZE[1])
+    cam = start_camera(cfg.width, cfg.height)
+    geometry = sync.rebuild_inputs()[0]
+    build_ms = cuda_ms(lambda: build_lbvh(*geometry), reps=3)
+    zero_counts()
+    t0 = time.perf_counter()
+    ref = engine.make_backend(sync.flat, "reference", dev)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    args = (sync.tex, engine.upload_matrix(cam.proj_inverse, dev),
+            engine.upload_matrix(cam.view_inverse, dev), sync.lights, cfg)
+    t0 = time.perf_counter()
+    fb, rays = engine.render_frame(ref, *args)
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    read_counts("reference backend (plain PyTorch)", {})
+    want, want_rays = engine.render_frame(sync.backend, *args)
+    fb, want = fb.cpu().numpy(), want.cpu().numpy()
+    rays, want_rays = int(rays.sum()), int(want_rays.sum())
+    err = rmse(fb, want)
+    log(f"  LBVH build {build_ms:.2f} ms (CUDA events, mean of 3), "
+        f"make_backend {make_s:.2f} s; frame {frame_s * 1e3:.1f} ms (host "
+        f"clock: one host wait per traversal step); rmse vs dense "
+        f"{err:.3e} (bar {REF_RMSE}); rays {rays} vs {want_rays} (bar "
+        f"{REF_RAY_TOL} relative)")
+    if not (np.isfinite(fb).all() and err <= REF_RMSE
+            and abs(rays - want_rays) <= REF_RAY_TOL * want_rays):
+        raise AssertionError("reference backend vs dense failed")
+
+
+def mip_lod(sync, cams, event_ms: float, dev) -> None:
+    """Phase 22: config 4 at 1080p with mip_lod; then ray_diff_lod and
+    sample_material_trilinear on that frame's depth-0 inputs, on the
+    card against the same calls on the CPU."""
+    mr = copy.copy(sync)
+    mr.cfg = dataclasses.replace(sync.cfg, mip_lod=True)
+    res, outs = drive(mr, cams[:3], dict(A=2, B=2, C=1, D=1, E=1, F=1),
+                      "mip_lod")
+    log(f"  ms/frame: mip_lod {res['frame_ms']:.3f}, default (phase 7) "
+        f"{event_ms:.3f}")
+    del outs
+    cam = start_camera(mr.cfg.width, mr.cfg.height)
+    opt, dirs, valid = camera_ray_blocks(
+        engine.upload_matrix(cam.proj_inverse, dev),
+        engine.upload_matrix(cam.view_inverse, dev), mr.cfg)
+    o = opt[:, None, None].expand(dirs.shape).contiguous()
+    tmax = torch.where(valid, C.RAY_TMAX, 0.0)
+    _, u, v, attrs, hitm = mr.backend.closest(o, dirs, tmax)
+    _, _, uv, _, mat = shading.interpolate(attrs, u, v)
+    hit, mat = hitm & valid, mat[0]
+    tex = mr.tex
+    cpu = [x.cpu() for x in (uv, hit, mat, tex.level_width,
+                             tex.level_height)]
+    lod = sampling.ray_diff_lod(uv, hit, mat, tex.level_width,
+                                tex.level_height, mat)
+    lod_cpu = sampling.ray_diff_lod(*cpu, cpu[2])
+    tri = sampling.sample_material_trilinear(*tex, mat, uv, lod)
+    tri_cpu = sampling.sample_material_trilinear(
+        *(x.cpu() for x in tex), cpu[2], cpu[0], lod.cpu())
+    errs = [float((lod.cpu() - lod_cpu).abs().max())] + [
+        float((a.cpu() - b).abs().max()) for a, b in zip(tri, tri_cpu)]
+    log(f"  depth-0 inputs: lod max {float(lod.max()):.3f}, mean "
+        f"{float(lod[hit].mean()):.3f}; card vs CPU max |diff| lod "
+        f"{errs[0]:.2e}, base/mr/normal {errs[1]:.2e} / {errs[2]:.2e} / "
+        f"{errs[3]:.2e} (rtol = atol = {MIP_TOL})")
+    np.testing.assert_allclose(lod.cpu().numpy(), lod_cpu.numpy(),
+                               rtol=MIP_TOL, atol=MIP_TOL)
+    for a, b in zip(tri, tri_cpu):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=MIP_TOL,
+                                   atol=MIP_TOL)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1953,6 +2235,25 @@ def main() -> int:
 
     log("== 13. kernel G at the main path's shapes")
     res_13 = raster_shapes(rast, rcams[0])
+
+    t_new = time.perf_counter()
+    out_dir = kernels.BUILD_ROOT / "smoke"       # gitignored, in the checkout
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        log(f"== 19. CLI: config 4 fly-through, {CLI_FRAMES} frames at "
+            "1920x1080, 3 in flight")
+        sync = cli_rt(model, Path(tmp), res_main["frame_ms"], dev)
+        log("== 19b. CLI: raster, one frame at 1600x1200, msaa 8")
+        cli_raster(model, rast, Path(tmp))
+    del rast
+    log("== 20. golden gate: 640x480 reference frame vs the native oracle")
+    golden_gate(model, sync, dev)
+    log("== 21. reference backend at 320x240 vs dense")
+    reference_backend(sync, dev)
+    log("== 22. mip_lod at config 4, 1920x1080")
+    mip_lod(sync, cams, res_main["frame_ms"], dev)
+    del sync
+    log(f"  phases 19-22: {time.perf_counter() - t_new:.1f} s")
 
     def entry(name, k, src, replaces):
         rows = res_9[k]

@@ -1,6 +1,7 @@
-"""Kernels A-G and A' on the card vs their plain PyTorch versions, and
-the per-frame accel update (refit, device SAH and Morton rebuilds) on the
-card vs the CPU.
+"""Kernels A-G and A' on the card vs their plain PyTorch versions, the
+per-frame accel update (refit, device SAH and Morton rebuilds) on the
+card vs the CPU, and the app surface on the card: FrameScheduler on CUDA
+events, the CLI's fly-through, the reference backend (LBVH) vs dense.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
@@ -21,7 +22,10 @@ import torch
 from chip_smoke import (adversarial_keys, duplicate_triangle, tie_slots,
                         tie_tree)
 from vkrt_tpu_torch import config as C
+from vkrt_tpu_torch.accel.lbvh import build_lbvh
+from vkrt_tpu_torch.app import cli
 from vkrt_tpu_torch.app.camera import Camera
+from vkrt_tpu_torch.app.flythrough import camera_path
 from vkrt_tpu_torch.app.framebuffer import rmse
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster.pipeline import MSAA8, Rasterizer, sample_pixel_lanes
@@ -32,6 +36,7 @@ from vkrt_tpu_torch.rt.dense import (broadcast_points, trace_dense,
                                      trace_occluded_plain)
 from vkrt_tpu_torch.rt.occl_multi import (MAX_SETS, occluded_multi,
                                           occluded_multi_plain)
+from vkrt_tpu_torch.runtime import FrameScheduler
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
@@ -623,3 +628,68 @@ def test_config5_frame_on_card_matches_cpu(renderer, mode):
     assert np.isfinite(fb).all()
     assert rmse(fb, want) <= 1e-3
     assert abs(rays - want_rays) <= 1e-3 * want_rays
+
+
+def test_frame_scheduler_on_events(card):
+    """FrameScheduler on the card: submitting frames behind a busy
+    stream does not wait for them; each retires once, in order, with
+    its own values, as numpy arrays."""
+    def frame(i):
+        torch.cuda._sleep(2_000_000)             # ~1 ms of device work
+        return (torch.full((4, 4), float(i), device=card),
+                torch.full((), 2 * i, dtype=torch.int64, device=card))
+
+    warm = FrameScheduler(inflight=2)            # pinned host blocks cached
+    for i in range(6):
+        warm.submit(frame, i)
+    del warm
+    sched = FrameScheduler(inflight=2)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)               # ~100 ms: the stream busy
+    retired = [sched.submit(frame, i) for i in range(2)]
+    assert retired == [None, None]
+    started = torch.cuda.Event()
+    started.record()
+    assert not started.query()          # submits returned before the work
+    for i in range(2, 6):
+        retired.append(sched.submit(frame, i))
+    retired = retired[2:] + list(sched.drain())
+    assert [idx for idx, _ in retired] == list(range(6))
+    for idx, (fb, rays) in retired:
+        assert isinstance(fb, np.ndarray) and (fb == idx).all()
+        assert int(rays) == 2 * idx
+
+
+def test_cli_flythrough_on_card(renderer, tmp_path):
+    """The CLI's pipelined 64x48 config-1 fly-through on the card: its
+    last frame equals the synchronous render of the same camera."""
+    from PIL import Image
+
+    out = tmp_path / "fly.png"
+    assert cli.main(["--config", "1", "--width", "64", "--height", "48",
+                     "--frames", "3", "--output", str(out)],
+                    scene=renderer.model) == 0
+    cfg = dataclasses.replace(C.config1_primary(), width=64, height=48)
+    cam = list(camera_path(64, 48))[2]
+    want, _ = Renderer(renderer.model, cfg, renderer.device,
+                       quantize=True).render(cam)
+    with Image.open(out) as im:
+        np.testing.assert_array_equal(np.asarray(im), want)
+
+
+def test_reference_backend_on_card(renderer, card):
+    """The LBVH built on the card equals the CPU build; the reference
+    backend's 64x48 config-4 frame on the card is within RMSE 1e-3 of
+    the dense frame, with equal ray counts."""
+    tris = [x.cpu() for x in renderer.rebuild_inputs()[0]]
+    want = build_lbvh(*tris)
+    got = build_lbvh(*(x.to(card) for x in tris))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    cfg = small_config()
+    cam = start_camera()
+    fb, rays = Renderer(renderer.model, cfg, card,
+                        backend="reference").render(cam)
+    dense, dense_rays = Renderer(renderer.model, cfg, card).render(cam)
+    assert np.isfinite(fb).all() and rmse(fb, dense) <= 1e-3
+    assert rays == dense_rays

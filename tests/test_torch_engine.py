@@ -187,13 +187,15 @@ def test_unported_flag_raises(scene, flag):
 
 def test_shipped_defaults_accepted_and_unported_flags_raise():
     """RenderConfig's shipped defaults (the depth>=1 reorder flags on) are
-    ported, and so is rebuild_per_frame (config 5); the six flags that
-    still need unported machinery raise."""
+    ported, and so are rebuild_per_frame (config 5) and mip_lod; the five
+    flags that still need unported machinery raise."""
     te.check_supported(C.config4_flythrough())
     te.check_supported(C.RenderConfig())
     te.check_supported(C.config5_stress())
+    te.check_supported(dataclasses.replace(C.config4_flythrough(),
+                                           mip_lod=True))
     assert not set(REORDER_FLAGS) & set(te._UNPORTED_FLAGS)
-    assert len(te._UNPORTED_FLAGS) == 6
+    assert len(te._UNPORTED_FLAGS) == 5
     for flag in te._UNPORTED_FLAGS:
         with pytest.raises(NotImplementedError, match=flag):
             te.check_supported(dataclasses.replace(C.config4_flythrough(),
@@ -201,6 +203,7 @@ def test_shipped_defaults_accepted_and_unported_flags_raise():
 
 
 def test_unported_backend_raises(scene):
+    """Both backends are ported; an unknown kind raises."""
     flat = scene[1]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        te.make_backend(flat, "reference", "cpu")
+    with pytest.raises(ValueError, match="backend 'bvh4'"):
+        te.make_backend(flat, "bvh4", "cpu")

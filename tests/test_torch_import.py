@@ -48,7 +48,9 @@ def test_port_imports_without_jax():
     n = int(proc.stdout.split()[0])
     assert n >= 15      # package, subpackages and modules
     for name in ("accel.refit", "accel.lbvh", "accel.device_sah",
-                 "accel.clusters", "rt.dense", "wavefront.engine"):
+                 "accel.clusters", "rt.dense", "wavefront.engine",
+                 "app.cli", "app.state", "app.metrics", "golden.harness",
+                 "native", "rt.traverse", "rt.intersect"):
         assert f"vkrt_tpu_torch.{name}" in proc.stdout.split(), name
 
 

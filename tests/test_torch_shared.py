@@ -32,6 +32,7 @@ from vkrt_tpu_torch.scene import flatten as tflat
 from vkrt_tpu_torch.scene import synth as tsynth
 from vkrt_tpu_torch.scene import textures as ttex
 from vkrt_tpu_torch.scene.procedural import procedural_model
+from test_torch_native import jax_native
 
 CONSTANTS = ("LIGHT_POSITIONS", "LIGHT_INTENSITY", "SHADOW_MULTIPLIER",
              "AMBIENT", "SKY_COLOR", "METALLIC_THRESHOLD", "REFLECT_SCALE",
@@ -144,7 +145,8 @@ def test_framebuffer_helpers_equal(rng):
 
 
 def test_golden_brute_render_equal(small):
-    """render_golden(accel="brute") at 32x16, config 4: the same frame."""
+    """render_golden(accel="brute") at 32x16, config 4: the same frame;
+    and accel="native" (each package's copy of the C++ tracer) too."""
     flat = tflat.flatten_model(small)
     heap = ttex.build_texture_heap(small.images)
     cam = tcam.Camera(32, 16)
@@ -158,9 +160,12 @@ def test_golden_brute_render_equal(small):
                                cam.view_inverse, jcfg, accel="brute")
     assert got.shape == (16, 32, 3) and np.isfinite(got).all()
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgold.render_golden(flat, heap, cam.proj_inverse, cam.view_inverse,
-                            tcfg, accel="native")
+    got = tgold.render_golden(flat, heap, cam.proj_inverse, cam.view_inverse,
+                              tcfg, accel="native")
+    jax_native()                     # its library built whole, first
+    want = jgold.render_golden(flat, heap, cam.proj_inverse,
+                               cam.view_inverse, jcfg, accel="native")
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("msaa", [1, 8])

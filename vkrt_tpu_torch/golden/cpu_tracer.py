@@ -162,24 +162,72 @@ def generate_camera_rays(width: int, height: int, proj_inverse: np.ndarray,
 # Full-frame render: the rgen bounce loop + rchit shading, vectorized
 # ---------------------------------------------------------------------------
 
+# Stability-margin defaults (native/tracer.cpp intersect_tri_margin):
+#   mu/mt  — base arithmetic slack of the intersection math itself
+#   deps   — relative direction error between two independent raygen
+#            implementations for PRIMARY rays and shadow directions
+#            (a few f32 ulps through normalize chains)
+#   oeps0  — world-space origin error of depth-0 shadow rays (the
+#            interpolated hit point; ~1e-5 on stability-certified hits)
+#   deps1  — direction error of depth>=1 rays: reflected directions go
+#            through a normal-map SAMPLE + TBN chain, so two correct
+#            tracers diverge by ~1e-4..1e-3 (measured on hardware:
+#            fixed 5e-7 margins left 9 reflection-path flips on
+#            certified pixels — tools/r4_margin_tune.py)
+#   oeps1  — origin error of depth>=1 rays / their shadow rays
+STABLE_MARGINS = dict(mu=2e-5, mt=1e-5, deps=5e-7, oeps0=1e-5,
+                      deps1=3e-4, oeps1=1e-4)
+
+
 def render_golden(flat: FlatScene, heap: TextureHeap, proj_inverse: np.ndarray,
                   view_inverse: np.ndarray, cfg: C.RenderConfig,
-                  accel: str = "brute"):
+                  accel: str = "brute", with_stable: bool = False,
+                  stable_margins: dict | None = None):
     """Render one frame; returns f32[H,W,3] linear color (unclamped).
 
     accel="brute" tests every ray against every triangle (the maximally
-    independent oracle). accel="native" (the C++ BVH tracer and its
-    stability mask) is not in this package: it raises NotImplementedError
-    (ROADMAP.md queue 1 item 11)."""
-    if accel != "brute":
-        raise NotImplementedError(
-            f"accel={accel!r}: only the brute-force oracle is in "
-            "vkrt_tpu_torch (the native C++ tracer is ROADMAP.md queue 1 "
-            "item 11)")
+    independent oracle); accel="native" routes intersection through the
+    C++ BVH tracer (vkrt_tpu_torch/native) — ~100x faster, still
+    independent of the device paths — for larger golden frames.
+
+    with_stable=True (native only) additionally returns a bool[H,W]
+    STABILITY mask: True where the oracle certifies that any correct f32
+    tracer must reproduce this pixel (no traced ray at any depth passes
+    within float-rounding margins of an acceptance boundary — triangle
+    edges, t windows, near-tie commits, the metallic-reflection
+    threshold). The golden gate demands raw-RMSE conformance on the
+    certified set; the excluded pixels are ORACLE-identified a priori,
+    never observed-diff trimming (see native/tracer.cpp "Stability
+    classification")."""
     idx = flat.indices.astype(np.int64)
     v0 = flat.positions[idx[:, 0]]
     e1 = flat.positions[idx[:, 1]] - v0
     e2 = flat.positions[idx[:, 2]] - v0
+
+    closest_fn, occluded_fn = closest_hit, occluded
+    if accel == "native":
+        from vkrt_tpu_torch.native import NativeBVH
+        bvh = NativeBVH(v0, e1, e2)
+        if with_stable:
+            sm = dict(STABLE_MARGINS)
+            sm.update(stable_margins or {})
+            closest_fn = lambda o, d, tmin, tmax, *_, deps=None, oeps=0.0: \
+                bvh.closest_stable(o, d, tmin, tmax, mu=sm["mu"],
+                                   mt=sm["mt"],
+                                   deps=sm["deps"] if deps is None else deps,
+                                   oeps=oeps)
+            occluded_fn = lambda o, d, tmin, tmax, *_, deps=None, oeps=0.0: \
+                bvh.occluded_stable(o, d, tmin, tmax, mu=sm["mu"],
+                                    mt=sm["mt"],
+                                    deps=sm["deps"] if deps is None else deps,
+                                    oeps=oeps)
+        else:
+            closest_fn = lambda o, d, tmin, tmax, *_: bvh.closest(o, d, tmin,
+                                                                  tmax)
+            occluded_fn = lambda o, d, tmin, tmax, *_: bvh.occluded(o, d,
+                                                                    tmin, tmax)
+    elif with_stable:
+        raise ValueError("with_stable requires accel='native'")
 
     origins, dirs = generate_camera_rays(cfg.width, cfg.height,
                                          proj_inverse, view_inverse)
@@ -187,15 +235,25 @@ def render_golden(flat: FlatScene, heap: TextureHeap, proj_inverse: np.ndarray,
     accum = np.zeros((n, 3), dtype=np.float32)
     attenuation = np.ones(n, dtype=np.float32)
     active = np.ones(n, dtype=bool)
+    stable_px = np.ones(n, dtype=bool)
     lights = C.LIGHT_POSITIONS[:cfg.num_lights]
 
-    for _ in range(cfg.max_depth):
+    for depth in range(cfg.max_depth):
         if not active.any():
             break
         ao = origins[active]
         ad = dirs[active]
-        t, tri, hu, hv = closest_hit(ao, ad, C.RAY_TMIN, C.RAY_TMAX,
-                                     v0, e1, e2)
+        if with_stable:
+            oe = 0.0 if depth == 0 else sm["oeps1"]
+            de = None if depth == 0 else sm["deps1"]
+            t, tri, hu, hv, c_stable = closest_fn(ao, ad, C.RAY_TMIN,
+                                                  C.RAY_TMAX, v0, e1, e2,
+                                                  deps=de, oeps=oe)
+            idxs = np.flatnonzero(active)
+            stable_px[idxs[~c_stable]] = False
+        else:
+            t, tri, hu, hv = closest_fn(ao, ad, C.RAY_TMIN, C.RAY_TMAX,
+                                        v0, e1, e2)
         hit = tri >= 0
 
         # --- miss: sky, ray done (ref: shader.rmiss:17 — note: sky is NOT
@@ -249,9 +307,20 @@ def render_golden(flat: FlatScene, heap: TextureHeap, proj_inverse: np.ndarray,
                     if cfg.enable_shadows:
                         cast = ndotl > 0
                         if cast.any():
-                            sh = occluded(pos[cast], ldir[cast],
-                                          C.RAY_TMIN, ldist[cast],
-                                          v0, e1, e2)
+                            if with_stable:
+                                sh, s_stable = occluded_fn(
+                                    pos[cast], ldir[cast], C.RAY_TMIN,
+                                    ldist[cast], v0, e1, e2,
+                                    oeps=sm["oeps0"] if depth == 0
+                                    else sm["oeps1"])
+                                act_i = np.flatnonzero(active)
+                                hit_i = act_i[hit]
+                                stable_px[hit_i[np.flatnonzero(cast)[
+                                    ~s_stable]]] = False
+                            else:
+                                sh = occluded_fn(pos[cast], ldir[cast],
+                                                 C.RAY_TMIN, ldist[cast],
+                                                 v0, e1, e2)
                             m = np.ones(cast.sum(), dtype=np.float32)
                             m[sh] = C.SHADOW_MULTIPLIER
                             mult[cast] = m
@@ -266,6 +335,13 @@ def render_golden(flat: FlatScene, heap: TextureHeap, proj_inverse: np.ndarray,
                 mr_ids = flat.tri_metallic_roughness[h_tri]
                 metallic = sample_texture(heap, mr_ids, uv)[:, 2]
                 reflective = cfg.enable_reflections & (metallic > C.METALLIC_THRESHOLD)
+                if with_stable and cfg.enable_reflections:
+                    # the metallic>threshold branch flips the whole pixel's
+                    # shading path; sampled metallic within 1e-3 of the
+                    # threshold is not certifiable across tracers
+                    marginal = np.abs(metallic - C.METALLIC_THRESHOLD) < 1e-3
+                    act_i = np.flatnonzero(active)
+                    stable_px[act_i[hit][marginal]] = False
                 new_att = att * (C.REFLECT_SCALE * metallic)
                 att_out = np.where(reflective, new_att, att)
                 hit_value = np.where(reflective[:, None],
@@ -292,4 +368,7 @@ def render_golden(flat: FlatScene, heap: TextureHeap, proj_inverse: np.ndarray,
         new_active[np.flatnonzero(active)[still]] = True
         active = new_active
 
-    return accum.reshape(cfg.height, cfg.width, 3)
+    img = accum.reshape(cfg.height, cfg.width, 3)
+    if with_stable:
+        return img, stable_px.reshape(cfg.height, cfg.width)
+    return img

@@ -192,18 +192,24 @@ class Rasterizer(engine.SceneOnDevice):
     caller asks for the CPU), render() draws a frame with the FPS overlay
     of the raster path (ref: Rasterizer.cpp:151-161).
 
-    method "edge" (what "auto" picks) runs the edge-function rasterizer
-    (kernel G); "wavefront" the ray-cast equivalent (kernel A)."""
+    method "edge" (what "auto" picks on the dense backend) runs the
+    edge-function rasterizer (kernel G); "wavefront" (what "auto" picks
+    on the reference backend) the ray-cast equivalent through the
+    backend's closest-hit trace."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
-                 msaa: int = 8, method: str = "auto"):
+                 msaa: int = 8, method: str = "auto", backend: str = "dense",
+                 max_texture_dim: int = 0):
         sample_offsets(msaa)                       # raises on a bad msaa
         if method == "auto":
-            method = "edge"
+            method = "edge" if backend == "dense" else "wavefront"
         if method not in ("edge", "wavefront"):
             raise ValueError(f"method must be 'auto', 'edge' or "
                              f"'wavefront', got {method!r}")
-        super().__init__(scene, cfg, device)
+        if method == "edge" and backend != "dense":
+            raise ValueError("the edge rasterizer needs the dense backend's "
+                             "cluster tree")
+        super().__init__(scene, cfg, device, backend, max_texture_dim)
         self.msaa = msaa
         self.method = method
 

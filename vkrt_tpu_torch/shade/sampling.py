@@ -1,29 +1,30 @@
 """Material sampling — counterpart of vkrt_tpu/shade/sampling.py.
 
-Bilinear, repeat-wrapped, level-0 samples of a material slot's three maps
+Bilinear, repeat-wrapped samples of a material slot's three maps
 (base color, metallic-roughness, normal) from the packed 48-byte material
 heap (vkrt_tpu/scene/textures.py build_material_heap): one gather per ray.
 Lane-major interface: slot_ids [Nb,128], uv [2,Nb,128] → three
-rgba [4,Nb,128]. The trilinear mip-LOD variant (config.mip_lod) is not
-ported (ROADMAP.md queue 1 item 4), so every sample reads level LOD.
+rgba [4,Nb,128]. The trilinear mip-LOD variant (config.mip_lod) blends
+two such samples at per-ray levels from lane-neighbour differentials.
 """
 
 from __future__ import annotations
 
 import torch
 
-LOD = 0
-
 
 def sample_material(texels_tri, level_offset, level_width, level_height,
-                    slot_ids, uv):
-    """Returns (base, mr, normal) each [4,Nb,128]. Texel indices wrap with
-    a floor modulo (`torch.remainder`, as jnp.mod), so negative uvs
+                    slot_ids, uv, lod=0):
+    """Returns (base, mr, normal) each [4,Nb,128] at mip level `lod`, an
+    int or a per-ray integer tensor [Nb,128]. Texel indices wrap with a
+    floor modulo (`torch.remainder`, as jnp.mod), so negative uvs
     repeat."""
     sid = slot_ids.long()
-    off = level_offset[sid, LOD]
-    w = level_width[sid, LOD]
-    h = level_height[sid, LOD]
+    if torch.is_tensor(lod):
+        lod = lod.long()
+    off = level_offset[sid, lod]
+    w = level_width[sid, lod]
+    h = level_height[sid, lod]
 
     x = uv[0] * w - 0.5
     y = uv[1] * h - 0.5
@@ -49,6 +50,62 @@ def sample_material(texels_tri, level_offset, level_width, level_height,
         return torch.movedim(rgba, -1, 0)
 
     return lerp(0), lerp(16), lerp(32)
+
+
+def sample_material_trilinear(texels_tri, level_offset, level_width,
+                              level_height, slot_ids, uv, lod_f):
+    """Per-ray mip LOD lod_f f32[Nb,128] (clamped to the chain): the two
+    bracketing levels sampled and blended linearly. Beyond parity: the
+    reference's ray-tracing stage always samples level 0, so this is off
+    by default (config.mip_lod) and never on in golden-gated paths."""
+    levels = level_offset.shape[1]
+    l0 = torch.clamp(torch.floor(lod_f).to(torch.int32), 0, levels - 1)
+    l1 = torch.clamp(l0 + 1, max=levels - 1)
+    f = torch.clamp(lod_f - l0.to(torch.float32), 0.0, 1.0)[None]
+    lo = sample_material(texels_tri, level_offset, level_width,
+                         level_height, slot_ids, uv, lod=l0)
+    hi = sample_material(texels_tri, level_offset, level_width,
+                         level_height, slot_ids, uv, lod=l1)
+    return tuple(a * (1.0 - f) + b * f for a, b in zip(lo, hi))
+
+
+def ray_diff_lod(uv, hit, mat_ids, level_width, level_height, slot_ids):
+    """Screen-space mip LOD f32[Nb,128] from lane-neighbour differentials.
+
+    A 128-lane group is one 8x16-pixel subtile (wavefront.engine.tile),
+    so the +x neighbour is lane+1 and the +y neighbour lane+16: uv
+    differences across lanes stand in for fragment derivatives. lod =
+    log2 of the larger texel footprint (the GL rho formula); a
+    difference across a surface boundary (another material, or a miss)
+    counts as one texel, so edges stay sharp."""
+    sid = slot_ids.long()
+    w0 = level_width[sid, 0].to(torch.float32)
+    h0 = level_height[sid, 0].to(torch.float32)
+    lane = torch.arange(uv.shape[-1], dtype=torch.int32, device=uv.device)
+
+    def diff(a, shift, use_fwd):
+        # backward difference, except at the subtile's wrap lanes (lane
+        # 0's +1-roll neighbour is lane 127, 8 pixel rows away), where
+        # the forward difference is the in-subtile neighbour
+        back = a - torch.roll(a, shift, dims=-1)
+        fwd = torch.roll(a, -shift, dims=-1) - a
+        return torch.where(use_fwd, fwd, back)
+
+    def nbr_ok(shift, use_fwd):
+        def ok(s):
+            return (hit & torch.roll(hit, s, dims=-1)
+                    & (mat_ids == torch.roll(mat_ids, s, dims=-1)))
+        return torch.where(use_fwd, ok(-shift), ok(shift))
+
+    fwd_x = (lane % 16) == 0
+    fwd_y = lane < 16
+    dx = [diff(uv[0], 1, fwd_x) * w0, diff(uv[1], 1, fwd_x) * h0]
+    dy = [diff(uv[0], 16, fwd_y) * w0, diff(uv[1], 16, fwd_y) * h0]
+    rho_x = torch.sqrt(dx[0] * dx[0] + dx[1] * dx[1])
+    rho_y = torch.sqrt(dy[0] * dy[0] + dy[1] * dy[1])
+    rho = torch.maximum(torch.where(nbr_ok(1, fwd_x), rho_x, 1.0),
+                        torch.where(nbr_ok(16, fwd_y), rho_y, 1.0))
+    return torch.clamp(torch.log2(torch.clamp(rho, min=1.0)), min=0.0)
 
 
 def sample_material_compact(texels_tri, level_offset, level_width,

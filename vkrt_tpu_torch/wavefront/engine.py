@@ -23,9 +23,13 @@ segments with kernel A' instead of B, to the same masks.
 .rebuild_per_frame, or a `transform` per frame): a refit of the tree's
 boxes, or a full device rebuild (SAH or Morton order).
 
-Only the dense backend is ported. RenderConfig flags that need machinery
-not yet ported raise NotImplementedError naming the ROADMAP.md item;
-none is silently ignored.
+Two trace backends, as in the JAX package: "dense" (the cluster tree and
+kernels A, A', B) and "reference" (an LBVH and its plain-PyTorch
+traversal, rt/traverse.py: slow, independent of the kernels). With
+`mip_lod` the depth-0 samples are trilinear at a per-ray level from
+lane-neighbour differentials. RenderConfig flags that need machinery not
+ported raise NotImplementedError naming the ROADMAP.md item; none is
+silently ignored.
 """
 
 from __future__ import annotations
@@ -40,14 +44,17 @@ from torch.profiler import record_function
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import runtime
 from vkrt_tpu_torch.accel.clusters import build_clusters, scene_attrs
+from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.accel.refit import refit_clusters
+from vkrt_tpu_torch.rt import traverse
 from vkrt_tpu_torch.rt.dense import trace_dense
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi
 from vkrt_tpu_torch.scene import flatten_model, load_model
 from vkrt_tpu_torch.scene.textures import build_material_heap, material_slots
 from vkrt_tpu_torch.shade import shading
-from vkrt_tpu_torch.shade.sampling import (sample_material,
-                                           sample_material_compact)
+from vkrt_tpu_torch.shade.sampling import (ray_diff_lod, sample_material,
+                                           sample_material_compact,
+                                           sample_material_trilinear)
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import lanesort, pack, resort
 
@@ -56,7 +63,6 @@ PIXEL_CENTER = (0.5, 0.5)         # sample offset inside each pixel
 
 # flag → the ROADMAP.md item that ports it (checked before any frame)
 _UNPORTED_FLAGS = {
-    "mip_lod": "queue 1 item 4 (trilinear sampling, ray_diff_lod)",
     "resort_secondary": "queue 1 item 13 (not ported this round)",
     "recheck_secondary": "queue 1 item 13 (not ported this round)",
     "partition_closest": "queue 1 item 13 (not ported this round)",
@@ -210,21 +216,64 @@ class DenseBackend(NamedTuple):
         return occluded_multi(self.tree, light_pts, sd, st)
 
 
-def make_backend(flat, kind: str, device) -> DenseBackend:
-    """Build a trace backend from a FlatScene on `device`."""
-    if kind != "dense":
-        raise NotImplementedError(
-            f"backend {kind!r} is not ported (ROADMAP.md queue 1 item 10); "
-            "only 'dense' is")
+class ReferenceBackend(NamedTuple):
+    """LBVH traced by rt/traverse.py (plain PyTorch) and a per-triangle
+    attribute table gathered after the trace: the JAX package's XLA
+    reference backend. Shadows trace each light's segments from the
+    light, one traversal per light."""
+    bvh: object                # BVH2
+    attr_table: torch.Tensor   # f32[T,36], original triangle order
+    scene_aabb: torch.Tensor   # f32[2,3], as DenseBackend's
+
+    def closest(self, o, d, tmax):
+        t, tri, u, v = traverse.trace_closest(
+            self.bvh, L.from_cvec(o), L.from_cvec(d), C.RAY_TMIN,
+            L.from_lanes(tmax))
+        attrs = self.attr_table[torch.clamp(tri, min=0).long()]   # [N,36]
+        attrs = torch.movedim(attrs.reshape(-1, L.LANES, 36), -1, 0)
+        return (L.to_lanes(t), L.to_lanes(u), L.to_lanes(v), attrs,
+                L.to_lanes(tri >= 0))
+
+    def occluded(self, o, d, tmax):
+        return L.to_lanes(traverse.trace_occluded(
+            self.bvh, L.from_cvec(o), L.from_cvec(d), C.RAY_TMIN,
+            L.from_lanes(tmax)))
+
+    def occluded_multi(self, light_pts, sd, st, block=BLOCK):
+        return torch.stack([
+            self.occluded(light_pts[s][:, None, None].expand(sd[s].shape),
+                          sd[s], st[s])
+            for s in range(light_pts.shape[0])])
+
+
+BACKENDS = ("dense", "reference")
+
+
+def make_backend(flat, kind: str, device):
+    """Build a trace backend ("dense" or "reference") from a FlatScene
+    on `device`."""
+    if kind not in BACKENDS:
+        raise ValueError(f"backend {kind!r} not in {BACKENDS}")
     idx = np.asarray(flat.indices, dtype=np.int64)
     v0 = flat.positions[idx[:, 0]]
     e1 = flat.positions[idx[:, 1]] - v0
     e2 = flat.positions[idx[:, 2]] - v0
-    tree = build_clusters(v0, e1, e2, attrs=scene_attrs(flat),
-                          with_attributes=True, device=device)
     pos = np.asarray(flat.positions, dtype=np.float32)
     aabb = torch.from_numpy(np.stack([pos.min(axis=0), pos.max(axis=0)]))
-    return DenseBackend(tree=tree, scene_aabb=aabb.to(device))
+    attrs = scene_attrs(flat)
+    if kind == "dense":
+        tree = build_clusters(v0, e1, e2, attrs=attrs, with_attributes=True,
+                              device=device)
+        return DenseBackend(tree=tree, scene_aabb=aabb.to(device))
+
+    def put(x):
+        return torch.from_numpy(np.array(x, np.float32)).to(device)
+
+    table = np.concatenate([v0, e1, e2] + [attrs[k] for k in (
+        "n0", "n1", "n2", "uv0", "uv1", "uv2", "t0", "t1", "t2", "mat")],
+        axis=1)
+    return ReferenceBackend(bvh=build_lbvh(put(v0), put(e1), put(e2)),
+                            attr_table=put(table), scene_aabb=aabb.to(device))
 
 
 def render_frame(backend, tex: TextureArrays, proj_inverse, view_inverse,
@@ -298,7 +347,15 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
 
         pos, normal, uv, tangent, mat_ids = shading.interpolate(attrs, u, v)
         with record_function(f"sample_d{depth}"):
-            if depth == 0:
+            if depth == 0 and cfg.mip_lod:
+                # beyond parity: trilinear at a per-ray level from
+                # lane-neighbour differentials (config.mip_lod)
+                lod = ray_diff_lod(uv, hit, mat_ids[0], tex.level_width,
+                                   tex.level_height, mat_ids[0])
+                base4, mr4, nmap4 = sample_material_trilinear(
+                    tex.texels_tri, tex.level_offset, tex.level_width,
+                    tex.level_height, mat_ids[0], uv, lod)
+            elif depth == 0:
                 base4, mr4, nmap4 = sample_material(
                     tex.texels_tri, tex.level_offset, tex.level_width,
                     tex.level_height, mat_ids[0], uv)
@@ -379,10 +436,13 @@ def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
     `partition_points` and `unpartition` (pack first when
     consolidate_secondary is on); otherwise the group sort
     (group_sort_shadows) and the pack of all 16 segment channels
-    (consolidate_secondary), each optional."""
+    (consolidate_secondary), each optional. Partition and pack serve the
+    dense kernels only: the reference backend gets the group sort alone
+    (vkrt_tpu/wavefront/engine.py:550-587)."""
     nl = len(casts)
     oblk = _occl_block(pos.shape[1] * L.LANES)
-    if cfg.partition_shadows and depth >= 1:
+    dense = not isinstance(backend, ReferenceBackend)
+    if cfg.partition_shadows and depth >= 1 and dense:
         castmask = casts[0].to(torch.float32)
         for s in range(1, nl):
             castmask = castmask + casts[s].to(torch.float32) * float(1 << s)
@@ -405,7 +465,7 @@ def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
     st = torch.stack([torch.where(c, g[1] - C.RAY_TMIN, 0.0)
                       for c, g in zip(casts, geo)])         # [L,Nb,128]
     gsort = cfg.group_sort_shadows and depth >= 1
-    cons = cfg.consolidate_secondary and depth >= 1
+    cons = cfg.consolidate_secondary and depth >= 1 and dense
     if gsort:
         gperm = resort.radix_partition_perm(
             resort.group_cell_key(pos, (st > 0).any(dim=0),
@@ -500,12 +560,15 @@ def upload_matrix(m, device):
 
 class SceneOnDevice:
     """What both renderers build from a scene: the flattened scene, the
-    material heap and the dense backend on `device`, with TF32 off.
+    material heap and the trace backend ("dense" or "reference") on
+    `device`, with TF32 off.
 
-    `scene` is a `vkrt_tpu_torch.scene.Model` or the path of a glTF file;
+    `scene` is a `vkrt_tpu_torch.scene.Model` or the path of a glTF file
+    (loaded with its textures cut to `max_texture_dim`, 0 = full size);
     `cfg` must be this package's RenderConfig."""
 
-    def __init__(self, scene, cfg: C.RenderConfig, device):
+    def __init__(self, scene, cfg: C.RenderConfig, device,
+                 backend: str = "dense", max_texture_dim: int = 0):
         if not isinstance(cfg, C.RenderConfig):
             raise TypeError(f"cfg must be vkrt_tpu_torch.config.RenderConfig,"
                             f" got {type(cfg).__module__}.{type(cfg).__name__}")
@@ -513,11 +576,12 @@ class SceneOnDevice:
         self.device = torch.device(device)
         runtime.exact_f32()
         if isinstance(scene, (str, os.PathLike)):
-            scene = load_model(os.fspath(scene))
+            scene = load_model(os.fspath(scene),
+                               max_texture_dim=max_texture_dim)
         self.model = scene
         self.flat = flatten_model(scene)
         self.tex = texture_arrays(scene.images, self.flat, self.device)
-        self.backend = make_backend(self.flat, "dense", self.device)
+        self.backend = make_backend(self.flat, backend, self.device)
 
 
 REBUILD_MODES = ("refit", "full", "full_morton")
@@ -535,15 +599,18 @@ class Renderer(SceneOnDevice):
     and refits its boxes (accel/refit.py), "full" re-orders the
     transformed triangles with the device SAH build and "full_morton"
     with a Morton sort (accel/clusters.build_clusters on device
-    tensors); `sah_opts` forwards to device_sah_order."""
+    tensors); `sah_opts` forwards to device_sah_order. The reference
+    backend has no accel update (as in the JAX package): an identity
+    update is skipped, any other transform raises ValueError."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
                  quantize: bool = False, rebuild: str = "refit",
-                 sah_opts: dict | None = None):
+                 sah_opts: dict | None = None, backend: str = "dense",
+                 max_texture_dim: int = 0):
         check_supported(cfg)
         if rebuild not in REBUILD_MODES:
             raise ValueError(f"rebuild {rebuild!r} not in {REBUILD_MODES}")
-        super().__init__(scene, cfg, device)
+        super().__init__(scene, cfg, device, backend, max_texture_dim)
         self.quantize = quantize    # u8 fb + scalar ray count on device
         self.rebuild = rebuild
         self.sah_opts = sah_opts
@@ -586,8 +653,15 @@ class Renderer(SceneOnDevice):
         if self.cfg.rebuild_per_frame or transform is not None:
             m = np.eye(4, dtype=np.float32) if transform is None \
                 else np.asarray(transform, np.float32)
-            with record_function("accel_update"):
-                backend = backend._replace(tree=self.update_tree(m))
+            if isinstance(backend, ReferenceBackend):
+                if not np.array_equal(m, np.eye(4, dtype=np.float32)):
+                    raise ValueError(
+                        "the reference backend has no accel update: a "
+                        "non-identity transform would render the unmoved "
+                        "scene")
+            else:
+                with record_function("accel_update"):
+                    backend = backend._replace(tree=self.update_tree(m))
         frame = render_frame_u8 if self.quantize else render_frame
         return frame(backend, self.tex,
                      upload_matrix(camera.proj_inverse, self.device),
