@@ -4,8 +4,9 @@
 
 Phases; any failure raises and the run exits non-zero. They run in this
 order, except that 14-18 (which share the config-4 renderer) run between
-the profile after phase 9 and phase 10, and 19-22 (the app surface, the
-golden gate, the reference backend and mip_lod) after phase 13:
+the profile after phase 9 and phase 10, and 19-23 (the app surface, the
+golden gate, the reference backend, mip_lod and the sharded frames) after
+phase 13:
   1. device   fail at once without CUDA; print the device report
   2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
@@ -134,6 +135,21 @@ golden gate, the reference backend and mip_lod) after phase 13:
               phase 7's); ray_diff_lod and sample_material_trilinear on
               one frame's depth-0 inputs, card vs CPU within rtol = atol =
               1e-6
+ 23. sharded  parallel/mesh.py on logical shards of the one card: config 4
+              at 1920x1080 through render_frame_sharded on make_mesh() (the
+              card) and on [card] * 2, 4, 7 (7 pads the 16,320 rows by 4),
+              1 + SHARD_FRAMES frames each: f32 frames and ray grids
+              torch.equal to render_frame's on the same cameras, launches A
+              2k, B 2k, C-F k a frame; per k the device ms a frame back to
+              back (CUDA events), the host's enqueue ms a frame
+              (perf_counter, no wait; again from an idle stream), the
+              device's busy ms a frame (torch.profiler) and peak memory,
+              beside the unsharded frame's; the raster frame at 1600x1200,
+              MSAA 8, on 1 and 4 shards bit-equal to
+              render_raster_frame_edge's (32k launches of G); the dry run
+              dryrun_multichip(4, "cuda"); the CLI's --shard (2 frames, last
+              frame equal to Renderer.render's) and --shard 2, which must
+              raise ValueError on one card
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path (phase 7 for A-F, phase 15 for A', phase
 12 for G), its largest error, its time per frame and the bound of that
@@ -171,6 +187,10 @@ from vkrt_tpu_torch.app.state import load_state
 from vkrt_tpu_torch.golden import harness
 from vkrt_tpu_torch.golden.cpu_tracer import render_golden
 from vkrt_tpu_torch.golden.raster_oracle import render_golden_raster
+from vkrt_tpu_torch.parallel.dryrun import dryrun_multichip
+from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
+                                          render_raster_frame_sharded,
+                                          replicate)
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster import pipeline as rp
 from vkrt_tpu_torch.rt.dense import (broadcast_points, gated_pairs,
@@ -223,6 +243,13 @@ REF_RAY_TOL = 1e-3       # ... ray counts, relative (two tracers may part
                          # on a boundary ray: tests/test_torch_engine.py)
 MIP_TOL = 1e-6           # mip_lod card vs CPU, rtol and atol
                          # (tests/test_torch_mip.py)
+SHARDS = (2, 4, 7)       # phase 23: logical shards of the one card, beside
+                         # make_mesh()'s one (7 pads 16,320 rows by 4)
+SHARD_FRAMES = 3         # ... timed frames after a warm-up frame
+RASTER_SHARDS = (1, 4)
+CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1)   # a config-4 frame
+SHARD_KEYS = ("device_ms", "host_enqueue_ms", "host_enqueue_ms_idle_stream",
+              "device_busy_ms", "peak_mem_gb")
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
 # kernel → wrapper whose `launches` counts its launches
@@ -1065,9 +1092,9 @@ CONFIG5_RANGES = ENGINE_RANGES + ("accel_update",)
 RASTER_RANGES = ("raster_setup", "raster_edge_s", "raster_sample")
 
 
-def profile_frames(renderer, cam: Camera, label: str,
-                   names=ENGINE_RANGES) -> dict:
-    """PROFILE_FRAMES frames of `renderer` (a Renderer or a Rasterizer)
+def profile_frames(render, label: str, names=ENGINE_RANGES) -> dict:
+    """PROFILE_FRAMES frames of `render()` (a Renderer's or a Rasterizer's
+    render_async of one camera, or a sharded frame) after a warm-up one,
     enqueued back to back under torch.profiler: device time per range
     whose name starts with one of `names` (record_function in
     wavefront/engine.py and raster/pipeline.py) and outside them, per
@@ -1076,13 +1103,13 @@ def profile_frames(renderer, cam: Camera, label: str,
     from torch.profiler import ProfilerActivity, profile
 
     n = PROFILE_FRAMES
-    renderer.render_async(cam)
+    render()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            renderer.render_async(cam)
+            render()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ev = prof.key_averages()
@@ -2084,6 +2111,162 @@ def mip_lod(sync, cams, event_ms: float, dev) -> None:
                                    atol=MIP_TOL)
 
 
+def time_frames(render, mats, label: str, per_frame: dict,
+                want=None) -> tuple:
+    """Phase 23: `render(m)` for the camera matrices m of each of `mats`,
+    the first as a warm-up, the rest enqueued back to back: the host's
+    enqueue ms of each call (perf_counter, no wait) and the device's ms
+    between CUDA events recorded after each, which the host's pace bounds
+    from below. The launch counts are zeroed before and read after:
+    per_frame[k] times the number of frames. Every (frame, ray grid) must
+    torch.equal want's (unless None). Then each frame once more from an
+    idle stream (the host's enqueue ms with the card's launch queue empty
+    at the start: a queue held full stops the host at its depth) and two
+    frames under torch.profiler (the device's busy ms a frame, alone).
+    Returns (results, outputs)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    outs = [render(mats[0])]
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in mats]
+    host = []
+    events[0].record()
+    for i, m in enumerate(mats[1:]):
+        t0 = time.perf_counter()
+        outs.append(render(m))
+        host.append((time.perf_counter() - t0) * 1e3)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    launches = read_counts(label, {k: n * len(mats)
+                                   for k, n in per_frame.items()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    differ = [] if want is None else [
+        (i, int((fb != w[0]).any(dim=-1).sum()), int((rays != w[1]).sum()))
+        for i, ((fb, rays), w) in enumerate(zip(outs, want))
+        if not (torch.equal(fb, w[0]) and torch.equal(rays, w[1]))]
+    idle = []
+    for m in mats[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(m)
+        idle.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    prof = profile_frames(lambda: render(mats[1]), label)
+    res = dict(frames=len(mats) - 1,
+               device_ms=float(np.mean([events[i].elapsed_time(
+                   events[i + 1]) for i in range(len(mats) - 1)])),
+               host_enqueue_ms=float(np.mean(host)),
+               host_enqueue_ms_each=host,
+               host_enqueue_ms_idle_stream=float(np.mean(idle)),
+               device_busy_ms=prof["device_busy_ms_per_frame"],
+               busy_share_profiled=prof["busy_share"],
+               peak_mem_gb=peak, launches=launches,
+               frames_equal=not differ)
+    log(f"  {label}:", json.dumps(res))
+    if differ:
+        raise AssertionError(f"{label}: (frame, pixels, rays) that differ "
+                             f"from the unsharded frames: {differ}")
+    return res, outs
+
+
+def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
+    """Phase 23: multi-device rendering (parallel/mesh.py) on logical
+    shards of the one card. Config 4 at 1920x1080 through
+    render_frame_sharded on make_mesh() and on [card] * k, frames and ray
+    grids bit-equal to render_frame's on the same cameras; the raster
+    frame at 1600x1200, MSAA 8, sharded, bit-equal to
+    render_raster_frame_edge's; the dry run; the CLI's --shard."""
+    cfg = sync.cfg
+    mats = [(engine.upload_matrix(c.proj_inverse, dev),
+             engine.upload_matrix(c.view_inverse, dev))
+            for c in cams[:SHARD_FRAMES + 1]]
+    one, want = time_frames(
+        lambda m: engine.render_frame(sync.backend, sync.tex, *m,
+                                      sync.lights, cfg),
+        mats, "unsharded render_frame", CONFIG4_LAUNCHES)
+    rows = []
+    for k in (None,) + SHARDS:
+        mesh = make_mesh() if k is None else make_mesh([dev] * k)
+        reps = replicate((sync.backend, sync.tex, sync.lights), mesh)
+        n = mesh.size
+        name = "make_mesh()" if k is None else f"[card] * {k}"
+        res, _ = time_frames(
+            lambda m: render_frame_sharded(sync.backend, sync.tex, *m,
+                                           sync.lights, cfg, mesh,
+                                           replicas=reps),
+            mats, f"sharded, {name} ({n} shards)",
+            {key: c * n for key, c in CONFIG4_LAUNCHES.items()}, want)
+        rows.append(dict(shards=n, **{key: res[key] for key in SHARD_KEYS}))
+    del want
+    log("  config 4, 1920x1080, ms per frame (" + runtime.nvidia_smi_line()
+        + "): unsharded " + json.dumps({key: one[key] for key in SHARD_KEYS})
+        + f", phase 7 {event_ms:.3f}; sharded "
+        + json.dumps(rows))
+
+    rcfg = C.reference_config()
+    cam = start_camera(rcfg.width, rcfg.height)
+    view, proj = (engine.upload_matrix(m, dev) for m in (
+        cam.view_matrix, cam.projection_matrix))
+    tree = sync.backend.tree
+    zero_counts()
+    want = rp.render_raster_frame_edge(tree, sync.tex, view, proj, rcfg, 8)
+    read_counts("raster unsharded", {"G": 32})
+    raster = {}
+    for k in RASTER_SHARDS:
+        mesh = make_mesh() if k == 1 else make_mesh([dev] * k)
+        torch.cuda.synchronize()
+        zero_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        got = render_raster_frame_sharded(tree, sync.tex, view, proj, rcfg,
+                                          mesh, msaa=8)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        read_counts(f"raster, {k} shards", {"G": 32 * k})
+        equal = torch.equal(got, want)
+        raster[k] = dict(device_ms=start.elapsed_time(end),
+                         host_enqueue_ms=host_ms, equal=equal)
+        if not equal:
+            raise AssertionError(
+                f"raster, {k} shards: {int((got != want).any(dim=-1).sum())}"
+                " pixels differ from the unsharded frame")
+    del want, got
+    log("  raster 1600x1200, msaa 8, one frame (start camera):",
+        json.dumps(raster))
+
+    t0 = time.perf_counter()
+    dryrun_multichip(4, "cuda")
+    log(f"  dry run on [card] * 4: {time.perf_counter() - t0:.1f} s")
+
+    png = tmp / "cli_shard.png"
+    argv = ["--config", "4", "--shard", "--frames", "2", "--output",
+            str(png)]
+    zero_counts()
+    rc, _, errs, wall_s = run_cli(cli.main, argv, model)
+    read_counts("CLI --shard", {k: n * 2 for k, n in
+                                CONFIG4_LAUNCHES.items()})
+    want, _ = sync.render(cams[1])
+    diff = int((read_png(png) != want).any(axis=-1).sum())
+    log(f"  CLI {' '.join(argv[:-1])}: exit {rc}, {wall_s:.1f} s with "
+        f"setup ({next((e for e in errs if 'sharding' in e), '')}); last "
+        "frame vs Renderer.render "
+        f"of camera 1: {diff} pixels differ")
+    if rc != 0 or diff:
+        raise AssertionError("CLI --shard: the last frame differs")
+    try:
+        cli.main(["--config", "4", "--shard", "2"], scene=model)
+    except ValueError as e:
+        log(f"  CLI --shard 2 on {torch.cuda.device_count()} card: "
+            f"ValueError: {e}")
+    else:
+        raise AssertionError("CLI --shard 2 did not raise on one card")
+    return dict(unsharded=one, sharded=rows, raster=raster)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2159,8 +2342,8 @@ def main() -> int:
 
     log(f"== profile: {PROFILE_FRAMES} main-path frames, then "
         f"{PROFILE_FRAMES} flags-off frames")
-    profile_frames(renderer, cam, "defaults")
-    profile_frames(off, cam, "flags off")
+    profile_frames(lambda: renderer.render_async(cam), "defaults")
+    profile_frames(lambda: off.render_async(cam), "flags off")
 
     log("== 14. kernel A' vs plain on probes")
     probe_err["A'"], err_a = probe_occluded(renderer.backend, o, d, tmax, lp,
@@ -2191,7 +2374,8 @@ def main() -> int:
     for mode in REBUILD_MODES:
         r5s[mode] = r5 = copy.copy(renderer)
         r5.cfg, r5.rebuild = C.config5_stress(), mode
-        profile_frames(r5, cam, f"config 5, {mode}", CONFIG5_RANGES)
+        profile_frames(lambda: r5.render_async(cam), f"config 5, {mode}",
+                       CONFIG5_RANGES)
         event_ranges(r5, cam, f"config 5, {mode}", rot_y(0.02))
 
     log("== 17. config-5 gates")
@@ -2231,7 +2415,8 @@ def main() -> int:
     del first
     wall_pose_frame(rast)
     log(f"== profile: {PROFILE_FRAMES} raster frames")
-    profile_frames(rast, rcams[0], "raster", RASTER_RANGES)
+    profile_frames(lambda: rast.render_async(rcams[0]), "raster",
+                   RASTER_RANGES)
 
     log("== 13. kernel G at the main path's shapes")
     res_13 = raster_shapes(rast, rcams[0])
@@ -2252,8 +2437,14 @@ def main() -> int:
     reference_backend(sync, dev)
     log("== 22. mip_lod at config 4, 1920x1080")
     mip_lod(sync, cams, res_main["frame_ms"], dev)
-    del sync
     log(f"  phases 19-22: {time.perf_counter() - t_new:.1f} s")
+    log("== 23. sharded: config 4 at 1920x1080 and raster at 1600x1200 on "
+        "logical shards of the card, the dry run, the CLI's --shard")
+    t_new = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        sharded(model, sync, cams, res_main["frame_ms"], dev, Path(tmp))
+    del sync
+    log(f"  phase 23: {time.perf_counter() - t_new:.1f} s")
 
     def entry(name, k, src, replaces):
         rows = res_9[k]

@@ -141,8 +141,9 @@ def test_cli_refuses_without_card_and_unported_flags(small):
     with pytest.raises(RuntimeError, match="cpu"):
         tcli.main(["--config", "1", "--width", str(W), "--height", str(H)],
                   scene=small)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcli.main(["--shard", "2", *SMALL], scene=small)
+    with pytest.raises(ValueError, match="--device cpu"):
+        tcli.main(["--shard", "2", "--width", str(W), "--height", str(H)],
+                  scene=small)
     for flag in ("--resort", "--recheck"):
         with pytest.raises(NotImplementedError, match="item 13"):
             tcli.main([flag, *SMALL], scene=small)

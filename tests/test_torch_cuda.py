@@ -1,7 +1,8 @@
 """Kernels A-G and A' on the card vs their plain PyTorch versions, the
 per-frame accel update (refit, device SAH and Morton rebuilds) on the
-card vs the CPU, and the app surface on the card: FrameScheduler on CUDA
-events, the CLI's fly-through, the reference backend (LBVH) vs dense.
+card vs the CPU, the app surface on the card (FrameScheduler on CUDA
+events, the CLI's fly-through, the reference backend (LBVH) vs dense),
+and a frame split over logical shards of the card vs the unsharded one.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
@@ -27,8 +28,12 @@ from vkrt_tpu_torch.app import cli
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.flythrough import camera_path
 from vkrt_tpu_torch.app.framebuffer import rmse
+from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
+                                          render_raster_frame_sharded)
 from vkrt_tpu_torch.raster import edge
-from vkrt_tpu_torch.raster.pipeline import MSAA8, Rasterizer, sample_pixel_lanes
+from vkrt_tpu_torch.raster.pipeline import (MSAA8, Rasterizer,
+                                            render_raster_frame_edge,
+                                            sample_pixel_lanes)
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
 from vkrt_tpu_torch.accel.refit import refit_clusters
 from vkrt_tpu_torch.rt.dense import (broadcast_points, trace_dense,
@@ -40,7 +45,8 @@ from vkrt_tpu_torch.runtime import FrameScheduler
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
-                                             camera_ray_blocks)
+                                             camera_ray_blocks, render_frame,
+                                             upload_matrix)
 
 pytestmark = pytest.mark.cuda
 
@@ -693,3 +699,26 @@ def test_reference_backend_on_card(renderer, card):
     dense, dense_rays = Renderer(renderer.model, cfg, card).render(cam)
     assert np.isfinite(fb).all() and rmse(fb, dense) <= 1e-3
     assert rays == dense_rays
+
+
+def test_sharded_frame_on_card_equals_unsharded(renderer, card):
+    """Config 4 at 64x48 on ["cuda:0"] * 3 (logical shards of the one
+    card): the f32 frame and the ray grid equal the unsharded ones bit for
+    bit, with 3x the launches of A-F; so does the MSAA-8 raster frame."""
+    cam = start_camera()
+    r = Renderer(renderer.model, small_config(), card)
+    mats = [upload_matrix(m, card) for m in (cam.proj_inverse,
+                                             cam.view_inverse)]
+    mesh = make_mesh(["cuda:0"] * 3)
+    want = render_frame(r.backend, r.tex, *mats, r.lights, r.cfg)
+    a, b = trace_dense.launches, pack.consolidate.launches
+    fb, rays = render_frame_sharded(r.backend, r.tex, *mats, r.lights, r.cfg,
+                                    mesh)
+    assert (trace_dense.launches - a, pack.consolidate.launches - b) == (6, 3)
+    assert torch.equal(fb, want[0]) and torch.equal(rays, want[1])
+    view, proj = (upload_matrix(m, card) for m in (cam.view_matrix,
+                                                   cam.projection_matrix))
+    want = render_raster_frame_edge(r.backend.tree, r.tex, view, proj, r.cfg)
+    got = render_raster_frame_sharded(r.backend.tree, r.tex, view, proj,
+                                      r.cfg, mesh, msaa=8)
+    assert torch.equal(got, want)

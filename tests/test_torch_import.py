@@ -50,7 +50,8 @@ def test_port_imports_without_jax():
     for name in ("accel.refit", "accel.lbvh", "accel.device_sah",
                  "accel.clusters", "rt.dense", "wavefront.engine",
                  "app.cli", "app.state", "app.metrics", "golden.harness",
-                 "native", "rt.traverse", "rt.intersect"):
+                 "native", "rt.traverse", "rt.intersect", "parallel.mesh",
+                 "parallel.dryrun", "version"):
         assert f"vkrt_tpu_torch.{name}" in proc.stdout.split(), name
 
 

@@ -3,8 +3,8 @@ originals, on the same inputs.
 
 vkrt_tpu_torch carries config, scene (model, synth, gltf, flatten,
 textures), utils (mathutils, log), app (camera, flythrough, framebuffer,
-overlay) and golden (cpu_tracer, raster_oracle) so that it imports
-nothing of vkrt_tpu. These are numpy code run the same way on both
+overlay), golden (cpu_tracer, raster_oracle) and version so that it
+imports nothing of vkrt_tpu. These are numpy code run the same way on both
 sides, so every comparison is exact.
 """
 
@@ -66,6 +66,14 @@ def small():
 def test_config_constants_equal(name):
     np.testing.assert_array_equal(np.asarray(getattr(TC, name)),
                                   np.asarray(getattr(JC, name)))
+
+
+def test_version_equal():
+    import vkrt_tpu_torch
+    from vkrt_tpu.version import __version__ as jax_version
+    from vkrt_tpu_torch.version import __version__
+
+    assert __version__ == vkrt_tpu_torch.__version__ == jax_version
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5])

@@ -20,12 +20,16 @@ names mirror `vkrt_tpu/` so each counterpart is easy to find:
                     rasterizer (CUDA kernel G), Rasterizer
   app/              CLI, camera, fly-through path, framebuffer, FPS
                     overlay, metrics, checkpoints
+  parallel/         frames split over a device list (rays or raster pixel
+                    blocks), scene replicated, one framebuffer gather;
+                    the multi-device dry run
   golden/           oracles (brute-force and native ray tracer with its
                     stability mask, raster oracle) and the golden harness
   native/           the C++ oracle tracer (g++, ctypes)
   runtime           float32 policy, device report, kernel build,
                     FrameScheduler (frames in flight)
   kernels           nvcc build + ctypes binding of csrc/*.cu
+  version           __version__
 
 The numpy-only modules (config, scene, utils/mathutils and log, app,
 golden, native) are the port's own copies of the JAX package's, kept at
@@ -33,4 +37,6 @@ the same paths. This package imports torch and numpy, never jax and
 nothing of vkrt_tpu.
 """
 
-__all__ = []
+from vkrt_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

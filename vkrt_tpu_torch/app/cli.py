@@ -7,12 +7,15 @@ PyTorch versions of the kernels, as the tests do). Examples:
   python -m vkrt_tpu_torch.app.cli --config 1 --output frame.png
   python -m vkrt_tpu_torch.app.cli --config 4 --frames 240 --metrics
   python -m vkrt_tpu_torch.app.cli --raster --frames 1 --output raster.png
+  python -m vkrt_tpu_torch.app.cli --config 4 --shard --output frame.png
 
 A fly-through (--frames > 1) on the ray tracer keeps up to 3 frames in
 flight (runtime.FrameScheduler); the raster path renders serially, with
-the FPS overlay burned in. `main(argv, scene=model)` takes an in-memory
-`Model` in place of --scene. Unlike the JAX CLI, --scene has no default
-path: the Sponza glTF is not part of the repository.
+the FPS overlay burned in. --shard splits each frame over devices
+(parallel/mesh.py) and renders serially, as the JAX CLI does.
+`main(argv, scene=model)` takes an in-memory `Model` in place of
+--scene. Unlike the JAX CLI, --scene has no default path: the Sponza
+glTF is not part of the repository.
 """
 
 from __future__ import annotations
@@ -59,8 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="use the classic raster pipeline instead of RT")
     p.add_argument("--shard", type=int, nargs="?", const=-1, default=None,
                    metavar="N",
-                   help="shard rays across devices (not ported: ROADMAP.md "
-                        "queue 1 item 12)")
+                   help="shard rays (or raster pixel blocks) across "
+                        "devices of --device's type: bare --shard = all "
+                        "visible ones; --shard N = the first N (raises "
+                        "when fewer are visible; with --device cpu, N "
+                        "logical shards on the CPU)")
     p.add_argument("--msaa", type=int, default=8, choices=[1, 8],
                    help="raster-path MSAA sample count")
     p.add_argument("--raster-method", choices=["auto", "edge", "wavefront"],
@@ -119,6 +125,76 @@ def resolve_config(args):
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
 
 
+def _shard_mesh(n: int, device):
+    """The mesh of --shard N on --device's type: all visible devices for
+    a bare --shard (n = -1), else the first n. The JAX CLI re-execs onto a
+    virtual CPU mesh when fewer devices are visible; this one raises
+    ValueError instead (a card is never swapped for the CPU unasked).
+    With --device cpu, N shards of the one CPU device."""
+    import torch
+
+    from vkrt_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device(device)
+    if device.type == "cpu":
+        return make_mesh([device] * max(n, 1))
+    visible = torch.cuda.device_count() if device.type == "cuda" else 0
+    if n > visible or visible == 0:
+        raise ValueError(f"--shard{'' if n < 0 else f' {n}'}: {visible} "
+                         f"{device.type} device(s) visible (pass --device "
+                         "cpu for logical shards on the CPU)")
+    return make_mesh([torch.device(device.type, i)
+                      for i in range(visible if n < 0 else n)])
+
+
+def _sharded_renderer(src, cfg, args, mesh):
+    """A renderer for --shard with render(camera) → (f32 frame, rays), or
+    the raster frame with --raster. The scene is built on the mesh's
+    first device and replicated once; as in the JAX CLI there is no
+    per-frame accel update, and the raster path draws no FPS overlay."""
+    import torch
+
+    from vkrt_tpu_torch import config as C
+    from vkrt_tpu_torch.parallel.mesh import (render_frame_sharded,
+                                              render_raster_frame_sharded,
+                                              replicate)
+    from vkrt_tpu_torch.wavefront.engine import SceneOnDevice, upload_matrix
+
+    home = mesh.devices[0]
+    if args.raster and (args.backend != "dense"
+                        or args.raster_method == "wavefront"):
+        raise ValueError("--raster --shard runs the edge rasterizer: it "
+                         "needs --backend dense and --raster-method edge")
+    scene = SceneOnDevice(src, cfg, home, args.backend, args.max_texture_dim)
+    print(f"sharding {'raster pixels' if args.raster else 'rays'} over "
+          f"{mesh.size} devices", file=sys.stderr)
+    if args.raster:
+        replicas = replicate(scene.tex, mesh)
+
+        class ShardedRaster:
+            def render(self, camera):
+                return render_raster_frame_sharded(
+                    scene.backend.tree, scene.tex,
+                    upload_matrix(camera.view_matrix, home),
+                    upload_matrix(camera.projection_matrix, home), cfg, mesh,
+                    msaa=args.msaa, replicas=replicas).cpu().numpy()
+
+        return ShardedRaster()
+    lights = torch.as_tensor(C.LIGHT_POSITIONS, device=home)
+    replicas = replicate((scene.backend, scene.tex, lights), mesh)
+
+    class Sharded:
+        def render(self, camera):
+            fb, rays = render_frame_sharded(
+                scene.backend, scene.tex,
+                upload_matrix(camera.proj_inverse, home),
+                upload_matrix(camera.view_inverse, home), lights, cfg, mesh,
+                replicas=replicas)
+            return fb.cpu().numpy(), int(rays.sum())
+
+    return Sharded()
+
+
 def main(argv=None, scene=None) -> int:
     """Run the CLI. `scene` (a vkrt_tpu_torch.scene.Model) replaces
     --scene, for callers that build their scene in memory."""
@@ -127,9 +203,7 @@ def main(argv=None, scene=None) -> int:
     cfg = resolve_config(args)
     if scene is None and not args.scene:
         parser.error("--scene is required")
-    if args.shard is not None:
-        raise NotImplementedError("--shard: multi-device rendering is not "
-                                  "ported (ROADMAP.md queue 1 item 12)")
+    mesh = _shard_mesh(args.shard, args.device) if args.shard else None
 
     from vkrt_tpu_torch import config as C
     from vkrt_tpu_torch import runtime
@@ -143,7 +217,9 @@ def main(argv=None, scene=None) -> int:
     check_supported(cfg)
     runtime.initialize(args.device)
     src = args.scene if scene is None else scene
-    if args.raster:
+    if mesh is not None:
+        renderer = _sharded_renderer(src, cfg, args, mesh)
+    elif args.raster:
         from vkrt_tpu_torch.raster.pipeline import Rasterizer
         renderer = Rasterizer(src, cfg, args.device, msaa=args.msaa,
                               method=args.raster_method, backend=args.backend,
@@ -175,8 +251,8 @@ def main(argv=None, scene=None) -> int:
     # frames in flight: up to 3 frames queued on the card while the host
     # prepares the next camera and checkpoints the last retired frame
     # (the reference's 3 swapchain images, Context.cpp:141-180). The
-    # raster path stays serial.
-    pipeline = args.frames > 1 and not args.raster
+    # raster and sharded paths stay serial, as in the JAX CLI.
+    pipeline = args.frames > 1 and not args.raster and mesh is None
 
     def finish(idx, cam, fb_, stats):
         if args.check_finite:

@@ -80,12 +80,15 @@ def initialize(device="cuda") -> dict:
     return info
 
 
-def _map(fn, out):
-    """fn applied to every tensor of a (nested) tuple or list."""
+def map_tensors(fn, out):
+    """fn applied to every tensor of a (nested) tuple, NamedTuple or list;
+    anything else is kept as it is."""
     if torch.is_tensor(out):
         return fn(out)
+    if isinstance(out, tuple) and hasattr(out, "_fields"):
+        return type(out)(*(map_tensors(fn, x) for x in out))
     if isinstance(out, (tuple, list)):
-        return type(out)(_map(fn, x) for x in out)
+        return type(out)(map_tensors(fn, x) for x in out)
     return out
 
 
@@ -128,7 +131,7 @@ class FrameScheduler:
         out = fn(*args)
         event = None
         if any(t.is_cuda for t in _tensors(out)):
-            out = _map(_to_pinned, out)
+            out = map_tensors(_to_pinned, out)
             event = torch.cuda.Event()
             event.record()
         self._queue.append((self._next, out, event))
@@ -141,7 +144,7 @@ class FrameScheduler:
         idx, out, event = self._queue.popleft()
         if event is not None:
             event.synchronize()
-        return idx, _map(torch.Tensor.numpy, out)
+        return idx, map_tensors(torch.Tensor.numpy, out)
 
     def drain(self):
         while self._queue:
