@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Phases; any failure raises and the run exits non-zero. They run in this
-order, except that 14-18 (which share the config-4 renderer) run between
-the profile after phase 9 and phase 10, and 19-23 (the app surface, the
-golden gate, the reference backend, mip_lod and the sharded frames) after
-phase 13:
+order, except that 14-18 and 24 (which share the config-4 renderer) run
+between the profile after phase 9 and phase 10, and 19-23 (the app
+surface, the golden gate, the reference backend, mip_lod and the sharded
+frames) after phase 13:
   1. device   fail at once without CUDA; print the device report
   2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
@@ -150,10 +150,30 @@ phase 13:
               dryrun_multichip(4, "cuda"); the CLI's --shard (2 frames, last
               frame equal to Renderer.render's) and --shard 2, which must
               raise ValueError on one card
+ 24. secondary  the five secondary-dispatch options and kernel A's and B's
+              modes (sub_gate, pregate="recheck"). Kernels: each mode vs
+              the default kernel (A: every output torch.equal; B: masks
+              equal) and vs its plain version in the same mode (phase 3's
+              and 4's gates) on phase 3's and 4's probes, A's tie probe and
+              B's edge groups, then on one config-4 frame's recorded A and
+              B inputs at both depths with the mode kernel's ms (recheck:
+              less its prologue's), the default kernel's, the plain
+              version's and the bound (sub_gate: the pairs whose sub-run
+              box passes). Frames: config 4 (1 + N_FRAMES poses) and
+              config 5 refit (1 + CONFIG5_FRAMES frames under the
+              per-frame rotation) at the defaults, then with each option
+              alone and with resort + recheck + both sub-run gates and
+              partition_closest + both sub-run gates (SECONDARY_CASES):
+              frames and ray counts torch.equal to the defaults', ms a
+              frame by CUDA events, then (config 4) two profiled frames:
+              the device's busy ms a frame and its ms per engine range, or
+              (config 5) the ranges by CUDA events; launches a frame as
+              `frame_launches` says (each mode counted on its own)
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path (phase 7 for A-F, phase 15 for A', phase
-12 for G), its largest error, its time per frame and the bound of that
-work, and, as the last line, {"ok": true, "device": {...}}.
+12 for G, phase 24's frames for the four mode rows), its largest error,
+its time per frame and the bound of that work, and, as the last line,
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -176,7 +196,7 @@ import torch
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import kernels, runtime
 from vkrt_tpu_torch.accel import clusters
-from vkrt_tpu_torch.accel.clusters import K1, K2
+from vkrt_tpu_torch.accel.clusters import K1, K2, SUB_COL, SUBRUNS
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.app import cli
@@ -193,10 +213,13 @@ from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
                                           replicate)
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster import pipeline as rp
-from vkrt_tpu_torch.rt.dense import (broadcast_points, gated_pairs,
-                                     trace_dense, trace_dense_plain,
-                                     trace_occluded, trace_occluded_plain)
-from vkrt_tpu_torch.rt.occl_multi import occluded_multi, occluded_multi_plain
+from vkrt_tpu_torch.rt.dense import (_safe_inv, broadcast_points,
+                                     closest_worklists, gated_pairs,
+                                     listed_matrix, sub_run_pass, trace_dense,
+                                     trace_dense_plain, trace_occluded,
+                                     trace_occluded_plain)
+from vkrt_tpu_torch.rt.occl_multi import (multi_worklists, occluded_multi,
+                                          occluded_multi_plain)
 from vkrt_tpu_torch.scene import build_texture_heap
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import sampling, shading
@@ -252,11 +275,36 @@ SHARD_KEYS = ("device_ms", "host_enqueue_ms", "host_enqueue_ms_idle_stream",
               "device_busy_ms", "peak_mem_gb")
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
-# kernel → wrapper whose `launches` counts its launches
+
+
+class ModeCount:
+    """The launch count of one mode of kernel A or B: its wrapper's
+    `mode_launches[mode]`, read and set as `launches`."""
+
+    def __init__(self, fn, mode: str):
+        self.fn, self.mode = fn, mode
+
+    @property
+    def launches(self) -> int:
+        return self.fn.mode_launches[self.mode]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.mode_launches[self.mode] = n
+
+
+# kernel → wrapper whose `launches` counts its launches (A and B count
+# every mode; their mode rows count the launches in that mode)
 COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "C": pack.consolidate,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
-           "F": lanesort.lane_unsort, "G": edge.raster_edge}
+           "F": lanesort.lane_unsort, "G": edge.raster_edge,
+           "A.sub_gate": ModeCount(trace_dense, "sub_gate"),
+           "A.recheck": ModeCount(trace_dense, "recheck"),
+           "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
+           "B.recheck": ModeCount(occluded_multi, "recheck")}
+# kernel A's and B's modes: wrapper arguments
+MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 PLAIN = {"C": pack.consolidate_plain, "D": pack.scatter_back_plain,
          "E": lanesort.lane_sort_plain, "F": lanesort.lane_unsort_plain}
 
@@ -364,19 +412,36 @@ def shadow_inputs(u, v, attrs, hit, lights):
     return lights.contiguous(), sd, st.contiguous()
 
 
+def plain_closest_mode(tree, o, d, tmax, mode: str = "", block: int = 0):
+    """trace_dense_plain's arguments for kernel A's `mode` ("" default):
+    sub_gate as is; the re-check's pairs from the kernel's own prologue
+    (`closest_worklists`, on the same inputs)."""
+    if mode == "sub_gate":
+        return dict(sub_gate=True)
+    if mode == "recheck":
+        lists = closest_worklists(tree, o, d, tmax, point_origin=bool(block),
+                                  block=block or engine.BLOCK)
+        return dict(listed=listed_matrix(lists, tree.tri_data.shape[0]))
+    return {}
+
+
 def compare_closest(tree, o, d, tmax, label: str = "", block: int = 0,
-                    with_attributes: bool = True) -> dict:
+                    with_attributes: bool = True, mode: str = "") -> dict:
     """Kernel A vs its plain version on the same inputs: hit masks and
     slots agree on at least HIT_AGREE / SLOT_AGREE of the rays, t to
     T_RTOL where both hit, and t, u, v and attrs are bit-equal on every
     ray whose slots agree (misses included: inf, 0, 0, 0). With `block`,
     `o` is one origin per `block` rays [N/block,3] (the kernel's
     point-origin form; the plain version gets them broadcast); with
-    `with_attributes` False the kernel writes no attrs."""
+    `with_attributes` False the kernel writes no attrs. `mode`: kernel
+    A's mode (MODES) in both."""
     kw = dict(block=block, point_origin=True) if block else {}
-    got = trace_dense(tree, o, d, tmax, with_attributes=with_attributes, **kw)
+    got = trace_dense(tree, o, d, tmax, with_attributes=with_attributes,
+                      **kw, **MODES.get(mode, {}))
     full = broadcast_points(o, d, block) if block else o
-    want = trace_dense_plain(tree, full, d, tmax)
+    want = trace_dense_plain(tree, full, d, tmax,
+                             **plain_closest_mode(tree, o, d, tmax, mode,
+                                                  block))
     torch.cuda.synchronize()
     if len(got) != (5 if with_attributes else 4):
         raise AssertionError(f"kernel A returned {len(got)} outputs{label}")
@@ -416,13 +481,16 @@ def tie_tree(tree, slot: int, spare: int):
     same triangle. A ray that hits the triangle hits both copies at the
     same t, u and v, and its entry t into the copy's box is at most its
     entry t into the original's, so a walk by entry t meets the copy
-    first; the lower slot must win."""
+    first; the lower slot must win. The copy's sub-run box is the
+    scene's box as well."""
     sc_boxes, cl_boxes, tri, leaf = (x.clone() for x in tree)
     real = sc_boxes[0] <= sc_boxes[3]
     lo = sc_boxes[0:3][:, real].min(dim=1).values
     hi = sc_boxes[3:6][:, real].max(dim=1).values
     tri[spare] = 0.0
     tri[spare, 0] = tree.tri_data[slot // K1, slot % K1]
+    # the copy's sub-run box (sub_gate): the scene's box too
+    tri[spare, 0, SUB_COL:SUB_COL + 6] = torch.cat([lo, hi])
     s, c = divmod(spare, K2)
     cl_boxes[s, 0:3, c], cl_boxes[s, 3:6, c] = lo, hi
     sc_boxes[0:3, s], sc_boxes[3:6, s] = lo, hi
@@ -442,21 +510,23 @@ def tie_slots(tree, slot_out):
     return slot, spare
 
 
-def closest_tie_probe(tree, o, d, tmax, label: str = "") -> float:
+def closest_tie_probe(tree, o, d, tmax, label: str = "",
+                      mode: str = "") -> float:
     """What a front-to-back walk could get wrong: the most-hit triangle
     is copied into a padding cluster of a higher id under the scene's box
-    (`tie_tree`), which the walk visits first. Kernel A must agree with
-    its plain version on every ray (no slot differs), return the lower
-    slot (every output equal to the run without the copy) and, with the
-    original's row zeroed, hand the same rays to the copy."""
-    want = trace_dense(tree, o, d, tmax)
+    (`tie_tree`), which the walk visits first. Kernel A (in `mode`) must
+    agree with its plain version on every ray (no slot differs), return
+    the lower slot (every output equal to the run without the copy) and,
+    with the original's row zeroed, hand the same rays to the copy."""
+    kw = MODES.get(mode, {})
+    want = trace_dense(tree, o, d, tmax, **kw)
     slot, spare = tie_slots(tree, want[1])
     tt = tie_tree(tree, slot, spare)
-    out = compare_closest(tt, o, d, tmax, f" (tie probe{label})")
-    got = trace_dense(tt, o, d, tmax)
+    out = compare_closest(tt, o, d, tmax, f" (tie probe{label})", mode=mode)
+    got = trace_dense(tt, o, d, tmax, **kw)
     alone = tt._replace(tri_data=tt.tri_data.clone())
     alone.tri_data[slot // K1, slot % K1] = 0.0
-    took = trace_dense(alone, o, d, tmax)
+    took = trace_dense(alone, o, d, tmax, **kw)
     seen = want[1] == slot
     res = dict(slot=slot, copy_slot=spare * K1, rays=int(seen.sum()),
                slots_differ=out["slots_differ"],
@@ -469,13 +539,23 @@ def closest_tie_probe(tree, o, d, tmax, label: str = "") -> float:
     return out["max_abs_err"]
 
 
+def plain_occl_mode(tree, lp, sd, st, mode: str = "") -> dict:
+    """occluded_multi_plain's arguments for kernel B's `mode`."""
+    if mode == "sub_gate":
+        return dict(sub_gate=True)
+    if mode == "recheck":
+        return dict(lists=multi_worklists(tree, lp, sd, st))
+    return {}
+
+
 def compare_occl(tree, lp, sd, st, near: bool = True,
-                 label: str = "") -> dict:
-    """Kernel B vs its plain version on the same inputs; parked
-    segments, and the planted near-light ones (`near`), are not
-    blocked."""
-    kb = occluded_multi(tree, lp, sd, st)
-    pb = occluded_multi_plain(tree, lp, sd, st)
+                 label: str = "", mode: str = "") -> dict:
+    """Kernel B vs its plain version on the same inputs, both in `mode`
+    (MODES; "" the default); parked segments, and the planted near-light
+    ones (`near`), are not blocked."""
+    kb = occluded_multi(tree, lp, sd, st, **MODES.get(mode, {}))
+    pb = occluded_multi_plain(tree, lp, sd, st,
+                              **plain_occl_mode(tree, lp, sd, st, mode))
     torch.cuda.synchronize()
     agree = (kb == pb).float().mean().item()
     live = st > C.RAY_TMIN
@@ -522,15 +602,16 @@ def edge_groups_ok(mask) -> bool:
             and bool(mask[..., 3, 127].all()))
 
 
-def occl_group_probe(tree, lp, sd, st) -> float:
-    """Phase 4's edge groups (`edge_groups`): kernel B's masks must equal
-    the plain version's, and those four groups come out as they must.
-    Returns the largest error."""
+def occl_group_probe(tree, lp, sd, st, mode: str = "") -> float:
+    """Phase 4's edge groups (`edge_groups`): kernel B's masks (in
+    `mode`) must equal the plain version's, and those four groups come
+    out as they must. Returns the largest error."""
     sd, st = edge_groups(tree, lp, sd, st)
     out = compare_occl(tree, lp, sd, st, near=False,
                        label=" (edge groups: all blocked, parked, empty, "
-                             "one live lane)")
-    kb = occluded_multi(tree, lp, sd, st)
+                             "one live lane)" + (f", {mode}" if mode else ""),
+                       mode=mode)
+    kb = occluded_multi(tree, lp, sd, st, **MODES.get(mode, {}))
     if not (out["masks_differ"] == 0 and edge_groups_ok(kb)):
         raise AssertionError(f"kernel B edge groups: {out}")
     return out["max_abs_err"]
@@ -685,14 +766,16 @@ class RecordingBackend:
         self.scene_aabb = inner.scene_aabb
         self.closest_in, self.occl_in, self.occl_block = [], [], []
 
-    def closest(self, o, d, tmax):
+    def closest(self, o, d, tmax, **modes):
         self.closest_in.append((o.clone(), d.clone(), tmax.clone()))
-        return self.inner.closest(o, d, tmax)
+        return self.inner.closest(o, d, tmax, **modes)
 
-    def occluded_multi(self, light_pts, sd, st, block=engine.BLOCK):
+    def occluded_multi(self, light_pts, sd, st, block=engine.BLOCK,
+                       **modes):
         self.occl_in.append((light_pts.clone(), sd.clone(), st.clone()))
         self.occl_block.append(block)
-        return self.inner.occluded_multi(light_pts, sd, st, block=block)
+        return self.inner.occluded_multi(light_pts, sd, st, block=block,
+                                         **modes)
 
 
 # --- bounds: the least time the card could take for a kernel's work ----
@@ -742,30 +825,46 @@ def tree_bytes(tree, cols: int) -> int:
             + (tree.sc_boxes.numel() + tree.cl_boxes.numel()) * 4)
 
 
-def trace_pairs(tree, o, d, t_end, ntri) -> int:
+def sub_tris(rows) -> torch.Tensor:
+    """Live triangles per cluster and sub-run: [C1p, SUBRUNS] int64."""
+    live = (rows[..., :9] != 0).any(-1)
+    return live.reshape(rows.shape[0], SUBRUNS, -1).sum(dim=2)
+
+
+def trace_pairs(tree, o, d, t_end, ntri, sub: bool = False) -> int:
     """(ray, triangle) pairs whose segment [TMIN, t_end] enters the
-    triangle's cluster and supercluster boxes. o, d [3,N], t_end [N]."""
-    return sum(int(ntri[cl].sum()) for _, cl in gated_pairs(tree, o, d,
-                                                            t_end))
+    triangle's cluster and supercluster boxes. o, d [3,N], t_end [N].
+    With `sub` (ntri from `sub_tris`), only the triangles whose sub-run
+    box (widened, as sub_gate tests it) the segment enters as well."""
+    if not sub:
+        return sum(int(ntri[cl].sum()) for _, cl in gated_pairs(tree, o, d,
+                                                                t_end))
+    inv = _safe_inv(d)
+    return sum(int((sub_run_pass(tree, cl, o[:, r], inv[:, r], t_end[r])
+                    * ntri[cl]).sum())
+               for r, cl in gated_pairs(tree, o, d, t_end))
 
 
-def closest_bound(tree, o, d, tm, t, ntri) -> dict:
+def closest_bound(tree, o, d, tm, t, ntri, sub: bool = False) -> dict:
     """Kernel A's work on one call: rays and outputs once, the tree's 36
     attribute columns once, OPS_A per (ray, triangle) pair up to the
-    final hit (to tmax on a miss)."""
+    final hit (to tmax on a miss); with `sub`, the pairs of sub_gate."""
     n = tm.numel()
     t_end = torch.where(torch.isfinite(t), t, tm).reshape(n)
-    pairs = trace_pairs(tree, o.reshape(3, n), d.reshape(3, n), t_end, ntri)
+    pairs = trace_pairs(tree, o.reshape(3, n), d.reshape(3, n), t_end, ntri,
+                        sub)
     return bound(n * 4 * (3 + 3 + 1) + n * 4 * (4 + 36)
                  + tree_bytes(tree, 36), pairs * OPS_A)
 
 
-def occl_bound(tree, lp, sd, st, ntri, out_bytes: int = 1) -> dict:
+def occl_bound(tree, lp, sd, st, ntri, out_bytes: int = 1,
+               sub: bool = False) -> dict:
     """Kernel B's work on one call: segments and masks once, the tree's
     9 geometry columns once, OPS_B per (segment, triangle) pair up to the
     segment's nearest blocker (found with kernel A; its end if none).
     `out_bytes` per segment: 1 for B's mask, 16 for the t, slot, u, v
-    that kernel A' writes (one call per light; the same work in all)."""
+    that kernel A' writes (one call per light; the same work in all).
+    With `sub`, the pairs of sub_gate."""
     ns, _, nb, lanes = sd.shape
     n = nb * lanes
     pairs = 0
@@ -774,7 +873,7 @@ def occl_bound(tree, lp, sd, st, ntri, out_bytes: int = 1) -> dict:
         t = trace_dense(tree, o, sd[s].contiguous(), st[s])[0]
         t_end = torch.minimum(t, st[s]).reshape(n)
         pairs += trace_pairs(tree, o.reshape(3, n), sd[s].reshape(3, n),
-                             t_end, ntri)
+                             t_end, ntri, sub)
     return bound(ns * 12 + ns * n * 4 * 4 + ns * n * out_bytes
                  + tree_bytes(tree, 9) * (ns if out_bytes > 1 else 1),
                  pairs * OPS_B)
@@ -2267,6 +2366,254 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
     return dict(unsharded=one, sharded=rows, raster=raster)
 
 
+# --- phase 24: the secondary-dispatch options ---------------------------
+SECONDARY_CASES = {          # the five RenderConfig options alone, then two
+    "resort_secondary": dict(resort_secondary=True),        # combinations
+    "recheck_secondary": dict(recheck_secondary=True),
+    "partition_closest": dict(partition_closest=True),
+    "sub_gate_closest": dict(sub_gate_closest=True),
+    "sub_gate_shadows": dict(sub_gate_shadows=True),
+    "resort+recheck+sub_gate": dict(resort_secondary=True,
+                                    recheck_secondary=True,
+                                    sub_gate_closest=True,
+                                    sub_gate_shadows=True),
+    "partition_closest+sub_gate": dict(partition_closest=True,
+                                       sub_gate_closest=True,
+                                       sub_gate_shadows=True),
+}
+MODE_ROWS = ("A.sub_gate", "A.recheck", "B.sub_gate", "B.recheck")
+
+
+def frame_launches(cfg) -> dict:
+    """Launches a frame of each counted kernel on the dense backend at
+    `cfg`, by the engine's conditions: A and B once a depth; C, D at
+    depth >= 1 with consolidate_secondary; E, F at depth >= 1 with
+    partition_shadows (resort_secondary and recheck_secondary turn the
+    three reorders off, group_sort_shadows launches none) and again with
+    partition_closest (which yields to resort_secondary); the modes of A
+    (recheck at depth >= 1) and B (every depth)."""
+    d = cfg.max_depth
+    deeper = d - 1
+    rs, rc = cfg.resort_secondary, cfg.recheck_secondary
+    cons = cfg.consolidate_secondary and not (rs or rc)
+    part = cfg.partition_shadows and not (rs or rc)
+    pc = cfg.partition_closest and not rs
+    return {"A": d, "B": d, "C": deeper * cons, "D": deeper * cons,
+            "E": deeper * (part + pc), "F": deeper * (part + pc),
+            "A.sub_gate": d * cfg.sub_gate_closest,
+            "A.recheck": deeper * rc,
+            "B.sub_gate": d * cfg.sub_gate_shadows, "B.recheck": d * rc}
+
+
+def closest_equal(tree, o, d, tmax, mode: str, label: str, block: int = 0):
+    """Kernel A in `mode` vs the default kernel on the same rays: every
+    output torch.equal. Returns the default's outputs."""
+    kw = dict(block=block, point_origin=True) if block else {}
+    want = trace_dense(tree, o, d, tmax, **kw)
+    got = trace_dense(tree, o, d, tmax, **kw, **MODES[mode])
+    names = ("t", "slot", "u", "v", "attrs")
+    bad = [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+    slots = int((got[1] != want[1]).sum().item())
+    log(f"  kernel A {mode} vs default kernel ({label}): outputs that "
+        f"differ {bad}, slots that differ {slots}")
+    if bad:
+        raise AssertionError(f"kernel A {mode} differs from the default "
+                             f"kernel ({label}): {bad}, {slots} slots")
+    return want
+
+
+def occl_equal(tree, lp, sd, st, mode: str, label: str) -> None:
+    """Kernel B in `mode` vs the default kernel: masks torch.equal."""
+    want = occluded_multi(tree, lp, sd, st)
+    got = occluded_multi(tree, lp, sd, st, **MODES[mode])
+    n = int((got != want).sum().item())
+    log(f"  kernel B {mode} vs default kernel ({label}): masks that "
+        f"differ {n}")
+    if n:
+        raise AssertionError(f"kernel B {mode} differs from the default "
+                             f"kernel ({label}): {n} masks")
+
+
+def mode_probes(tree, o, d, tmax, lp, sd, st) -> dict:
+    """Phase 24, kernels: each mode of A and B against the default kernel
+    (equal) and against its plain version in the same mode (phase 3's and
+    4's gates) on phase 3's and 4's probes, A's tie probe and B's edge
+    groups. Returns each mode row's largest error."""
+    errs = {}
+    esd, est = edge_groups(tree, lp, sd, st)
+    for m in MODES:
+        closest_equal(tree, o, d, tmax, m, "probe rays")
+        r = compare_closest(tree, o, d, tmax, f" ({m}, probe rays)", mode=m)
+        errs[f"A.{m}"] = max(r["max_abs_err"],
+                             closest_tie_probe(tree, o, d, tmax, f", {m}", m))
+        occl_equal(tree, lp, sd, st, m, "phase 4's segments")
+        occl_equal(tree, lp, esd, est, m, "edge groups")
+        r = compare_occl(tree, lp, sd, st, label=f" ({m})", mode=m)
+        errs[f"B.{m}"] = max(r["max_abs_err"],
+                             occl_group_probe(tree, lp, sd, st, m))
+    return errs
+
+
+def mode_shapes(renderer: Renderer, cam: Camera, label: str,
+                bounds=None) -> dict:
+    """Phase 24, kernels at the main path's shapes: one config-4 frame's
+    recorded inputs of A and B at every depth; per mode, equal to the
+    default kernel, against its plain version, the kernel's ms (mean of
+    5; under recheck the wrapper's ms less its prologue's, both by CUDA
+    events), the default kernel's and the plain version's ms, and the
+    bound (sub_gate: only the pairs whose sub-run box passes; recheck:
+    the default's, taken from `bounds` {"A": rows, "B": rows} where phase
+    9 computed them on the same frame's inputs)."""
+    rec = RecordingBackend(renderer.backend)
+    pi = torch.as_tensor(cam.proj_inverse, device=renderer.device)
+    vi = torch.as_tensor(cam.view_inverse, device=renderer.device)
+    render_frame_u8(rec, renderer.tex, pi, vi, renderer.lights, renderer.cfg)
+    torch.cuda.synchronize()
+    tree = renderer.backend.tree
+    ntri, nsub = live_tris(tree.tri_data), sub_tris(tree.tri_data)
+    rows = {k: [] for k in MODE_ROWS}
+    for depth, (o, d, tm) in enumerate(rec.closest_in):
+        where = f"{label}, depth {depth}"
+        want = closest_equal(tree, o, d, tm, "sub_gate", where)
+        closest_equal(tree, o, d, tm, "recheck", where)
+        base_ms = cuda_ms(lambda: trace_dense(tree, o, d, tm), 5)
+        for m, kw in MODES.items():
+            r = compare_closest(tree, o, d, tm, f" ({m}, {where})", mode=m)
+            r["ms"] = cuda_ms(lambda: trace_dense(tree, o, d, tm, **kw), 5)
+            if m == "recheck":
+                r["wrapper_ms"] = r["ms"]
+                r["prologue_ms"] = cuda_ms(
+                    lambda: closest_worklists(tree, o, d, tm), 5)
+                r["ms"] = r["wrapper_ms"] - r["prologue_ms"]
+            pk = plain_closest_mode(tree, o, d, tm, m)
+            r["plain_ms"] = cuda_ms(
+                lambda: trace_dense_plain(tree, o, d, tm, **pk), 1,
+                warmup=False)
+            r["default_ms"] = base_ms
+            sub = m == "sub_gate"
+            if bounds is not None and not sub:
+                r.update({k: bounds["A"][depth][k]
+                          for k in ("bound_ms", "bound_by", "bytes", "ops")})
+            else:
+                r.update(closest_bound(tree, o, d, tm, want[0],
+                                       nsub if sub else ntri, sub))
+            rows[f"A.{m}"].append(r)
+    for depth, (lp, sd, st) in enumerate(rec.occl_in):
+        where = f"{label}, depth {depth}"
+        for m in MODES:
+            occl_equal(tree, lp, sd, st, m, where)
+        base_ms = cuda_ms(lambda: occluded_multi(tree, lp, sd, st), 5)
+        for m, kw in MODES.items():
+            r = compare_occl(tree, lp, sd, st, near=False,
+                             label=f" ({m}, {where})", mode=m)
+            r["ms"] = cuda_ms(lambda: occluded_multi(tree, lp, sd, st, **kw),
+                              5)
+            if m == "recheck":
+                r["wrapper_ms"] = r["ms"]
+                r["prologue_ms"] = cuda_ms(
+                    lambda: multi_worklists(tree, lp, sd, st), 5)
+                r["ms"] = r["wrapper_ms"] - r["prologue_ms"]
+            pk = plain_occl_mode(tree, lp, sd, st, m)
+            r["plain_ms"] = cuda_ms(
+                lambda: occluded_multi_plain(tree, lp, sd, st, **pk), 1,
+                warmup=False)
+            r["default_ms"] = base_ms
+            sub = m == "sub_gate"
+            if bounds is not None and not sub:
+                r.update({k: bounds["B"][depth][k]
+                          for k in ("bound_ms", "bound_by", "bytes", "ops")})
+            else:
+                r.update(occl_bound(tree, lp, sd, st, nsub if sub else ntri,
+                                    sub=sub))
+            rows[f"B.{m}"].append(r)
+    for k, rs in rows.items():
+        log(f"  {k} per depth ({label}): " + "; ".join(
+            f"d{dep} {r['ms']:.3f} ms (default {r['default_ms']:.3f}"
+            + (f", prologue {r['prologue_ms']:.3f}" if "prologue_ms" in r
+               else "")
+            + f"), plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.3f} "
+            f"({r['bound_by']}: {r['ops']:.4g} ops)"
+            for dep, r in enumerate(rs)))
+    return rows
+
+
+def secondary_frames(renderer: Renderer, cams, cam: Camera, cfg, label: str,
+                     transforms=None, transform=None,
+                     profile: bool = True) -> dict:
+    """Phase 24, frames: the defaults at `cfg`, then every case of
+    SECONDARY_CASES, each through `drive` (launch counts by
+    `frame_launches`; ms a frame by CUDA events, which the host paces
+    when it enqueues slower than the card runs), then, with `profile`,
+    `profile_frames` (the device's busy ms a frame and its time per
+    engine range, which the host's pace does not move; ~3 s a case) or
+    else `event_ranges` (the ranges by CUDA events); every case's frames
+    and ray counts torch.equal to the defaults'. Returns {case: (ms a
+    frame, device busy ms or None, ranges, launches a frame)}."""
+    out = {}
+    want = None
+    for name, flags in {"defaults": {}, **SECONDARY_CASES}.items():
+        r = copy.copy(renderer)
+        r.cfg = dataclasses.replace(cfg, **flags)
+        per_frame = frame_launches(r.cfg)
+        res, outs = drive(r, cams, per_frame, f"{label}, {name}",
+                          transforms)
+        if want is None:
+            want = outs
+        else:
+            same_frames(outs, want, f"{label}, {name}")
+        tf = () if transform is None else (transform,)
+        if profile:
+            prof = profile_frames(lambda: r.render_async(cam, *tf),
+                                  f"{label}, {name}")
+            busy, ranges = prof["device_busy_ms_per_frame"], prof["range_ms"]
+        else:
+            busy = None
+            ranges = {k: v for k, v in event_ranges(
+                r, cam, f"{label}, {name}", transform)["range_ms"].items()
+                if k.startswith(ENGINE_RANGES)}
+        out[name] = dict(frame_ms=res["frame_ms"], busy_ms=busy,
+                         range_ms=ranges,
+                         launches={k: v for k, v in per_frame.items() if v},
+                         run_launches=res["launches"])
+    log(f"  {label}: ms a frame (CUDA events) " + json.dumps(
+        {k: round(v["frame_ms"], 3) for k, v in out.items()}))
+    if profile:
+        log(f"  {label}: device busy ms a frame (profiler) " + json.dumps(
+            {k: round(v["busy_ms"], 3) for k, v in out.items()}))
+    return out
+
+
+def secondary_options(renderer: Renderer, cams, cam: Camera, probes,
+                      bounds=None) -> dict:
+    """Phase 24 (see the module docstring). `probes`: phase 3's rays and
+    phase 4's segments; `bounds`: phase 9's A and B rows at `cam`, if
+    run. Config 4's cases are profiled, config 5's timed by CUDA events
+    (the profiler costs ~3 s a case). Returns the mode rows, their
+    largest errors, the frames' results and each mode's launches over
+    the frame runs."""
+    tree = renderer.backend.tree
+    t0 = time.perf_counter()
+    errs = mode_probes(tree, *probes)
+    rows = mode_shapes(renderer, cam, "config 4", bounds)
+    t1 = time.perf_counter()
+    cfg5 = C.config5_stress()
+    r5 = copy.copy(renderer)
+    r5.rebuild = "refit"
+    cams5 = cams[:CONFIG5_FRAMES + 1]
+    frames = {
+        "config 4": secondary_frames(renderer, cams, cam, renderer.cfg,
+                                     "config 4"),
+        "config 5 refit": secondary_frames(
+            r5, cams5, cam, cfg5, "config 5 refit",
+            [rot_y(0.01 * k) for k in range(len(cams5))], rot_y(0.02),
+            profile=False)}
+    launches = {k: sum(case["run_launches"][k] for f in frames.values()
+                       for case in f.values()) for k in MODE_ROWS}
+    log(f"  phase 24: kernels {t1 - t0:.1f} s, frames "
+        f"{time.perf_counter() - t1:.1f} s; mode launches {launches}")
+    return dict(rows=rows, errs=errs, frames=frames, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2391,6 +2738,13 @@ def main() -> int:
              for k, rows in res_18[mode].items()}))
     del r5, r5s
 
+    log("== 24. the secondary-dispatch options: kernel modes, then config 4 "
+        "and config 5 (refit) with each option")
+    t_new = time.perf_counter()
+    res_24 = secondary_options(renderer, cams, cam, (o, d, tmax, lp, sd, st),
+                               res_9)
+    log(f"  phase 24: {time.perf_counter() - t_new:.1f} s")
+
     log("== 10. kernel G vs plain on probes")
     small = rp.Rasterizer(procedural_model("small", seed=SEED),
                           C.reference_config(), dev)
@@ -2484,6 +2838,18 @@ def main() -> int:
                "library_ms": None,
                "design": "redesigned: kernel B's group walk (walk.cuh) "
                          "with one segment set"}
+    def mode_entry(k, name, src, replaces):
+        rows = res_24["rows"][k]
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": res_24["launches"][k],
+                "max_abs_err": max([res_24["errs"][k]]
+                                   + [r["max_abs_err"] for r in rows]),
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                **{key: add_bounds(rows)[key]
+                   for key in ("bound_ms", "bound_by")},
+                "library_ms": None}
+
     log(f"== total {time.perf_counter() - t_start:.1f} s from the build on")
     log(smi)
     log(json.dumps({"kernels": [
@@ -2503,6 +2869,18 @@ def main() -> int:
         entry("lane_unsort", "F", "vkrt_tpu_torch/csrc/lanesort.cu",
               "vkrt_tpu/wavefront/lanesort.py:162"),
         g,
+        mode_entry("A.sub_gate", "trace_closest.sub_gate",
+                   "vkrt_tpu_torch/csrc/trace_closest.cu",
+                   "vkrt_tpu/rt/dense.py:438"),
+        mode_entry("A.recheck", "trace_closest.recheck",
+                   "vkrt_tpu_torch/csrc/trace_closest.cu",
+                   "vkrt_tpu/rt/dense.py:674"),
+        mode_entry("B.sub_gate", "occl_multi.sub_gate",
+                   "vkrt_tpu_torch/csrc/occl_multi.cu",
+                   "vkrt_tpu/rt/occl_multi.py:157"),
+        mode_entry("B.recheck", "occl_multi.recheck",
+                   "vkrt_tpu_torch/csrc/occl_multi.cu",
+                   "vkrt_tpu/rt/occl_multi.py:404"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -135,7 +135,7 @@ def test_cli_raster_and_profile(tmp_path, small):
     assert "raster_setup" in names
 
 
-def test_cli_refuses_without_card_and_unported_flags(small):
+def test_cli_refuses_without_card_and_unported_flags(small, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works")
     with pytest.raises(RuntimeError, match="cpu"):
@@ -144,9 +144,16 @@ def test_cli_refuses_without_card_and_unported_flags(small):
     with pytest.raises(ValueError, match="--device cpu"):
         tcli.main(["--shard", "2", "--width", str(W), "--height", str(H)],
                   scene=small)
+    # --resort and --recheck render the default frame (on the CPU here)
+    def png(name, *flags):
+        out = tmp_path / f"{name}.png"
+        assert tcli.main([*flags, "--output", str(out), *SMALL],
+                         scene=small) == 0
+        return np.asarray(Image.open(out))
+
+    want = png("default")
     for flag in ("--resort", "--recheck"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            tcli.main([flag, *SMALL], scene=small)
+        np.testing.assert_array_equal(png(flag[2:], flag), want)
     with pytest.raises(SystemExit):
         tcli.main(SMALL)                         # no --scene, no Model
 

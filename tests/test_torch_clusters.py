@@ -98,3 +98,18 @@ def test_boxes_bound_their_triangles(geometry):
     sc_lo = tree.sc_boxes[0:3].numpy().T[sc]
     sc_hi = tree.sc_boxes[3:6].numpy().T[sc]
     assert (cl_lo[:n_cl] >= sc_lo).all() and (cl_hi[:n_cl] <= sc_hi).all()
+
+
+def test_build_clusters_defaults_to_the_card(geometry):
+    """Like every entry point of the port, the build puts its tree on the
+    card unless the caller asks for the CPU: without a card the default
+    raises, and device="cpu" builds there."""
+    import inspect
+    assert inspect.signature(tc.build_clusters).parameters[
+        "device"].default == "cuda"
+    _, v0, e1, e2 = geometry
+    tree = tc.build_clusters(v0, e1, e2, device="cpu")
+    assert all(x.device.type == "cpu" for x in tree)
+    if not torch.cuda.is_available():
+        with pytest.raises((AssertionError, RuntimeError)):
+            tc.build_clusters(v0, e1, e2)

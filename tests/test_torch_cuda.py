@@ -1,4 +1,5 @@
-"""Kernels A-G and A' on the card vs their plain PyTorch versions, the
+"""Kernels A-G and A' on the card vs their plain PyTorch versions (A and
+B in each of their modes also vs their default mode), the
 per-frame accel update (refit, device SAH and Morton rebuilds) on the
 card vs the CPU, the app surface on the card (FrameScheduler on CUDA
 events, the CLI's fly-through, the reference backend (LBVH) vs dense),
@@ -722,3 +723,67 @@ def test_sharded_frame_on_card_equals_unsharded(renderer, card):
     got = render_raster_frame_sharded(r.backend.tree, r.tex, view, proj,
                                       r.cfg, mesh, msaa=8)
     assert torch.equal(got, want)
+
+
+KERNEL_MODES = {"sub_gate": dict(sub_gate=True),
+                "recheck": dict(pregate="recheck"),
+                "both": dict(sub_gate=True, pregate="recheck")}
+
+
+@pytest.mark.parametrize("mode", sorted(KERNEL_MODES))
+def test_kernel_a_modes_equal_default_kernel(renderer, card, mode):
+    """Kernel A in each mode: every output torch.equal to the default
+    kernel's and to the plain version's, on scattered and camera rays;
+    the mode's launches are counted."""
+    tree = renderer.backend.tree
+    kw = KERNEL_MODES[mode]
+    for rays in ("scattered", "camera"):
+        o, d, tmax = (random_rays(card, seed=5) if rays == "scattered"
+                      else camera_rays(renderer, card))
+        before = dict(trace_dense.mode_launches)
+        got = trace_dense(tree, o, d, tmax, **kw)
+        want = trace_dense(tree, o, d, tmax)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        if rays == "scattered":        # as test_kernel_a_matches_plain
+            for g, p in zip(got, trace_dense_plain(tree, o, d, tmax)):
+                assert torch.equal(g, p)
+        after = trace_dense.mode_launches
+        assert after["sub_gate"] == before["sub_gate"] + ("sub_gate" in kw)
+        assert after["recheck"] == before["recheck"] + ("pregate" in kw)
+
+
+@pytest.mark.parametrize("mode", sorted(KERNEL_MODES))
+@pytest.mark.parametrize("ns", [1, 4])
+def test_kernel_b_modes_equal_default_kernel(renderer, card, mode, ns):
+    """Kernel B in each mode, 1 and 4 segment sets: masks torch.equal to
+    the default kernel's and the plain version's."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, seed=6)
+    lights = renderer.lights[:ns].contiguous()
+    st = torch.stack([tmax * (0.01 + 0.1 * s) for s in range(ns)])
+    st[:, 0, :8] = 0.0009
+    sd = torch.stack([d] * ns).contiguous()
+    got = occluded_multi(tree, lights, sd, st, **KERNEL_MODES[mode])
+    want = occluded_multi(tree, lights, sd, st)
+    plain = occluded_multi_plain(tree, lights, sd, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got, plain)
+    assert got.any()
+
+
+@pytest.mark.parametrize("flag", ["resort_secondary", "recheck_secondary",
+                                  "partition_closest", "sub_gate_closest",
+                                  "sub_gate_shadows"])
+def test_secondary_option_frame_on_card_equals_default(renderer, flag):
+    """A 64x48 config-4 frame on the card with each option: the default
+    frame and ray grid, bit for bit."""
+    cam = start_camera()
+    pi = upload_matrix(cam.proj_inverse, renderer.device)
+    vi = upload_matrix(cam.view_inverse, renderer.device)
+    want = render_frame(renderer.backend, renderer.tex, pi, vi,
+                        renderer.lights, small_config())
+    got = render_frame(renderer.backend, renderer.tex, pi, vi,
+                       renderer.lights, small_config(**{flag: True}))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

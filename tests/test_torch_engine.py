@@ -175,31 +175,24 @@ def test_capped_partition_is_bit_exact(scene):
     assert fb.shape == (96, 128, 3) and np.isfinite(fb).all()
 
 
-@pytest.mark.parametrize("flag", sorted(te._UNPORTED_FLAGS))
-def test_unported_flag_raises(scene, flag):
+def test_shipped_defaults_accepted_and_unported_flags_raise(scene):
+    """Every field of the JAX package's RenderConfig but the dead
+    `ray_block` is a field of the port's, and a Renderer takes each of
+    them switched from its default (a render is not needed here:
+    tests/test_torch_secondary.py renders the five secondary-dispatch
+    options). The name is kept from when five flags raised."""
     model = scene[0]
-    cfg = dataclasses.replace(config(4), **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        te.Renderer(model, port_config(cfg), "cpu")
-    with pytest.raises(NotImplementedError, match=flag):
-        te.check_supported(cfg)
-
-
-def test_shipped_defaults_accepted_and_unported_flags_raise():
-    """RenderConfig's shipped defaults (the depth>=1 reorder flags on) are
-    ported, and so are rebuild_per_frame (config 5) and mip_lod; the five
-    flags that still need unported machinery raise."""
-    te.check_supported(C.config4_flythrough())
-    te.check_supported(C.RenderConfig())
-    te.check_supported(C.config5_stress())
-    te.check_supported(dataclasses.replace(C.config4_flythrough(),
-                                           mip_lod=True))
-    assert not set(REORDER_FLAGS) & set(te._UNPORTED_FLAGS)
-    assert len(te._UNPORTED_FLAGS) == 5
-    for flag in te._UNPORTED_FLAGS:
-        with pytest.raises(NotImplementedError, match=flag):
-            te.check_supported(dataclasses.replace(C.config4_flythrough(),
-                                                   **{flag: True}))
+    names = {f.name for f in dataclasses.fields(C.RenderConfig)} - {
+        "ray_block"}
+    assert names == {f.name for f in dataclasses.fields(TC.RenderConfig)}
+    base = port_config(config(4))
+    for f in dataclasses.fields(TC.RenderConfig):
+        if f.type in (bool, "bool"):
+            cfg = dataclasses.replace(base, **{f.name: not getattr(base,
+                                                                   f.name)})
+            te.Renderer(model, cfg, "cpu")
+    assert not hasattr(te, "check_supported")
+    assert not hasattr(te, "_UNPORTED_FLAGS")
 
 
 def test_unported_backend_raises(scene):

@@ -218,10 +218,13 @@ def test_shard_blocks(nb, n, per, pad):
 def test_dryrun_multichip_on_cpu(capsys):
     out = dryrun_multichip(8, "cpu")
     assert list(out) == ["reference backend", "dense backend",
-                         "dense, reorder flags off", "dense, refit tree",
+                         "dense, reorder flags off",
+                         "dense, resort_secondary",
+                         "dense, recheck_secondary",
+                         "dense, partition_closest", "dense, refit tree",
                          "dense, device-SAH rebuild", "edge raster"]
     assert all(n >= W * H for n in list(out.values())[:-1])
-    assert capsys.readouterr().out.count("sharded == unsharded") == 6
+    assert capsys.readouterr().out.count("sharded == unsharded") == 9
 
 
 SMALL = ["--config", "4", "--width", str(W), "--height", str(H)]

@@ -71,13 +71,13 @@ def tree_from_numpy(sc_boxes, cl_boxes, tri_data, leaf_tri,
 
 
 def build_clusters(v0, e1, e2, attrs=None, with_attributes: bool = False,
-                   device="cpu", method: str = "split", aabb=None,
+                   device="cuda", method: str = "split", aabb=None,
                    sah_opts: dict | None = None) -> ClusterTree:
     """Build the cluster tree.
 
     numpy inputs with method="split" (the default): the static host build
     (the JAX package's `device=False, method="split"`), moved to torch
-    `device` when done.
+    `device` when done: the card unless the caller asks for the CPU.
 
     torch tensors (or method "sah" / "morton"): the device build on the
     tensors' device (numpy inputs go to `device` first), the per-frame

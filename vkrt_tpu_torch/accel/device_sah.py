@@ -210,8 +210,8 @@ def device_sah_order(v0, e1, e2, max_levels: int = 14,
     permutation of 0..T-1 whose consecutive K1-runs are the clusters.
     One stable sort + segmented scans per level. Only the shipped mode is
     ported: any other `axis_mode`, `cuts` > 1 or `stable=False` raises
-    NotImplementedError (ROADMAP.md queue 1 item 13 lists them with the
-    reasons they measured worse)."""
+    NotImplementedError naming ROADMAP.md queue 1 item 13 (item 15 lists
+    them, still to port: ablations that measured worse)."""
     if axis_mode != "binned" or cuts != 1 or not stable:
         raise NotImplementedError(
             f"device_sah_order(axis_mode={axis_mode!r}, cuts={cuts}, "

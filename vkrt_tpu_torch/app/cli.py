@@ -80,13 +80,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "stage always samples mip 0, so golden configs "
                         "keep this off)")
     p.add_argument("--resort", action="store_true",
-                   help="secondary-dispatch resort (not ported: ROADMAP.md "
-                        "queue 1 item 13)")
+                   help="secondary-dispatch resort: reflection rays by "
+                        "direction octant, shadow segments by surface "
+                        "cell (off by default; the frame is the same)")
     p.add_argument("--no-resort", action="store_true",
                    help="secondary-dispatch resort off (its default)")
     p.add_argument("--recheck", action="store_true",
-                   help="two-level pregate (not ported: ROADMAP.md queue 1 "
-                        "item 13)")
+                   help="two-level gate of kernels A (depth >= 1) and B: "
+                        "interval candidate lists re-tested per ray (off "
+                        "by default; the frame is the same)")
     p.add_argument("--rebuild", choices=["refit", "full"], default="refit",
                    help="per-frame accel update when the config rebuilds "
                         "(config 5): 'refit' = box refit, 'full' = device "
@@ -212,9 +214,8 @@ def main(argv=None, scene=None) -> int:
     from vkrt_tpu_torch.app.flythrough import camera_path
     from vkrt_tpu_torch.app.metrics import FrameTimer, check_finite, profile
     from vkrt_tpu_torch.app.state import load_state, save_state
-    from vkrt_tpu_torch.wavefront.engine import Renderer, check_supported
+    from vkrt_tpu_torch.wavefront.engine import Renderer
 
-    check_supported(cfg)
     runtime.initialize(args.device)
     src = args.scene if scene is None else scene
     if mesh is not None:

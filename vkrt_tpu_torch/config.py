@@ -54,14 +54,15 @@ class RenderConfig:
     # derivatives and always samples level 0 (shader.rchit texture()),
     # so this must stay off in every golden-gated config.
     mip_lod: bool = False
-    # Output-neutral reorderings of the secondary wavefronts. The three
-    # shipped on (depth>=1 shadows only) are run by the port's engine
-    # (wavefront/engine.py::trace_shadows): pack the live rays
-    # (consolidate_secondary), sort 128-lane groups by surface cell
-    # (group_sort_shadows) and sort rays inside each block before the
-    # group sort (partition_shadows). Frames are bit-equal with any of
-    # them off. The rest default off and are refused by the port's engine
-    # (ROADMAP.md queue 1 item 13).
+    # Output-neutral reorderings and kernel modes of the secondary
+    # wavefronts (wavefront/engine.py). The three shipped on (depth>=1
+    # shadows only): pack the live rays (consolidate_secondary), sort
+    # 128-lane groups by surface cell (group_sort_shadows) and sort rays
+    # inside each block before the group sort (partition_shadows). Off by
+    # default: ray-granular resorts (resort_secondary), the sorted-order
+    # depth>=1 iteration (partition_closest), the candidate-list re-check
+    # of kernels A and B (recheck_secondary) and their sub-run gate
+    # (sub_gate_*). Frames are bit-equal whichever of them is on.
     resort_secondary: bool = False
     recheck_secondary: bool = False
     consolidate_secondary: bool = True

@@ -28,11 +28,21 @@
 // with 0 < tmax <= TMIN: its interval is empty (tests/test_dense.py:271).
 // The answer is whether any gated cluster holds a blocker, so the visit
 // order cannot change it.
+//
+// Two modes (walk.cuh; the TPU kernel's `sub_gate` sweep_cluster,
+// occl_multi.py:157-210, and `pregate="recheck"`, :404-450): sub_gate
+// sweeps only the 16-triangle sub-runs whose widened box a segment
+// enters; with a candidate list (wl_cid non-null: per 128-lane group of
+// surface points, the clusters that any set's interval test passes, with
+// the sets' bits in wl_smask) the block walks that list in place of its
+// own gates. Both give the default's masks.
+#include <type_traits>
+
 #include "walk.cuh"
 
 namespace vkrt {
 
-template <int NS>
+template <int NS, bool SUB, bool RECHECK>
 __global__ void __launch_bounds__(K1, 4)
 occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                   const float* __restrict__ cl_boxes,
@@ -40,7 +50,8 @@ occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                   const float* __restrict__ light_pts,  // [ns, 3]
                   const float* __restrict__ dirs,       // [ns, 3, n]
                   const float* __restrict__ tmax,       // [ns, n]
-                  int n, unsigned char* __restrict__ blocked) {  // [ns, n]
+                  int n, WorkLists wls,
+                  unsigned char* __restrict__ blocked) {        // [ns, n]
   extern __shared__ __align__(16) unsigned char dyn[];
   u64* sc_list = reinterpret_cast<u64*>(dyn);                  // [n_sc]
   uint32_t* sc_key = reinterpret_cast<uint32_t*>(sc_list + n_sc);
@@ -62,26 +73,45 @@ occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
     sh.state[j] = 0;
   }
 
-  group_walk<NS, Occl>(sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key,
-                       sc_list);
+  group_walk<NS, Occl, false, SUB, RECHECK>(
+      sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key, sc_list,
+      wls.row(blockIdx.x));
 #pragma unroll
   for (int s = 0; s < NS; ++s) blocked[(size_t)s * n + i] = sh.state[t + s * K1];
 }
 
-template <int NS>
+template <int NS, bool SUB, bool RECHECK>
 int launch(const float* sc_boxes, int c2p, int n_sc, const float* cl_boxes,
            const float* tri_data, const float* light_pts, const float* dirs,
-           const float* tmax, int n, unsigned char* blocked,
+           const float* tmax, int n, WorkLists wls, unsigned char* blocked,
            cudaStream_t stream) {
-  const size_t dyn = (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
+  const size_t dyn =
+      RECHECK ? 0 : (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
   cudaError_t err = cudaFuncSetAttribute(
-      occl_multi_kernel<NS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dyn);
+      occl_multi_kernel<NS, SUB, RECHECK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  occl_multi_kernel<NS><<<n / K1, K1, dyn, stream>>>(
-      sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, n,
+  occl_multi_kernel<NS, SUB, RECHECK><<<n / K1, K1, dyn, stream>>>(
+      sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, n, wls,
       blocked);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NS>
+int launch_modes(bool sub, const float* sc_boxes, int c2p, int n_sc,
+                 const float* cl_boxes, const float* tri_data,
+                 const float* light_pts, const float* dirs, const float* tmax,
+                 int n, WorkLists wls, unsigned char* blocked,
+                 cudaStream_t st) {
+  auto go = [&](auto s, auto r) {
+    return launch<NS, decltype(s)::value, decltype(r)::value>(
+        sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, n,
+        wls, blocked, st);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (wls.cid) return sub ? go(T{}, T{}) : go(F{}, T{});
+  return sub ? go(T{}, F{}) : go(F{}, F{});
 }
 
 }  // namespace vkrt
@@ -90,24 +120,34 @@ int launch(const float* sc_boxes, int c2p, int n_sc, const float* cl_boxes,
 // after the launch, or cudaErrorInvalidValue for ns outside 1..4, a ray
 // count that is not a multiple of 128 or a tree whose supercluster keys
 // do not fit in shared memory; the launch does not synchronise.
+// sub_gate and a non-null wl_cid select the modes (see above).
 extern "C" int vkrt_occl_multi(const float* sc_boxes, int c2p, int n_sc,
                                const float* cl_boxes, const float* tri_data,
                                const float* light_pts, const float* dirs,
-                               const float* tmax, int ns, int n,
-                               unsigned char* blocked, void* stream) {
+                               const float* tmax, int ns, int n, int sub_gate,
+                               const int* wl_cid, const float* wl_tlb,
+                               const int* wl_smask, const int* wl_count,
+                               int wl_stride, unsigned char* blocked,
+                               void* stream) {
   using namespace vkrt;
   if (n == 0) return static_cast<int>(cudaGetLastError());
   if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const WorkLists wls{wl_cid, wl_tlb, wl_smask, wl_count, wl_stride};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool sub = sub_gate != 0;
   switch (ns) {
-    case 1: return launch<1>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
-                             light_pts, dirs, tmax, n, blocked, st);
-    case 2: return launch<2>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
-                             light_pts, dirs, tmax, n, blocked, st);
-    case 3: return launch<3>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
-                             light_pts, dirs, tmax, n, blocked, st);
-    case 4: return launch<4>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
-                             light_pts, dirs, tmax, n, blocked, st);
+    case 1: return launch_modes<1>(sub, sc_boxes, c2p, n_sc, cl_boxes,
+                                   tri_data, light_pts, dirs, tmax, n, wls,
+                                   blocked, st);
+    case 2: return launch_modes<2>(sub, sc_boxes, c2p, n_sc, cl_boxes,
+                                   tri_data, light_pts, dirs, tmax, n, wls,
+                                   blocked, st);
+    case 3: return launch_modes<3>(sub, sc_boxes, c2p, n_sc, cl_boxes,
+                                   tri_data, light_pts, dirs, tmax, n, wls,
+                                   blocked, st);
+    case 4: return launch_modes<4>(sub, sc_boxes, c2p, n_sc, cl_boxes,
+                                   tri_data, light_pts, dirs, tmax, n, wls,
+                                   blocked, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -37,6 +37,17 @@
 // o_pts[i / block] (the TPU kernel's point_origin operands); the
 // arithmetic is the same, so the result equals the broadcast origins'.
 // A null attr_out skips the attribute select (with_attributes=False).
+//
+// Two modes (walk.cuh; the TPU kernel's `sub_gate` sweep, dense.py
+// :438-494, and `pregate="recheck"`, :674-727): sub_gate sweeps only the
+// 16-triangle sub-runs whose widened box a lane's ray enters before its
+// t_cur; with a candidate list (wl_cid non-null: per 128-ray group,
+// `wl_stride` entries a row, wl_count[g] of them used; wl_smask null, as
+// kernel A has one set) the block walks
+// that list in place of its own supercluster and cluster gates. Both
+// give the default's outputs bit for bit.
+#include <type_traits>
+
 #include "walk.cuh"
 
 namespace vkrt {
@@ -84,6 +95,7 @@ struct Closest {
   }
 };
 
+template <bool SUB, bool RECHECK>
 __global__ void __launch_bounds__(K1, 8)
 trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      const float* __restrict__ cl_boxes,
@@ -92,7 +104,8 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      int block,                        // 0: per-ray origins
                      const float* __restrict__ dirs,   // [3, n]
                      const float* __restrict__ tmax,   // [n]
-                     int n, float* __restrict__ t_out, int* __restrict__ slot_out,
+                     int n, WorkLists wls, float* __restrict__ t_out,
+                     int* __restrict__ slot_out,
                      float* __restrict__ u_out, float* __restrict__ v_out,
                      float* __restrict__ attr_out) {   // [36, n]
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -125,8 +138,9 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   sh.inv[t] = make_float4(r.ix, r.iy, r.iz, 0.0f);
   sh.state[t] = hit_key(tm, NO_KEY);
 
-  group_walk<1, Closest>(sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key,
-                         sc_list);
+  group_walk<1, Closest, false, SUB, RECHECK>(
+      sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key, sc_list,
+      wls.row(blockIdx.x));
 
   const u64 key = sh.state[t];
   const int best = (uint32_t)key == NO_KEY ? -1 : (int)(uint32_t)key;
@@ -148,31 +162,54 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
     attr_out[(size_t)a * n + i] = best >= 0 ? __ldg(row + a) : 0.0f;
 }
 
+template <bool SUB, bool RECHECK>
+static int launch(const float* sc_boxes, int c2p, int n_sc,
+                  const float* cl_boxes, const float* tri_data,
+                  const float* orig, int block, const float* dirs,
+                  const float* tmax, int n, WorkLists wls, float* t_out,
+                  int* slot_out, float* u_out, float* v_out, float* attr_out,
+                  cudaStream_t stream) {
+  const size_t dyn =
+      RECHECK ? 0 : (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      trace_closest_kernel<SUB, RECHECK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trace_closest_kernel<SUB, RECHECK><<<n / K1, K1, dyn, stream>>>(
+      sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
+      wls, t_out, slot_out, u_out, v_out, attr_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace vkrt
 
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a ray count that is not
 // a multiple of 128 (the wrapper's lanes) or a tree whose supercluster
 // keys do not fit in shared memory; the launch does not synchronise.
+// sub_gate and a non-null wl_cid select the modes (see above).
 extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
                                   const float* cl_boxes, const float* tri_data,
                                   const float* orig, int block,
                                   const float* dirs, const float* tmax,
-                                  int n, float* t_out,
+                                  int n, int sub_gate, const int* wl_cid,
+                                  const float* wl_tlb, const int* wl_smask,
+                                  const int* wl_count, int wl_stride,
+                                  float* t_out,
                                   int* slot_out, float* u_out, float* v_out,
                                   float* attr_out, void* stream) {
   using namespace vkrt;
-  if (n > 0) {
-    if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t dyn = (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
-    cudaError_t err = cudaFuncSetAttribute(
-        trace_closest_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)dyn);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    trace_closest_kernel<<<n / K1, K1, dyn,
-                           static_cast<cudaStream_t>(stream)>>>(
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const WorkLists wls{wl_cid, wl_tlb, wl_smask, wl_count, wl_stride};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto sub, auto recheck) {
+    return launch<decltype(sub)::value, decltype(recheck)::value>(
         sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
-        t_out, slot_out, u_out, v_out, attr_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+        wls, t_out, slot_out, u_out, v_out, attr_out, st);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (wl_cid) return sub_gate ? go(T{}, T{}) : go(F{}, T{});
+  return sub_gate ? go(T{}, F{}) : go(F{}, F{});
 }

@@ -33,9 +33,34 @@
 //      need the cluster. A hit is committed through shared memory
 //      (`P::pair`).
 //
-// Shared memory: WalkShared (static, 22.6 KB for A, 21.7 KB for A' and
-// B at NS 1, 42.8 KB for B at NS 4) and 12 bytes a supercluster
-// (dynamic: the keys and the sorted list).
+// Two modes of kernels A and B (template flags, off by default; the
+// JAX kernels' `sub_gate` and `pregate="recheck"`). Neither changes an
+// output bit: both only skip work that cannot commit.
+//
+//   SUB      step 4 with the cluster's 8 sub-run boxes (tri_data rows 0-7,
+//            cols 40-45: 16 triangles each), staged with the rows. Each
+//            listed lane tests them at its own far bound, the boxes widened
+//            by SUB_MARGIN (so that rounding cannot drop a hit on a box
+//            face); thread k sweeps only the lanes whose bit k/16 is set.
+//            Inverted boxes (empty sub-runs: zeroed rows) are skipped.
+//   RECHECK  steps 1-2 replaced by a candidate list made before the launch
+//            (rt/dense.py::closest_worklists, rt/occl_multi.py::
+//            multi_worklists): per 128-lane group, the clusters whose
+//            interval slab test (all the group's rays at once) passes,
+//            sorted by that test's entry lower bound `tlb`, with B's set
+//            bits. The block reads it from global memory in chunks of 64:
+//            it stops where no lane's far bound reaches the chunk's first
+//            `tlb`; else each lane re-tests the chunk's cluster boxes at
+//            its own far bound, which gives exact keys, and the chunk is
+//            walked as step 3 walks a supercluster's list. A lane sweeps
+//            a cluster where its own test of the cluster's box passes,
+//            which implies the supercluster's (the boxes nest and the
+//            rounding of the slab test is monotone): the pairs of the
+//            default walk.
+//
+// Shared memory: WalkShared (static, 23.3 KB for A, 22.4 KB for A' and
+// B at NS 1, 44.0 KB for B at NS 4) and 12 bytes a supercluster
+// (dynamic: the keys and the sorted list; none under RECHECK).
 #pragma once
 
 #include "common.cuh"
@@ -44,6 +69,37 @@ namespace vkrt {
 
 constexpr uint32_t NO_KEY = 0xffffffffu;
 constexpr int STAGE_Q = 3;               // float4 a staged row (cols 0-11)
+constexpr int SUBRUNS = 8;               // sub-run boxes a cluster
+constexpr int SUB_COL = 40;              // their columns 40-45 (of 40-47)
+constexpr int SUB_Q = 2;                 // float4 a staged sub-run box
+constexpr float SUB_MARGIN_ABS = 1e-3f;  // sub-box widening: abs + rel x
+constexpr float SUB_MARGIN_REL = 1e-4f;  // the corner's magnitude
+
+// The block's candidate list (RECHECK): cluster ids, entry lower bounds
+// (ascending) and, for B, set bits; `count` entries.
+struct WorkList {
+  const int* cid;
+  const float* tlb;
+  const int* smask;                      // null: every set
+  int count;
+};
+
+// Every group's list: rows of `stride` entries, count[g] of row g used
+// (cid null: no lists, the default walk).
+struct WorkLists {
+  const int* cid;
+  const float* tlb;
+  const int* smask;
+  const int* count;
+  int stride;
+
+  __device__ __forceinline__ WorkList row(int g) const {
+    if (cid == nullptr) return WorkList{nullptr, nullptr, nullptr, 0};
+    const size_t o = (size_t)g * stride;
+    return WorkList{cid + o, tlb + o, smask ? smask + o : nullptr,
+                    __ldg(count + g)};
+  }
+};
 
 template <int NS, class State>
 struct WalkShared {
@@ -52,15 +108,39 @@ struct WalkShared {
   float4 org[NL];                        // ox oy oz, tmax
   float4 dir[NL];                        // dx dy dz, -
   float4 inv[NL];                        // ix iy iz, far bound of the gates
+  float4 sub[2][SUBRUNS * SUB_Q];        // SUB: two clusters' sub-run boxes
   State state[NL];                       // A: (t, slot) key; A', B: blocked
   short live[NL];                        // lanes with tmax > TMIN
   short need[NL];                        // lanes that need the cluster
   short pass[NL];                        // lanes that pass the supercluster
+  unsigned char sub_mask[NL];            // SUB: need[p]'s sub-run bits
   float box[6][K2];                      // the supercluster's cluster boxes
+  int ch_cid[K2];                        // RECHECK: the chunk's cluster ids
+  int ch_smask[K2];                      // ... and set bits
   uint32_t cl_key[K2];
   u64 cl_list[K2];                       // sorted cluster keys
   int n_live, n_gated, n_pass, n_need[2];
 };
+
+// Sub-run box test (SUB): the box (lo, hi as 6 floats) widened by
+// SUB_MARGIN_ABS + SUB_MARGIN_REL x max(|lo|, |hi|) on each axis, then
+// the slab test at far bound t_s; an inverted box (lo.x > hi.x) fails.
+__device__ __forceinline__ bool sub_pass(const float* b, float ox, float oy,
+                                         float oz, float ix, float iy,
+                                         float iz, float t_s) {
+  if (!(b[0] <= b[3])) return false;
+  float w[6];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float m = SUB_MARGIN_ABS +
+                    SUB_MARGIN_REL * fmaxf(fabsf(b[a]), fabsf(b[a + 3]));
+    w[a] = b[a] - m;
+    w[a + 3] = b[a + 3] + m;
+  }
+  float tn;
+  return slab(ox, oy, oz, ix, iy, iz, w[0], w[1], w[2], w[3], w[4], w[5],
+              t_s, tn);
+}
 
 // The least entry t, as an ordered key (NO_KEY if none), over the lanes
 // list[begin, end) whose slab test of the box passes at their gate bound
@@ -99,21 +179,178 @@ __device__ __forceinline__ u64 list_key(uint32_t key, int id) {
   return ((u64)key << 32) | (uint32_t)id;
 }
 
+// Steps 3-4 over the sorted list sh.cl_list[0, ncl): entry keys hold the
+// least entry t above and, below, the cluster id (default: its box is
+// sh.box[.][id & 63]) or, under RECHECK, its chunk position (id in
+// sh.ch_cid, box in sh.box). Ends with a barrier.
+template <int NS, class P, bool SUB, bool RECHECK>
+__device__ __forceinline__ void walk_list(
+    WalkShared<NS, typename P::State>& sh, int ncl,
+    const float* __restrict__ tri_data) {
+  const int t = threadIdx.x, lane = t & 31;
+  auto cluster = [&](int q, int& c) {
+    const int low = (int)(uint32_t)sh.cl_list[q];
+    c = RECHECK ? low : (low & (K2 - 1));
+    return RECHECK ? sh.ch_cid[low] : low;
+  };
+  auto stage = [&](int q, int buf) {
+    int c;
+    const float* src = tri_data + (size_t)cluster(q, c) * K1 * ROWS;
+    float4* dst = sh.stage[buf];
+    for (int i = t; i < K1 * STAGE_Q; i += K1) {
+      const int row = i / STAGE_Q, part = i - row * STAGE_Q;
+      cp_async16(dst + i, src + (size_t)row * ROWS + part * 4);
+    }
+    if (SUB && t < SUBRUNS * SUB_Q)
+      cp_async16(&sh.sub[buf][t], src + (size_t)(t / SUB_Q) * ROWS +
+                                      SUB_COL + (t % SUB_Q) * 4);
+    cp_async_commit();
+  };
+
+  if (ncl > 0) stage(0, 0);
+  for (int q = 0; q < ncl; ++q) {
+    cp_async_wait_all();                 // my copies of cluster q
+    __syncthreads();                     // cluster q staged, q-1 swept
+    const u64 ckey = sh.cl_list[q];
+    const float centry = unordered((uint32_t)(ckey >> 32));
+    int c;
+    const int cid = cluster(q, c);
+    const int sets = (RECHECK && NS > 1) ? sh.ch_smask[c] : ~0;
+    bool wanted = false;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int j = t + k * K1;
+      const float far = P::far(sh, j);
+      const float4 o = sh.org[j], v = sh.inv[j];
+      float tn;
+      const bool need =
+          ((sets >> k) & 1) && v.w > 0.0f &&
+          slab(o.x, o.y, o.z, v.x, v.y, v.z, sh.box[0][c], sh.box[1][c],
+               sh.box[2][c], sh.box[3][c], sh.box[4][c], sh.box[5][c], far,
+               tn);
+      wanted |= far > TMIN && centry <= far;
+      push_hits(need, (short)j, sh.need, &sh.n_need[q & 1], lane);
+    }
+    // the list is sorted, so a cluster no lane wants ends it
+    if (!__syncthreads_or(wanted)) break;
+    if (q + 1 < ncl) stage(q + 1, (q + 1) & 1);
+    if (t == 0) sh.n_need[(q + 1) & 1] = 0;
+    const int nn = sh.n_need[q & 1];
+    if (SUB) {
+      // each listed lane's sub-run bits at its own far bound
+      const float* sb = reinterpret_cast<const float*>(sh.sub[q & 1]);
+      for (int p = t; p < nn; p += K1) {
+        const int j = sh.need[p];
+        const float far = P::far(sh, j);
+        const float4 o = sh.org[j], v = sh.inv[j];
+        unsigned m = 0;
+#pragma unroll
+        for (int r = 0; r < SUBRUNS; ++r)
+          m |= (unsigned)sub_pass(sb + r * SUB_Q * 4, o.x, o.y, o.z, v.x,
+                                  v.y, v.z, far) << r;
+        sh.sub_mask[p] = (unsigned char)m;
+      }
+      __syncthreads();
+    }
+    // 4. thread t: triangle t against every lane that needs the cluster
+    const float4* row = sh.stage[q & 1] + STAGE_Q * t;
+    const float4 q0 = row[0], q1 = row[1], q2 = row[2];
+    const int slot = cid * K1 + t;
+    if (SUB) {
+      const unsigned bit = 1u << (t / (K1 / SUBRUNS));
+      for (int p = 0; p < nn; ++p)
+        if (sh.sub_mask[p] & bit) P::pair(sh, sh.need[p], q0, q1, q2, slot);
+    } else {
+      for (int p = 0; p < nn; ++p) P::pair(sh, sh.need[p], q0, q1, q2, slot);
+    }
+  }
+  __syncthreads();                       // the last sweep's commits
+}
+
+// RECHECK in place of steps 1-2: the block's candidate list, in chunks
+// of K2 (see the header). Every thread must call it.
+template <int NS, class P, bool SUB>
+__device__ __forceinline__ void walk_worklist(
+    WalkShared<NS, typename P::State>& sh, const float* __restrict__ cl_boxes,
+    const float* __restrict__ tri_data, WorkList wl) {
+  const int t = threadIdx.x, lane = t & 31;
+  for (int e0 = 0; e0 < wl.count; e0 += K2) {
+    // every lane's far bound against the least bound left (ascending)
+    const float lb = __ldg(wl.tlb + e0);
+    bool want = false;
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      const int j = t + k * K1;
+      const float far = P::far(sh, j);
+      sh.inv[j].w = far;
+      want |= far > TMIN && lb <= far;
+      push_hits(far > TMIN, (short)j, sh.pass, &sh.n_pass, lane);
+    }
+    if (t < K2) sh.cl_key[t] = NO_KEY;
+    if (t == 0) sh.n_need[0] = sh.n_need[1] = 0;
+    // (every lane is past the previous chunk's walk here)
+    if (!__syncthreads_or(want)) break;
+    {
+      const int npass = sh.n_pass, n = min(K2, wl.count - e0);
+      const int c = t & (K2 - 1), h = t / K2, half = (npass + 1) / 2;
+      if (c < n) {
+        const int cid = __ldg(wl.cid + e0 + c);
+        const float* b = cl_boxes + (size_t)(cid / K2) * 8 * K2 + (cid % K2);
+        const float lx = __ldg(b + 0 * K2), ly = __ldg(b + 1 * K2);
+        const float lz = __ldg(b + 2 * K2), hx = __ldg(b + 3 * K2);
+        const float hy = __ldg(b + 4 * K2), hz = __ldg(b + 5 * K2);
+        if (h == 0) {
+          sh.box[0][c] = lx;
+          sh.box[1][c] = ly;
+          sh.box[2][c] = lz;
+          sh.box[3][c] = hx;
+          sh.box[4][c] = hy;
+          sh.box[5][c] = hz;
+          sh.ch_cid[c] = cid;
+          sh.ch_smask[c] = wl.smask ? __ldg(wl.smask + e0 + c) : ~0;
+        }
+        if (lx <= hx) {                     // padding clusters: min > max
+          const uint32_t k = least_entry<false>(
+              sh, sh.pass, h * half, min(npass, h * half + half), lx, ly,
+              lz, hx, hy, hz);
+          if (k != NO_KEY) atomicMin(&sh.cl_key[c], k);
+        }
+      }
+    }
+    __syncthreads();
+    if (t == 0) sh.n_pass = 0;             // (read above, pushed next time)
+    bool hit = false;
+    if (t < K2) {
+      const u64 key = list_key(sh.cl_key[t], t);
+      int rank = 0;
+      for (int j = 0; j < K2; ++j) rank += list_key(sh.cl_key[j], j) < key;
+      sh.cl_list[rank] = key;
+      hit = sh.cl_key[t] != NO_KEY;
+    }
+    walk_list<NS, P, SUB, true>(sh, __syncthreads_count(hit), tri_data);
+  }
+}
+
 // Walk the tree for the block's lanes. Before the call each thread has
 // written org, dir, inv (xyz) and state of its lanes t + 128 k; after it
 // (the last step is a barrier) every lane's state is final. The policy P
 // gives `far(sh, j)`, lane j's current far bound (0 once it wants
 // nothing), and `pair(sh, j, q0, q1, q2, slot)`, one (lane, staged
 // triangle) test. ONE_ORIGIN: every lane has the same origin (A' with
-// point origins). Every thread of the block must call it.
-template <int NS, class P, bool ONE_ORIGIN = false>
+// point origins). SUB, RECHECK: the modes of the header; `wl` is the
+// block's candidate list under RECHECK. Every thread of the block must
+// call it.
+template <int NS, class P, bool ONE_ORIGIN = false, bool SUB = false,
+          bool RECHECK = false>
 __device__ __forceinline__ void group_walk(
     WalkShared<NS, typename P::State>& sh, const float* __restrict__ sc_boxes,
     int c2p, int n_sc, const float* __restrict__ cl_boxes,
-    const float* __restrict__ tri_data, uint32_t* sc_key, u64* sc_list) {
+    const float* __restrict__ tri_data, uint32_t* sc_key, u64* sc_list,
+    WorkList wl = WorkList{}) {
   const int t = threadIdx.x, lane = t & 31;
   if (t == 0) sh.n_live = sh.n_gated = sh.n_pass = 0;
-  for (int s = t; s < n_sc; s += K1) sc_key[s] = NO_KEY;
+  if (!RECHECK)
+    for (int s = t; s < n_sc; s += K1) sc_key[s] = NO_KEY;
   __syncthreads();
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
@@ -125,6 +362,10 @@ __device__ __forceinline__ void group_walk(
   __syncthreads();
   const int nlive = sh.n_live;
   if (nlive == 0) return;                       // (the whole block)
+  if (RECHECK) {
+    walk_worklist<NS, P, SUB>(sh, cl_boxes, tri_data, wl);
+    return;
+  }
 
   // 1. supercluster keys: neighbouring threads on neighbouring
   // superclusters and the same 32 live lanes (broadcast reads)
@@ -150,17 +391,6 @@ __device__ __forceinline__ void group_walk(
   if (gated) atomicAdd(&sh.n_gated, gated);
   __syncthreads();
   const int nsc = sh.n_gated;
-
-  auto stage = [&](int q, int buf) {
-    const int cid = (int)(uint32_t)sh.cl_list[q];
-    const float* src = tri_data + (size_t)cid * K1 * ROWS;
-    float4* dst = sh.stage[buf];
-    for (int i = t; i < K1 * STAGE_Q; i += K1) {
-      const int row = i / STAGE_Q, part = i - row * STAGE_Q;
-      cp_async16(dst + i, src + (size_t)row * ROWS + part * 4);
-    }
-    cp_async_commit();
-  };
 
   for (int e = 0; e < nsc; ++e) {
     // 2. this supercluster: each lane's own test, then the cluster keys
@@ -220,43 +450,8 @@ __device__ __forceinline__ void group_walk(
       sh.cl_list[rank] = key;
       hit = sh.cl_key[t] != NO_KEY;
     }
-    const int ncl = __syncthreads_count(hit);
-
-    // 3. the clusters, front to back
-    if (ncl > 0) stage(0, 0);
-    for (int q = 0; q < ncl; ++q) {
-      cp_async_wait_all();                 // my copies of cluster q
-      __syncthreads();                     // cluster q staged, q-1 swept
-      const u64 ckey = sh.cl_list[q];
-      const float centry = unordered((uint32_t)(ckey >> 32));
-      const int cid = (int)(uint32_t)ckey, c = cid & (K2 - 1);
-      bool wanted = false;
-#pragma unroll
-      for (int k = 0; k < NS; ++k) {
-        const int j = t + k * K1;
-        const float far = P::far(sh, j);
-        const float4 o = sh.org[j], v = sh.inv[j];
-        float tn;
-        const bool need =
-            v.w > 0.0f &&
-            slab(o.x, o.y, o.z, v.x, v.y, v.z, sh.box[0][c], sh.box[1][c],
-                 sh.box[2][c], sh.box[3][c], sh.box[4][c], sh.box[5][c], far,
-                 tn);
-        wanted |= far > TMIN && centry <= far;
-        push_hits(need, (short)j, sh.need, &sh.n_need[q & 1], lane);
-      }
-      // the list is sorted, so a cluster no lane wants ends it
-      if (!__syncthreads_or(wanted)) break;
-      if (q + 1 < ncl) stage(q + 1, (q + 1) & 1);
-      if (t == 0) sh.n_need[(q + 1) & 1] = 0;
-      // 4. thread t: triangle t against every lane that needs the cluster
-      const int nn = sh.n_need[q & 1];
-      const float4* row = sh.stage[q & 1] + STAGE_Q * t;
-      const float4 q0 = row[0], q1 = row[1], q2 = row[2];
-      const int slot = cid * K1 + t;
-      for (int p = 0; p < nn; ++p) P::pair(sh, sh.need[p], q0, q1, q2, slot);
-    }
-    __syncthreads();                       // the last sweep's commits
+    // 3. the clusters, front to back, and 4. their sweeps
+    walk_list<NS, P, SUB, false>(sh, __syncthreads_count(hit), tri_data);
   }
 }
 

@@ -48,12 +48,10 @@ def main(argv=None, scene=None) -> int:
     from vkrt_tpu_torch.scene import (build_texture_heap, flatten_model,
                                       load_model)
     from vkrt_tpu_torch.scene.model import Model
-    from vkrt_tpu_torch.wavefront.engine import (check_supported,
-                                                 make_backend, render_frame,
+    from vkrt_tpu_torch.wavefront.engine import (make_backend, render_frame,
                                                  texture_arrays,
                                                  upload_matrix)
 
-    check_supported(cfg)
     runtime.initialize(args.device)
     dev = torch.device(args.device)
     model = scene if scene is not None else load_model(

@@ -112,13 +112,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build().path))
     lib.vkrt_trace_closest.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P,
-                                       _I, _P, _P, _P, _P, _P, _P]
+                                       _I, _I, _P, _P, _P, _P, _I, _P, _P,
+                                       _P, _P, _P, _P]
     lib.vkrt_trace_closest.restype = _I
     lib.vkrt_trace_occluded.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P,
                                         _I, _P, _P, _P, _P, _P]
     lib.vkrt_trace_occluded.restype = _I
     lib.vkrt_occl_multi.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                                    _P, _P]
+                                    _I, _P, _P, _P, _P, _I, _P, _P]
     lib.vkrt_occl_multi.restype = _I
     lib.vkrt_consolidate.argtypes = [_P, _P, _I, _I, _P, _P]
     lib.vkrt_scatter_back.argtypes = [_P, _P, _I, _I, _P, _P]

@@ -8,14 +8,13 @@ is equality):
 
   * the reference backend (LBVH) and the dense backend (kernels A-F);
   * dense, the three depth>=1 reorder flags off: the same frame;
+  * dense with resort_secondary, with recheck_secondary and with
+    partition_closest (the JAX run's three steps): the same frame;
   * dense, on a refit tree and on a full device-SAH rebuild;
   * the edge rasterizer (kernel G), sharded against unsharded.
 
     python -c "from vkrt_tpu_torch.parallel.dryrun import dryrun_multichip; \\
                dryrun_multichip(8, 'cpu')"
-
-The JAX run's resort, recheck and partition-closest steps are variants
-this port leaves out (ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -81,6 +80,10 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     dense = check("dense backend", r.backend)
     check("dense, reorder flags off", r.backend,
           dataclasses.replace(cfg, **REORDER_OFF), want=dense)
+    for flag in ("resort_secondary", "recheck_secondary",
+                 "partition_closest"):
+        check(f"dense, {flag}", r.backend,
+              dataclasses.replace(cfg, **{flag: True}), want=dense)
     full = copy.copy(r)
     full.rebuild = "full"
     for label, tree in (("dense, refit tree", r.update_tree(_rot_y(0.05))),

@@ -20,14 +20,23 @@ the clusters in: kernel A walks them front to back by entry t and commits
 a hit where t < the committed t, or t equals it and the slot is lower. In
 occlusion mode slot >= 0 means blocked: a blocked ray reads slot 1,
 t = TMIN, a free one slot -1, t = inf; u, v (and attrs) are 0.
+
+Kernel A's two modes (`sub_gate`, `pregate="recheck"`) and their
+prologue live here too: `interval_gate`, `partition_worklists`,
+`cluster_bounds` and `recheck_lists` (the JAX package's XLA prologue,
+dense.py:73-211) build the per-group candidate lists; `sub_run_pass` is
+the sub-run box test. The modes skip work and change no output.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from vkrt_tpu_torch import kernels
-from vkrt_tpu_torch.accel.clusters import K1, K2, ROWS, ClusterTree
+from vkrt_tpu_torch.accel.clusters import (K1, K2, ROWS, SUB_COL, SUBRUNS,
+                                           ClusterTree)
 
 TMIN = 0.001          # ref: shaders/shader.rgen:59
 _DET_EPS = 1e-12
@@ -37,10 +46,188 @@ RAY_CHUNK = 8192      # plain versions: rays gated at a time
 PAIR_CHUNK = 16384    # plain versions: (ray, cluster) pairs tested at a time
 
 
+_INF = 3.0e38         # the interval gate's "unbounded"
+SUB_MARGIN_ABS = 1e-3  # sub-run box widening (csrc/walk.cuh `sub_pass`):
+SUB_MARGIN_REL = 1e-4  # abs + rel x the corner's magnitude, each axis
+PREGATES = ("", "recheck")
+ITEM_15 = "ROADMAP.md queue 1 item 15"
+
+
 def _safe_inv(x):
     tiny = 1e-20
     return 1.0 / torch.where(x.abs() < tiny,
                              torch.where(x < 0, -tiny, tiny), x)
+
+
+def _pregate(pregate) -> str:
+    """The JAX `pregate` argument as a mode name: False / "" (the kernel's
+    own gates) or "recheck"; the interval pregate (True, "interval") is
+    not ported."""
+    mode = {False: "", None: ""}.get(pregate, pregate)
+    if mode not in PREGATES:
+        raise NotImplementedError(
+            f"pregate={pregate!r} is not ported ({ITEM_15}); the port has "
+            f"{PREGATES}")
+    return mode
+
+
+def interval_gate(tree: ClusterTree, origins, dirs, tmax, *, block: int,
+                  point_origin: bool):
+    """Conservative per-(block, cluster) gate and entry lower bound by
+    interval slab tests (vkrt_tpu/rt/dense.py::_interval_gate, the same
+    operations): the live rays of each block of `block` rays are summed up
+    as per-axis origin and direction intervals. A cluster is gated unless
+    the interval test rules out every ray, so every (block, cluster) pair
+    that a ray's own slab test passes at its tmax is gated (monotone
+    rounding keeps the intervals' products around each ray's).
+
+    origins f32[3,Nb,128] (point_origin: f32[N/block, 3]), dirs
+    f32[3,Nb,128], tmax f32[Nb,128] → (gate bool[nblocks, maxc], tlb
+    f32[nblocks, maxc], nblocks); tlb = 0.9999 x max(entry bound, 0)."""
+    maxc = tree.tri_data.shape[0]
+    nblocks = tmax.numel() // block
+    live = tmax.reshape(nblocks, block) > TMIN
+    d = dirs.reshape(3, nblocks, block)
+    big = _INF
+
+    def masked_minmax(v):
+        return (torch.where(live, v, big).amin(dim=1),
+                torch.where(live, v, -big).amax(dim=1))
+
+    dmin, dmax = zip(*[masked_minmax(d[a]) for a in range(3)])
+    if point_origin:
+        ob = origins.T                                   # [3, nblocks]
+        omin = omax = [ob[a] for a in range(3)]
+    else:
+        o = origins.reshape(3, nblocks, block)
+        omin, omax = zip(*[masked_minmax(o[a]) for a in range(3)])
+    tmax_max = torch.where(live, tmax.reshape(nblocks, block),
+                           0.0).amax(dim=1)
+    lo = [tree.cl_boxes[:, a, :].reshape(-1)[:maxc] for a in range(3)]
+    hi = [tree.cl_boxes[:, a + 3, :].reshape(-1)[:maxc] for a in range(3)]
+
+    tn_low = torch.full((nblocks, maxc), -big, device=dirs.device)
+    tf_high = torch.full((nblocks, maxc), big, device=dirs.device)
+    for a in range(3):
+        bounded = (dmin[a] > 1e-20) | (dmax[a] < -1e-20)
+        # reciprocal interval [1/dmax, 1/dmin] of an axis whose directions
+        # share one sign; a sign-spanning axis adds no constraint
+        i_lo = torch.where(bounded, 1.0 / torch.where(bounded, dmax[a], 1.0),
+                           -big)[:, None]
+        i_hi = torch.where(bounded, 1.0 / torch.where(bounded, dmin[a], 1.0),
+                           big)[:, None]
+
+        def hull(nl, nh):
+            c = [nl * i_lo, nl * i_hi, nh * i_lo, nh * i_hi]
+            return (torch.minimum(torch.minimum(c[0], c[1]),
+                                  torch.minimum(c[2], c[3])),
+                    torch.maximum(torch.maximum(c[0], c[1]),
+                                  torch.maximum(c[2], c[3])))
+
+        t0_lo, t0_hi = hull(lo[a][None, :] - omax[a][:, None],
+                            lo[a][None, :] - omin[a][:, None])
+        t1_lo, t1_hi = hull(hi[a][None, :] - omax[a][:, None],
+                            hi[a][None, :] - omin[a][:, None])
+        unb = ~bounded[:, None]
+        tn_low = torch.maximum(tn_low, torch.where(
+            unb, -big, torch.minimum(t0_lo, t1_lo)))
+        tf_high = torch.minimum(tf_high, torch.where(
+            unb, big, torch.maximum(t0_hi, t1_hi)))
+
+    valid = lo[0] <= hi[0]                               # padding clusters
+    gate = ((tn_low <= tf_high) & (tf_high >= TMIN)
+            & (tn_low <= tmax_max[:, None]) & valid[None, :])
+    tlb = 0.9999 * torch.clamp(torch.where(tn_low <= -big, 0.0, tn_low),
+                               min=0.0)
+    return gate, tlb, nblocks
+
+
+def partition_worklists(gate, tlb, extra=None):
+    """Gated clusters of each row to the front, in id order, without a
+    sort (vkrt_tpu/rt/dense.py::_partition_worklists): a stable partition,
+    the rest behind them in id order; rows padded to a multiple of 64
+    (order 0, tlb 0). gate bool[nb, maxc], tlb f32[nb, maxc], extra
+    i32[nb, maxc] or None → (order i32[nb, cp], tlb f32[nb, cp], count
+    i32[nb][, extra i32[nb, cp]]); tlb is 0 where not gated."""
+    nb, maxc = gate.shape
+    g = gate.to(torch.int32)
+    iota = torch.arange(maxc, dtype=torch.int32, device=gate.device)[None, :]
+    ones = torch.cumsum(g, dim=1, dtype=torch.int32)
+    count = ones[:, -1]
+    pos = torch.where(gate, ones - 1, count[:, None] + iota - ones).long()
+    order = torch.empty_like(g).scatter_(1, pos, iota.expand(nb, -1))
+    tlb_s = torch.where(gate, tlb, 0.0).gather(1, order.long())
+    pad = -(-maxc // 64) * 64 - maxc
+    out = (torch.nn.functional.pad(order, (0, pad)),
+           torch.nn.functional.pad(tlb_s, (0, pad)), count)
+    if extra is not None:
+        out += (torch.nn.functional.pad(extra.gather(1, order.long()),
+                                        (0, pad)),)
+    return out
+
+
+def cluster_bounds(tree: ClusterTree):
+    """Every cluster's box as a flat table f32[6, maxc] (lo xyz, hi xyz),
+    cluster id order (vkrt_tpu/rt/dense.py::_cluster_bounds_smem: what
+    its re-check reads for a candidate; here the plain versions' gate)."""
+    maxc = tree.tri_data.shape[0]
+    return torch.cat([tree.cl_boxes[:, a, :].reshape(1, -1)[:, :maxc]
+                      for a in range(6)])
+
+
+class WorkLists(NamedTuple):
+    """Per-group candidate lists of the re-check (kernels A and B with
+    pregate="recheck"): row g holds count[g] cluster ids in ascending
+    order of their entry lower bound, then padding."""
+    cid: torch.Tensor                 # i32[G, cp]
+    tlb: torch.Tensor                 # f32[G, cp]
+    count: torch.Tensor               # i32[G]
+    smask: torch.Tensor | None        # i32[G, cp]: kernel B's set bits
+
+
+def recheck_lists(gate, tlb, extra=None) -> WorkLists:
+    """`partition_worklists`, then each row's gated prefix sorted by tlb
+    (stable): the order in which a block can stop at the first entry that
+    no lane's far bound reaches."""
+    out = partition_worklists(gate, tlb, extra)
+    order, tlb_p, count = out[:3]
+    used = (torch.arange(order.shape[1], device=order.device)[None, :]
+            < count[:, None])
+    srt = torch.sort(torch.where(used, tlb_p, torch.inf), dim=1,
+                     stable=True).indices
+    smask = out[3].gather(1, srt).contiguous() if extra is not None else None
+    return WorkLists(order.gather(1, srt).contiguous(),
+                     tlb_p.gather(1, srt).contiguous(), count.contiguous(),
+                     smask)
+
+
+def closest_worklists(tree: ClusterTree, origins, dirs, tmax, *,
+                      point_origin: bool = False,
+                      block: int = 512) -> WorkLists:
+    """Kernel A's re-check prologue: one interval gate per 128-ray group
+    (the walk's unit; the JAX kernel's lists are per `block`, which gives
+    wider intervals), as `recheck_lists`. With point_origin, `origins` is
+    one point per `block` rays."""
+    if point_origin:
+        origins = origins.repeat_interleave(block // LANES, dim=0)
+    gate, tlb, _ = interval_gate(tree, origins, dirs, tmax, block=LANES,
+                                 point_origin=point_origin)
+    return recheck_lists(gate, tlb)
+
+
+def listed_matrix(lists: WorkLists, maxc: int, nsets: int = 1):
+    """The (row, cluster) pairs the lists nominate: bool[nsets * G, maxc],
+    row s * G + g for set s of group g (nsets > 1: the set bits decide)."""
+    ng, cp = lists.cid.shape
+    used = (torch.arange(cp, device=lists.cid.device)[None, :]
+            < lists.count[:, None])
+    out = torch.zeros(nsets, ng, maxc + 1, dtype=torch.bool,
+                      device=lists.cid.device)
+    for s in range(nsets):
+        on = used if lists.smask is None else (
+            used & (((lists.smask >> s) & 1) > 0))
+        out[s].scatter_(1, torch.where(on, lists.cid.long(), maxc), True)
+    return out[:, :, :maxc].reshape(nsets * ng, maxc)
 
 
 def _check_tree(tree: ClusterTree, device) -> None:
@@ -70,19 +257,22 @@ def _slab(o, inv, lo, hi, t_s):
     return (tn <= tf) & (tf >= TMIN) & (tn <= t_s) & (t_s > TMIN)
 
 
-def gated_pairs(tree: ClusterTree, o, d, tmax):
+def gated_pairs(tree: ClusterTree, o, d, tmax, listed=None):
     """Yield (ray index, cluster id) pairs, RAY_CHUNK rays gated at a time
     and at most PAIR_CHUNK pairs per yield (so memory stays bounded at
     any ray count): every cluster whose box, and whose supercluster's box,
     the ray's slab test passes against its own tmax. o, d [3,N], tmax [N].
     The gate is the kernels' own, evaluated with tmax for the far bound
     (the kernels shrink it to the nearest hit so far, which only skips
-    clusters that cannot hold a nearer hit)."""
+    clusters that cannot hold a nearer hit). With `listed` (bool[N/128,
+    maxc], `listed_matrix`: the re-check's candidates of each 128-ray
+    row) a pair needs its cluster listed for the ray's row and the ray's
+    own test of the cluster's box, the kernels' re-check."""
     n_sc = tree.num_superclusters
     inv = _safe_inv(d)
     sc_lo, sc_hi = tree.sc_boxes[0:3, :n_sc], tree.sc_boxes[3:6, :n_sc]
-    cl_lo = tree.cl_boxes[:, 0:3, :].permute(1, 0, 2).reshape(3, -1)
-    cl_hi = tree.cl_boxes[:, 3:6, :].permute(1, 0, 2).reshape(3, -1)
+    bounds = cluster_bounds(tree)
+    cl_lo, cl_hi = bounds[0:3], bounds[3:6]
     valid = cl_lo[0] <= cl_hi[0]                      # padding clusters
     n = tmax.shape[0]
     for r0 in range(0, n, RAY_CHUNK):
@@ -90,9 +280,13 @@ def gated_pairs(tree: ClusterTree, o, d, tmax):
         ro, ri, rt = o[:, r0:r1], inv[:, r0:r1], tmax[r0:r1]
         if not bool((rt > TMIN).any()):
             continue
-        g_sc = _slab(ro, ri, sc_lo, sc_hi, rt)
-        gate = (_slab(ro, ri, cl_lo, cl_hi, rt) & valid[None]
-                & g_sc.repeat_interleave(K2, dim=1))
+        gate = _slab(ro, ri, cl_lo, cl_hi, rt) & valid[None]
+        if listed is None:
+            g_sc = _slab(ro, ri, sc_lo, sc_hi, rt)
+            gate &= g_sc.repeat_interleave(K2, dim=1)
+        else:
+            rows = torch.arange(r0, r1, device=o.device) // LANES
+            gate &= listed[rows]
         ray, cl = torch.nonzero(gate, as_tuple=True)
         for p0 in range(0, ray.shape[0], PAIR_CHUNK):
             yield ray[p0:p0 + PAIR_CHUNK] + r0, cl[p0:p0 + PAIR_CHUNK]
@@ -120,10 +314,45 @@ def _mt_terms(tri, o, d):
     return det, up, vp, tp
 
 
-def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax):
+def sub_run_pass(tree: ClusterTree, cl, o, inv, t_s):
+    """Sub-run box tests of pairs (the kernels' `sub_pass`): cluster ids
+    cl [P], ray origins and inverse directions o, inv [3,P], far bounds
+    t_s [P] → bool[P, SUBRUNS]. Each box (tri_data rows 0-7, cols 40-45)
+    is widened by SUB_MARGIN_ABS + SUB_MARGIN_REL x max(|lo|, |hi|) per
+    axis before the slab test, so that a hit on a box face survives the
+    rounding; an inverted box (an empty sub-run: zeroed rows, which hold
+    no hit) fails."""
+    b = tree.tri_data[cl, :SUBRUNS, SUB_COL:SUB_COL + 6]       # [P, 8, 6]
+    lo, hi = b[..., 0:3], b[..., 3:6]
+    m = SUB_MARGIN_ABS + SUB_MARGIN_REL * torch.maximum(lo.abs(), hi.abs())
+    wlo, whi = lo - m, hi + m
+    tn = tf = None
+    for a in range(3):
+        t0 = (wlo[..., a] - o[a][:, None]) * inv[a][:, None]
+        t1 = (whi[..., a] - o[a][:, None]) * inv[a][:, None]
+        near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        tn = near if tn is None else torch.maximum(tn, near)
+        tf = far if tf is None else torch.minimum(tf, far)
+    t_s = t_s[:, None]
+    return ((lo[..., 0] <= hi[..., 0]) & (tn <= tf) & (tf >= TMIN)
+            & (tn <= t_s) & (t_s > TMIN))
+
+
+def _sub_gated(tree, ok, cl, o, d, tm):
+    """`ok` [P,K1] of pairs restricted to the triangles whose sub-run box
+    the ray's test passes at its tmax (sub_gate)."""
+    keep = sub_run_pass(tree, cl, o, _safe_inv(d), tm)
+    return ok & keep.repeat_interleave(K1 // SUBRUNS, dim=1)
+
+
+def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax, *,
+                      sub_gate: bool = False, listed=None):
     """Plain PyTorch version of kernel A (same inputs and outputs as
     `trace_dense`). Works through gated (ray, cluster) pairs in chunks,
-    so memory stays bounded at any ray count."""
+    so memory stays bounded at any ray count. sub_gate: only the
+    triangles whose sub-run box passes (`sub_run_pass`); listed: the
+    re-check's pairs (`gated_pairs`). Either gives the default's
+    outputs."""
     nb = dirs.shape[1]
     n = nb * LANES
     dev = dirs.device
@@ -131,7 +360,7 @@ def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax):
     geo = tree.tri_data[:, :, 0:9].contiguous()       # [C1p, K1, 9]
     kidx = torch.arange(K1, device=dev)
     rays, ts, slots, us, vs = [], [], [], [], []
-    for ray, cl in gated_pairs(tree, o, d, tm):
+    for ray, cl in gated_pairs(tree, o, d, tm, listed):
         det, up, vp, tp = _mt_terms(geo[cl], o[:, ray], d[:, ray])
         adet = det.abs()
         rec = 1.0 / torch.where(det == 0, 1.0, det)
@@ -139,6 +368,8 @@ def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax):
         uu, vv, tt = up * inv_det, vp * inv_det, tp * inv_det
         ok = ((adet > _DET_EPS) & (uu >= 0) & (vv >= 0) & (uu + vv <= 1)
               & (tt > TMIN) & (tt < tm[ray][:, None]))
+        if sub_gate:
+            ok = _sub_gated(tree, ok, cl, o[:, ray], d[:, ray], tm[ray])
         tt = torch.where(ok, tt, torch.inf)
         tmin = tt.min(dim=1).values
         ksel = torch.where(ok & (tt == tmin[:, None]), kidx, K1).min(dim=1).values
@@ -174,23 +405,27 @@ def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax):
             attrs.reshape(_N_ATTR, nb, LANES))
 
 
-def trace_occluded_plain(tree: ClusterTree, origins, dirs, tmax):
+def trace_occluded_plain(tree: ClusterTree, origins, dirs, tmax, *,
+                         sub_gate: bool = False, listed=None):
     """Plain PyTorch version of kernel A' with per-ray origins (same
     inputs as `trace_dense`) → blocked bool[Nb,128]: any gated triangle
     that passes the division-free test blocks the ray. Same arithmetic,
-    in the same order, as `occluded_multi_plain`."""
+    in the same order, as `occluded_multi_plain`, which passes kernel B's
+    modes on (sub_gate, listed: see `trace_dense_plain`)."""
     nb = dirs.shape[1]
     n = nb * LANES
     o, d, tm = origins.reshape(3, n), dirs.reshape(3, n), tmax.reshape(n)
     geo = tree.tri_data[:, :, 0:9].contiguous()
     blocked = torch.zeros(n, dtype=torch.bool, device=dirs.device)
-    for ray, cl in gated_pairs(tree, o, d, tm):
+    for ray, cl in gated_pairs(tree, o, d, tm, listed):
         det, up, vp, tp = _mt_terms(geo[cl], o[:, ray], d[:, ray])
         adet = det.abs()
         sgn = torch.where(det < 0, -1.0, 1.0)
         su, sv, st = up * sgn, vp * sgn, tp * sgn
         ok = ((adet > _DET_EPS) & (su >= 0) & (sv >= 0) & (su + sv <= adet)
               & (st > TMIN * adet) & (st < tm[ray][:, None] * adet))
+        if sub_gate:
+            ok = _sub_gated(tree, ok, cl, o[:, ray], d[:, ray], tm[ray])
         blocked[ray[ok.any(dim=1)]] = True
     return blocked.reshape(nb, LANES)
 
@@ -271,19 +506,44 @@ def trace_occluded(tree: ClusterTree, origins, dirs, tmax, *,
 trace_occluded.launches = 0
 
 
+def list_args(lists: WorkLists | None):
+    """The C entry points' candidate-list arguments (cid, tlb, smask,
+    count, row stride; the default walk without lists)."""
+    if lists is None:
+        return None, None, None, None, 0
+    smask = lists.smask.data_ptr() if lists.smask is not None else None
+    return (lists.cid.data_ptr(), lists.tlb.data_ptr(), smask,
+            lists.count.data_ptr(), lists.cid.shape[1])
+
+
 def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
                 occlusion: bool = False, with_attributes: bool = True,
-                point_origin: bool = False):
+                point_origin: bool = False, sub_gate: bool = False,
+                pregate=""):
     """Trace rays against the cluster tree (lane-major I/O).
 
     origins, dirs: f32[3, Nb, 128]; tmax: f32[Nb, 128] (0 = parked ray).
     point_origin=True: the rays of each block of `block` share one origin
     and `origins` is f32[N/block, 3]; N must then be a multiple of
     `block` (a multiple of 128). Returns (t, slot, u, v[, attrs]) — see
-    the module docstring. occlusion=True is `trace_occluded` (kernel A').
-    Otherwise a CUDA tensor launches kernel A and counts it in
-    `trace_dense.launches`; a CPU tensor runs `trace_dense_plain`."""
+    the module docstring. occlusion=True is `trace_occluded` (kernel A',
+    which has no modes: the JAX engine passes it none).
+
+    Kernel A's two modes, the JAX kernel's (dense.py:802-890), give the
+    same outputs bit for bit: sub_gate sweeps only the 16-triangle
+    sub-runs whose widened box a ray enters before its t_cur;
+    pregate="recheck" walks per-group candidate lists from an interval
+    prologue (`closest_worklists`) in place of the kernel's own
+    supercluster and cluster gates. A CUDA tensor launches kernel A in
+    the asked mode and counts it in `trace_dense.launches` and each mode
+    on in `trace_dense.mode_launches`; a CPU tensor runs
+    `trace_dense_plain` in the same mode (with the same prologue)."""
+    pregate = _pregate(pregate)
     if occlusion:
+        if sub_gate or pregate:
+            raise NotImplementedError(
+                f"kernel A' modes (sub_gate, pregate) are not ported "
+                f"({ITEM_15})")
         out = trace_occluded(tree, origins, dirs, tmax, block=block,
                              point_origin=point_origin)
         if with_attributes:
@@ -291,10 +551,16 @@ def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
         return out
     dev, nb = _check_rays("trace_dense", origins, dirs, tmax, block,
                           point_origin)
+    lists = (closest_worklists(tree, origins, dirs, tmax,
+                               point_origin=point_origin, block=block)
+             if pregate else None)
     if dev.type == "cpu":
         if point_origin:
             origins = broadcast_points(origins, dirs, block)
-        out = trace_dense_plain(tree, origins, dirs, tmax)
+        listed = (listed_matrix(lists, tree.tri_data.shape[0])
+                  if lists is not None else None)
+        out = trace_dense_plain(tree, origins, dirs, tmax, sub_gate=sub_gate,
+                                listed=listed)
         return out if with_attributes else out[:4]
     _check_tree(tree, dev)
     origins, dirs, tmax = (x.contiguous() for x in (origins, dirs, tmax))
@@ -308,13 +574,16 @@ def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
     with torch.cuda.device(dev):
         err = lib.vkrt_trace_closest(
             *_kernel_args(tree, origins, block if point_origin else 0, dirs,
-                          tmax),
+                          tmax), int(sub_gate), *list_args(lists),
             t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
             attrs.data_ptr() if with_attributes else None,
             torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "trace_closest")
     trace_dense.launches += 1
+    trace_dense.mode_launches["sub_gate"] += int(sub_gate)
+    trace_dense.mode_launches["recheck"] += int(bool(pregate))
     return (t, slot, u, v, attrs) if with_attributes else (t, slot, u, v)
 
 
-trace_dense.launches = 0
+trace_dense.launches = 0          # kernel A, every mode
+trace_dense.mode_launches = {"sub_gate": 0, "recheck": 0}

@@ -9,6 +9,12 @@ NS segment sets share one surface wavefront: set s starts at light point
 light_pts[s], runs along dirs[s] and ends at tmax[s] (0 = parked).
 Returns blocked bool[NS, Nb, 128]. A segment with 0 < tmax <= TMIN is
 not blocked: its interval is empty.
+
+Kernel B's two modes, `sub_gate` and `pregate="recheck"`, are kernel
+A's (rt/dense.py); the re-check's prologue here is the per-set form of
+the JAX kernel's caller (occl_multi.py:611-630): one interval gate per
+segment set, their OR, the least of their entry bounds and the sets'
+bits per candidate (`multi_worklists`).
 """
 
 from __future__ import annotations
@@ -16,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from vkrt_tpu_torch import kernels
-from vkrt_tpu_torch.rt.dense import (LANES, _check_tree,
+from vkrt_tpu_torch.rt.dense import (_INF, LANES, WorkLists, _check_tree,
+                                     _pregate, interval_gate, list_args,
+                                     listed_matrix, recheck_lists,
                                      trace_occluded_plain)
 from vkrt_tpu_torch.accel.clusters import ClusterTree
 
@@ -24,28 +32,72 @@ MAX_SETS = 4          # kernel B keeps a group's 128 x NS segments in shared
                       # memory; it is built for NS = 1..4
 
 
-def occluded_multi_plain(tree: ClusterTree, light_pts, dirs, tmax):
+def multi_interval_gate(tree: ClusterTree, light_pts, dirs, tmax, *,
+                        block: int):
+    """The per-set interval gate of kernel B's re-check: per block of
+    `block` surface points, set s's segments from light s summed up by
+    `interval_gate` (point origin); the gates OR-ed, the least entry bound
+    of the sets that gate, and bit s set where set s gates. → (gate
+    bool[nblocks, maxc], tlb f32 (0 where not gated), bits i32)."""
+    ns = light_pts.shape[0]
+    nblocks = tmax[0].numel() // block
+    gate = tlb = bits = None
+    for s in range(ns):
+        pts = light_pts[s][None, :].expand(nblocks, 3)
+        g, t, _ = interval_gate(tree, pts, dirs[s], tmax[s], block=block,
+                                point_origin=True)
+        t = torch.where(g, t, _INF)
+        b = torch.where(g, 1 << s, 0).to(torch.int32)
+        gate = g if gate is None else gate | g
+        tlb = t if tlb is None else torch.minimum(tlb, t)
+        bits = b if bits is None else bits | b
+    return gate, torch.where(gate, tlb, 0.0), bits
+
+
+def multi_worklists(tree: ClusterTree, light_pts, dirs, tmax) -> WorkLists:
+    """Kernel B's re-check prologue: `multi_interval_gate` per 128-lane
+    group (the walk's unit), as `recheck_lists` with the set bits."""
+    return recheck_lists(*multi_interval_gate(tree, light_pts, dirs, tmax,
+                                              block=LANES))
+
+
+def occluded_multi_plain(tree: ClusterTree, light_pts, dirs, tmax, *,
+                         sub_gate: bool = False,
+                         lists: WorkLists | None = None):
     """Plain PyTorch version of kernel B (same inputs and outputs as
     `occluded_multi`): every (set, ray) is one segment from its set's
-    light point, traced by the plain any-hit version."""
+    light point, traced by the plain any-hit version; sub_gate and the
+    re-check's `lists` as in kernel A's plain version (a segment's
+    candidates are its group's clusters with its set's bit)."""
     ns, nb = dirs.shape[0], dirs.shape[2]
     d = dirs.permute(1, 0, 2, 3).reshape(3, ns * nb, LANES)
     o = light_pts.T[:, :, None, None].expand(3, ns, nb, LANES)
+    listed = (listed_matrix(lists, tree.tri_data.shape[0], ns)
+              if lists is not None else None)
     blocked = trace_occluded_plain(tree, o.reshape(3, ns * nb, LANES), d,
-                                   tmax.reshape(ns * nb, LANES))
+                                   tmax.reshape(ns * nb, LANES),
+                                   sub_gate=sub_gate, listed=listed)
     return blocked.reshape(ns, nb, LANES)
 
 
-def occluded_multi(tree: ClusterTree, light_pts, dirs, tmax):
+def occluded_multi(tree: ClusterTree, light_pts, dirs, tmax, *,
+                   sub_gate: bool = False, pregate=""):
     """NS-segment-set occlusion trace (lane-major I/O).
 
     light_pts: f32[NS, 3]; dirs: f32[NS, 3, Nb, 128]; tmax: f32[NS, Nb, 128].
-    A CUDA tensor launches kernel B (NS from 1 to MAX_SETS; other counts
-    raise) and counts it in `occluded_multi.launches`; a CPU tensor runs
-    `occluded_multi_plain`."""
+    sub_gate, pregate="recheck": kernel B's modes (the masks do not
+    change). A CUDA tensor launches kernel B in that mode (NS from 1 to
+    MAX_SETS; other counts raise) and counts it in
+    `occluded_multi.launches` and each mode on in
+    `occluded_multi.mode_launches`; a CPU tensor runs
+    `occluded_multi_plain` in the same mode."""
+    pregate = _pregate(pregate)
     dev = dirs.device
+    lists = (multi_worklists(tree, light_pts, dirs, tmax)
+             if pregate else None)
     if dev.type == "cpu":
-        return occluded_multi_plain(tree, light_pts, dirs, tmax)
+        return occluded_multi_plain(tree, light_pts, dirs, tmax,
+                                    sub_gate=sub_gate, lists=lists)
     if dev.type != "cuda":
         raise ValueError(f"occluded_multi: unsupported device {dev}")
     ns, nb = dirs.shape[0], dirs.shape[2]
@@ -70,10 +122,14 @@ def occluded_multi(tree: ClusterTree, light_pts, dirs, tmax):
             tree.sc_boxes.data_ptr(), tree.sc_boxes.shape[1],
             tree.num_superclusters, tree.cl_boxes.data_ptr(),
             tree.tri_data.data_ptr(), light_pts.data_ptr(), dirs.data_ptr(),
-            tmax.data_ptr(), ns, nb * LANES, blocked.data_ptr(), stream)
+            tmax.data_ptr(), ns, nb * LANES, int(sub_gate),
+            *list_args(lists), blocked.data_ptr(), stream)
     kernels.check(err, "occl_multi")
     occluded_multi.launches += 1
+    occluded_multi.mode_launches["sub_gate"] += int(sub_gate)
+    occluded_multi.mode_launches["recheck"] += int(bool(pregate))
     return blocked
 
 
-occluded_multi.launches = 0
+occluded_multi.launches = 0       # kernel B, every mode
+occluded_multi.mode_launches = {"sub_gate": 0, "recheck": 0}

@@ -19,17 +19,27 @@ not depend on the order, so every combination of the three flags gives
 the same frame. A backend with `per_light` set traces each light's
 segments with kernel A' instead of B, to the same masks.
 
+The five secondary-dispatch options of RenderConfig, all off by default,
+run as in the JAX engine (vkrt_tpu/wavefront/engine.py:344-425, :511-701)
+and leave the frame as it is: `resort_secondary` sorts the reflection
+rays by direction octant and every depth's shadow segments by surface
+cell (ray granularity, inverted after the trace); `partition_closest`
+runs each depth >= 1 iteration in lane-sorted, group-partitioned order
+(kernels E, F) and returns only its contributions; `recheck_secondary`
+and `sub_gate_{closest,shadows}` select kernel A's and B's modes
+(rt/dense.py). Kernel A's tie rule makes the nearest hit independent of
+the ray order; masks are any-hits.
+
 `Renderer` also runs the per-frame accel update (RenderConfig
 .rebuild_per_frame, or a `transform` per frame): a refit of the tree's
 boxes, or a full device rebuild (SAH or Morton order).
 
 Two trace backends, as in the JAX package: "dense" (the cluster tree and
 kernels A, A', B) and "reference" (an LBVH and its plain-PyTorch
-traversal, rt/traverse.py: slow, independent of the kernels). With
-`mip_lod` the depth-0 samples are trilinear at a per-ray level from
-lane-neighbour differentials. RenderConfig flags that need machinery not
-ported raise NotImplementedError naming the ROADMAP.md item; none is
-silently ignored.
+traversal, rt/traverse.py: slow, independent of the kernels; it takes
+`resort_secondary` and ignores the kernel modes, as in the JAX package).
+With `mip_lod` the depth-0 samples are trilinear at a per-ray level from
+lane-neighbour differentials.
 """
 
 from __future__ import annotations
@@ -60,26 +70,6 @@ from vkrt_tpu_torch.wavefront import lanesort, pack, resort
 
 TILE_Y, TILE_X = 16, 32           # 512 pixels = one tile
 PIXEL_CENTER = (0.5, 0.5)         # sample offset inside each pixel
-
-# flag → the ROADMAP.md item that ports it (checked before any frame)
-_UNPORTED_FLAGS = {
-    "resort_secondary": "queue 1 item 13 (not ported this round)",
-    "recheck_secondary": "queue 1 item 13 (not ported this round)",
-    "partition_closest": "queue 1 item 13 (not ported this round)",
-    "sub_gate_shadows": "queue 1 item 13 (not ported this round)",
-    "sub_gate_closest": "queue 1 item 13 (not ported this round)",
-}
-
-
-def check_supported(cfg: C.RenderConfig) -> None:
-    """Raise NotImplementedError if `cfg` turns on unported machinery."""
-    on = [f for f in _UNPORTED_FLAGS if getattr(cfg, f)]
-    if on:
-        items = "; ".join(f"{f}: ROADMAP.md {_UNPORTED_FLAGS[f]}" for f in on)
-        raise NotImplementedError(
-            f"RenderConfig flags not ported to vkrt_tpu_torch yet — {items}. "
-            "Turn them off (dataclasses.replace(cfg, flag=False)).")
-
 
 class TextureArrays(NamedTuple):
     """Packed per-material-slot triple heap (scene/textures.py
@@ -171,7 +161,8 @@ OCCL_BLOCK = 1024                 # rays per occlusion block where it divides
 def _occl_block(n_rays: int) -> int:
     """Block of the depth>=1 shadow reorder: the JAX engine's occlusion
     block (OCCL_BLOCK, else BLOCK), which sets the lane sort's blocks and
-    the packed prefix's cap."""
+    the packed prefix's cap. partition_closest's lane sort takes the same
+    block (the JAX engine's `cblk`)."""
     return OCCL_BLOCK if n_rays % OCCL_BLOCK == 0 else BLOCK
 
 
@@ -188,8 +179,9 @@ class DenseBackend(NamedTuple):
     scene_aabb: torch.Tensor
     per_light: bool = False
 
-    def closest(self, o, d, tmax):
-        t, slot, u, v, attrs = trace_dense(self.tree, o, d, tmax)
+    def closest(self, o, d, tmax, sub_gate=False, pregate=""):
+        t, slot, u, v, attrs = trace_dense(self.tree, o, d, tmax,
+                                           sub_gate=sub_gate, pregate=pregate)
         return t, u, v, attrs, slot >= 0
 
     def occluded(self, o, d, tmax):
@@ -206,14 +198,18 @@ class DenseBackend(NamedTuple):
                                     block=block)
         return slot >= 0
 
-    def occluded_multi(self, light_pts, sd, st, block=BLOCK):
+    def occluded_multi(self, light_pts, sd, st, block=BLOCK, sub_gate=False,
+                       pregate=""):
+        """Kernel B in the asked mode; per light, kernel A' (which has no
+        modes: the JAX engine's per-light path passes none)."""
         if self.per_light:
             nob = sd.shape[2] * L.LANES // block
             return torch.stack([
                 self.occluded_point(light_pts[s][None, :].expand(nob, 3)
                                     .contiguous(), sd[s], st[s], block)
                 for s in range(light_pts.shape[0])])
-        return occluded_multi(self.tree, light_pts, sd, st)
+        return occluded_multi(self.tree, light_pts, sd, st,
+                              sub_gate=sub_gate, pregate=pregate)
 
 
 class ReferenceBackend(NamedTuple):
@@ -225,7 +221,8 @@ class ReferenceBackend(NamedTuple):
     attr_table: torch.Tensor   # f32[T,36], original triangle order
     scene_aabb: torch.Tensor   # f32[2,3], as DenseBackend's
 
-    def closest(self, o, d, tmax):
+    def closest(self, o, d, tmax, sub_gate=False, pregate=""):
+        """(sub_gate, pregate: the dense kernels' modes; ignored.)"""
         t, tri, u, v = traverse.trace_closest(
             self.bvh, L.from_cvec(o), L.from_cvec(d), C.RAY_TMIN,
             L.from_lanes(tmax))
@@ -239,7 +236,8 @@ class ReferenceBackend(NamedTuple):
             self.bvh, L.from_cvec(o), L.from_cvec(d), C.RAY_TMIN,
             L.from_lanes(tmax)))
 
-    def occluded_multi(self, light_pts, sd, st, block=BLOCK):
+    def occluded_multi(self, light_pts, sd, st, block=BLOCK, sub_gate=False,
+                       pregate=""):
         return torch.stack([
             self.occluded(light_pts[s][:, None, None].expand(sd[s].shape),
                           sd[s], st[s])
@@ -319,7 +317,6 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
     """The trace→shade rounds over a lane-major wavefront ([3,Nb,128]);
     `valid` marks the rays that trace (False on tile padding). Returns
     (accum [3,Nb,128], ray_count i32[Nb,128])."""
-    check_supported(cfg)
     dev = dirs.device
     nb = dirs.shape[1]
     shape = (nb, L.LANES)
@@ -329,13 +326,42 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
     ray_count = torch.zeros(shape, dtype=torch.int32, device=dev)
     lights = lights[:cfg.num_lights]
     origins = origin_pt[:, None, None].expand((3,) + shape).contiguous()
+    cblk = _occl_block(nb * L.LANES)
 
     for depth in range(cfg.max_depth):
         # record_function ranges name the layers in torch.profiler traces
         # (the JAX engine's jax.named_scope ranges)
         with record_function(f"trace_closest_d{depth}"):
             tmax = torch.where(active, C.RAY_TMAX, 0.0)
-            t, u, v, attrs, hitm = backend.closest(origins, dirs, tmax)
+            # resort_secondary: the reflection rays by direction octant,
+            # dead rays last; results inverted after the trace
+            rs_closest = cfg.resort_secondary and depth >= 1
+            # partition_closest: the whole iteration in sorted order (it
+            # yields to resort_secondary and needs the dense kernels)
+            pt_closest = (cfg.partition_closest and depth >= 1
+                          and not rs_closest
+                          and isinstance(backend, DenseBackend))
+            if pt_closest:
+                origins, dirs, attenuation, undo_c = partition_rays(
+                    origins, dirs, active, attenuation, backend.scene_aabb,
+                    cblk)
+                active = attenuation > 0
+                tmax = torch.where(active, C.RAY_TMAX, 0.0)
+            o_t, d_t, tm_t = origins, dirs, tmax
+            if rs_closest:
+                perm = resort.radix_partition_perm(
+                    resort.octant_key(dirs, active))
+                o_t, d_t, tm_t = (resort.permute_rays(x, perm)
+                                  for x in (origins, dirs, tmax))
+            pregate = "recheck" if cfg.recheck_secondary and depth >= 1 \
+                else ""
+            t, u, v, attrs, hitm = backend.closest(
+                o_t, d_t, tm_t, sub_gate=cfg.sub_gate_closest,
+                pregate=pregate)
+            if rs_closest:
+                inv = resort.inverse_permutation(perm)
+                t, u, v, attrs, hitm = (resort.permute_rays(x, inv)
+                                        for x in (t, u, v, attrs, hitm))
         dcount = active.to(torch.float32)
         hit = hitm & active
         miss = active & ~hitm
@@ -383,7 +409,7 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
         if cfg.enable_shadows and nl > 0:
             casts = [hit & (nd > 0) for nd in ndotls]
             with record_function(f"trace_shadow_d{depth}"):
-                occs = list(trace_shadows(backend, lights, pos, geo,
+                occs = list(trace_shadows(backend, lights, pos, geo, hit,
                                           casts, cfg, depth))
             for c in casts:
                 dcount = dcount + c.to(torch.float32)
@@ -418,31 +444,95 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
         origins = L.where3(reflective, pos, origins)
         dirs = L.where3(reflective, shading.reflect(dirs, pn), dirs)
         active = reflective
-        accum = accum + dacc
-        ray_count = ray_count + dcount.to(torch.int32)
+        if pt_closest:
+            # one inverse returns the contributions, and the reflection
+            # carry while depths remain, to the original ray order
+            more = depth + 1 < cfg.max_depth
+            back = unpartition_rays(dacc, dcount, origins, dirs,
+                                    attenuation, active, undo_c, more)
+            accum = accum + back[:3]
+            ray_count = ray_count + back[3].to(torch.int32)
+            if more:
+                origins, dirs = back[4:7], back[7:10]
+                attenuation, active = back[10], back[11] > 0.5
+        else:
+            accum = accum + dacc
+            ray_count = ray_count + dcount.to(torch.int32)
 
     return accum, ray_count
 
 
-def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
-                  depth: int):
+class UndoRays(NamedTuple):
+    """What `unpartition_rays` needs: the lane sort's ranks, the inverse
+    group permutation and the sort's block."""
+    rank: torch.Tensor
+    ginv: torch.Tensor
+    block: int
+
+
+def partition_rays(origins, dirs, active, attenuation, scene_aabb,
+                   block: int):
+    """partition_closest's re-tiling of a reflection wavefront
+    (vkrt_tpu/wavefront/engine.py:364-400): a stable sort of each block's
+    lanes by `dir_cell_key_fine` (kernel E, 7 channels), then whole
+    128-lane groups by `group_dir_key`. Attenuation rides as
+    where(active, attenuation, 0), one channel for liveness and value: a
+    live ray's attenuation is > 0. Returns the sorted (origins, dirs,
+    attenuation) and the UndoRays."""
+    combo = torch.where(active, attenuation, 0.0)
+    key = lanesort.dir_cell_key_fine(dirs, origins, active, scene_aabb)
+    srt, rank = lanesort.lane_sort(
+        torch.cat([origins, dirs, combo[None]]).contiguous(), key,
+        block=block)
+    gperm = resort.radix_partition_perm(
+        resort.group_dir_key(srt[3:6], srt[0:3], srt[6] > 0, scene_aabb))
+    srt = resort.permute_groups(srt, gperm)
+    return (srt[0:3], srt[3:6], srt[6],
+            UndoRays(rank, resort.inverse_permutation(gperm), block))
+
+
+def unpartition_rays(dacc, dcount, origins, dirs, attenuation, active,
+                     undo: UndoRays, carry: bool):
+    """The inverse of `partition_rays` on one iteration's results
+    (vkrt_tpu/wavefront/engine.py:738-760): the inverse group permutation
+    and the lane unsort (kernel F) of 4 channels (colour, ray count) or,
+    with `carry`, 12 (and origins, dirs, attenuation, liveness)."""
+    chans = [dacc, dcount[None]]
+    if carry:
+        chans += [origins, dirs, torch.where(active, attenuation, 0.0)[None],
+                  active.to(torch.float32)[None]]
+    stk = resort.permute_groups(torch.cat(chans), undo.ginv)
+    return lanesort.lane_unsort(stk.contiguous(), undo.rank,
+                                block=undo.block)
+
+
+def trace_shadows(backend, lights, pos, geo, hit, casts,
+                  cfg: C.RenderConfig, depth: int):
     """Blocked masks bool[L,Nb,128] of all lights' shadow segments in ONE
     kernel-B dispatch (or one kernel-A' dispatch per light where the
     backend has `per_light` set), traced from the light toward the point;
     rays a hit does not cast (`casts`) park at tmax 0.
 
-    At depth >= 1 the wavefront is reordered before B and restored after
-    it (vkrt_tpu/wavefront/engine.py:550-701): with partition_shadows,
-    `partition_points` and `unpartition` (pack first when
-    consolidate_secondary is on); otherwise the group sort
-    (group_sort_shadows) and the pack of all 16 segment channels
-    (consolidate_secondary), each optional. Partition and pack serve the
-    dense kernels only: the reference backend gets the group sort alone
-    (vkrt_tpu/wavefront/engine.py:550-587)."""
+    The reorders and modes follow the JAX engine's conditions
+    (vkrt_tpu/wavefront/engine.py:511-701). resort_secondary, at every
+    depth, sorts the segments by the Morton cell of their surface point
+    (`hit` rays first) and inverts after B; it turns the three shipped
+    reorders off. recheck_secondary (B's re-check, every depth) turns
+    partition_shadows and consolidate_secondary off. At depth >= 1 the
+    rest reorder: with partition_shadows, `partition_points` and
+    `unpartition` (pack first when consolidate_secondary is on);
+    otherwise the group sort (group_sort_shadows) and the pack of all 16
+    segment channels (consolidate_secondary), each optional. Partition
+    and pack serve the dense kernels only: the reference backend gets the
+    sorts alone. sub_gate_shadows is B's sub-run mode."""
     nl = len(casts)
     oblk = _occl_block(pos.shape[1] * L.LANES)
     dense = not isinstance(backend, ReferenceBackend)
-    if cfg.partition_shadows and depth >= 1 and dense:
+    rs = cfg.resort_secondary
+    pregate = "recheck" if cfg.recheck_secondary else ""
+    modes = dict(block=oblk, sub_gate=cfg.sub_gate_shadows, pregate=pregate)
+    if (cfg.partition_shadows and depth >= 1 and dense and not rs
+            and not pregate):
         castmask = casts[0].to(torch.float32)
         for s in range(1, nl):
             castmask = castmask + casts[s].to(torch.float32) * float(1 << s)
@@ -458,14 +548,20 @@ def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
             st.append(torch.where(((cmi >> li) & 1) > 0,
                                   ldist - C.RAY_TMIN, 0.0))
         occ = backend.occluded_multi(lights, torch.stack(sd),
-                                     torch.stack(st), block=oblk)
+                                     torch.stack(st), **modes)
         return unpartition(occ, undo)
 
     sd = torch.stack([-g[0] for g in geo])                  # [L,3,Nb,128]
     st = torch.stack([torch.where(c, g[1] - C.RAY_TMIN, 0.0)
                       for c, g in zip(casts, geo)])         # [L,Nb,128]
-    gsort = cfg.group_sort_shadows and depth >= 1
-    cons = cfg.consolidate_secondary and depth >= 1 and dense
+    gsort = cfg.group_sort_shadows and depth >= 1 and not rs
+    cons = (cfg.consolidate_secondary and depth >= 1 and dense and not rs
+            and not pregate)
+    if rs:
+        sperm = resort.radix_partition_perm(
+            resort.cell_key(pos, hit, backend.scene_aabb))
+        sd = resort.permute_rays(sd, sperm)
+        st = resort.permute_rays(st, sperm)
     if gsort:
         gperm = resort.radix_partition_perm(
             resort.group_cell_key(pos, (st > 0).any(dim=0),
@@ -479,11 +575,13 @@ def trace_shadows(backend, lights, pos, geo, casts, cfg: C.RenderConfig,
             torch.cat([sd.reshape(3 * nl, nb, L.LANES), st]), grank)
         sd = pk[:3 * nl].reshape(nl, 3, nb, L.LANES)
         st = pk[3 * nl:]
-    occ = backend.occluded_multi(lights, sd, st, block=oblk)
+    occ = backend.occluded_multi(lights, sd, st, **modes)
     if cons:
         occ = pack.scatter_back(occ.to(torch.float32), grank) > 0.5
     if gsort:
         occ = resort.permute_groups(occ, resort.inverse_permutation(gperm))
+    if rs:
+        occ = resort.permute_rays(occ, resort.inverse_permutation(sperm))
     return occ
 
 
@@ -607,7 +705,6 @@ class Renderer(SceneOnDevice):
                  quantize: bool = False, rebuild: str = "refit",
                  sah_opts: dict | None = None, backend: str = "dense",
                  max_texture_dim: int = 0):
-        check_supported(cfg)
         if rebuild not in REBUILD_MODES:
             raise ValueError(f"rebuild {rebuild!r} not in {REBUILD_MODES}")
         super().__init__(scene, cfg, device, backend, max_texture_dim)

@@ -14,8 +14,8 @@ on a CPU tensor it runs its plain PyTorch version. Both move f32 values
 without arithmetic, so kernel and plain version agree bit for bit.
 
 Keys and ranks are int32 here (the JAX package carries them as f32,
-exact below 2**24). Not ported: `dir_cell_key_fine`, which only
-`partition_closest` uses (ROADMAP.md queue 1 item 13).
+exact below 2**24). `cell_key_fine` keys the depth>=1 shadow points,
+`dir_cell_key_fine` the reflection rays that `partition_closest` sorts.
 """
 
 from __future__ import annotations
@@ -27,25 +27,34 @@ import torch
 from vkrt_tpu_torch import kernels
 from vkrt_tpu_torch.utils.layout import LANES
 from vkrt_tpu_torch.wavefront.pack import _check as _check_layout
-CELL_BITS = 6          # bits per axis of cell_key_fine (the engine's only use)
+from vkrt_tpu_torch.wavefront.resort import _morton
+
+CELL_BITS = 6          # bits per axis of cell_key_fine (the shadow points)
+DIR_CELL_BITS = 5      # ... of dir_cell_key_fine (partition_closest)
 
 
-def cell_key_fine(p, live, scene_aabb):
-    """Per-ray Morton cell of a surface point at CELL_BITS bits per axis;
-    dead rays get the max key 2**18 (they sort to each block's tail).
-    p [3,Nb,128], live bool[Nb,128], scene_aabb f32[2,3] → i32[Nb,128].
-    The same f32 operations in the same order as the JAX function, so
-    the keys are bit-equal."""
-    nbins = (1 << CELL_BITS) - 1
-    lo = scene_aabb[0]
+def cell_key_fine(p, live, scene_aabb, bits: int = CELL_BITS):
+    """Per-ray Morton cell of a surface point at `bits` bits per axis;
+    dead rays get the max key 2**(3 bits) (they sort to each block's
+    tail). p [3,Nb,128], live bool[Nb,128], scene_aabb f32[2,3] →
+    i32[Nb,128]. The same f32 operations in the same order as the JAX
+    function, so the keys are bit-equal."""
     span = torch.clamp(scene_aabb[1] - scene_aabb[0], min=1e-6)
-    key = torch.zeros(p.shape[1:], dtype=torch.int32, device=p.device)
-    for a in range(3):
-        q = torch.clamp((p[a] - lo[a]) / span[a] * (nbins + 1),
-                        0.0, float(nbins)).to(torch.int32)
-        for b in range(CELL_BITS):
-            key = key | (((q >> b) & 1) << (3 * b + a))
-    return torch.where(live, key, 1 << (3 * CELL_BITS))
+    key = _morton(p, scene_aabb[0], span, bits, p.shape[1:])
+    return torch.where(live, key, 1 << (3 * bits))
+
+
+def dir_cell_key_fine(d, o, live, scene_aabb, bits: int = DIR_CELL_BITS):
+    """Per-ray direction octant (major) and origin Morton cell at `bits`
+    bits per axis (minor), the ray-granular form of
+    resort.group_dir_key; dead rays get 2**(3 bits + 3). d, o
+    [3,Nb,128], live bool[Nb,128] → i32[Nb,128], bit-equal to the JAX
+    function's keys."""
+    oct_ = ((d[0] < 0).to(torch.int32) | ((d[1] < 0).to(torch.int32) << 1)
+            | ((d[2] < 0).to(torch.int32) << 2))
+    span = torch.clamp(scene_aabb[1] - scene_aabb[0], min=1e-6)
+    cell = _morton(o, scene_aabb[0], span, bits, d.shape[1:])
+    return torch.where(live, (oct_ << (3 * bits)) | cell, 1 << (3 * bits + 3))
 
 
 def _check(name, x, idx, block, dev):
