@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Phases; any failure raises and the run exits non-zero. They run in this
-order, except that 14-18 and 24 (which share the config-4 renderer) run
-between the profile after phase 9 and phase 10, and 19-23 (the app
+order, except that 14-18, 24 and 25 (which share the config-4 renderer)
+run between the profile after phase 9 and phase 10, and 19-23 (the app
 surface, the golden gate, the reference backend, mip_lod and the sharded
 frames) after phase 13:
   1. device   fail at once without CUDA; print the device report
@@ -169,11 +169,27 @@ frames) after phase 13:
               the device's busy ms a frame and its ms per engine range, or
               (config 5) the ranges by CUDA events; launches a frame as
               `frame_launches` says (each mode counted on its own)
+ 25. modes    the JAX kernels' remaining modes (P25): A's stats, interval
+              pregate, group_gate, sort=False and six ablate cuts; A''s
+              sub_gate, recheck, interval, stats and ablate cuts (light
+              0's segments, point origins); B's visit mid / far, interval,
+              group_gate, sort=False and ablate cuts. On one config-4
+              frame's recorded inputs at depths 0 and 1 each mode is
+              launched once (those launches alone counted: 2 a mode),
+              then held element by element against the default kernel (a
+              cut: every ray a miss, nothing blocked) and against its
+              plain version in the mode; stats lane 0 equal to the plain
+              work-list length, lane 1 within `sweep_bounds`; each mode's
+              ms (mean of 5; a pregate less its prologue) beside the
+              default's, printed per depth as A's and B's phase
+              decomposition; trace_closest_stats' iterations on phase
+              21's frame; the kernels built once under $VKRT_TORCH_CACHE
+              (a temporary directory) and kernel A launched from there
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path (phase 7 for A-F, phase 15 for A', phase
-12 for G, phase 24's frames for the four mode rows), its largest error,
-its time per frame and the bound of that work, and, as the last line,
-{"ok": true, "device": {...}}.
+12 for G, phase 24's frames for the four mode rows, phase 25's drive for
+its rows), its largest error, its time per frame and the bound of that
+work, and, as the last line, {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -184,6 +200,7 @@ import dataclasses
 import io
 import itertools
 import json
+import os
 import sys
 import tempfile
 import time
@@ -213,9 +230,12 @@ from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
                                           replicate)
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster import pipeline as rp
-from vkrt_tpu_torch.rt.dense import (_safe_inv, broadcast_points,
-                                     closest_worklists, gated_pairs,
-                                     listed_matrix, sub_run_pass, trace_dense,
+from vkrt_tpu_torch.rt import traverse
+from vkrt_tpu_torch.rt.dense import (ABLATES, CUTS, _safe_inv,
+                                     broadcast_points, closest_worklists,
+                                     gated_pairs, listed_bounds,
+                                     listed_matrix, stats_lane0_of,
+                                     sub_run_pass, sweep_bounds, trace_dense,
                                      trace_dense_plain, trace_occluded,
                                      trace_occluded_plain)
 from vkrt_tpu_torch.rt.occl_multi import (multi_worklists, occluded_multi,
@@ -223,6 +243,8 @@ from vkrt_tpu_torch.rt.occl_multi import (multi_worklists, occluded_multi,
 from vkrt_tpu_torch.scene import build_texture_heap
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import sampling, shading
+from vkrt_tpu_torch.utils.cache import ENV as CACHE_ENV
+from vkrt_tpu_torch.utils.cache import build_root
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import engine, lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
@@ -262,6 +284,7 @@ GATE_SIZE = (640, 480)   # phase 20's frame (bench.py::golden_check)
 HARNESS_SIZE = (160, 120)
 REF_SIZE = (320, 240)    # phase 21's frame
 REF_RMSE = 1e-3          # reference vs dense frame (test_backends.py:34)
+REF_CHUNK = 4096         # phase 25: rays a trace_closest_stats call
 REF_RAY_TOL = 1e-3       # ... ray counts, relative (two tracers may part
                          # on a boundary ray: tests/test_torch_engine.py)
 MIP_TOL = 1e-6           # mip_lod card vs CPU, rtol and atol
@@ -305,6 +328,36 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "B.recheck": ModeCount(occluded_multi, "recheck")}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
+# phase 25: the JAX kernels' remaining modes, each a wrapper's
+# mode_launches key and its arguments (ablate: every cut point)
+ABLATE_KW = {f"ablate_{a}": dict(ablate=a) for a in ABLATES[1:]}
+P25 = {
+    "A": {"stats": dict(stats=True), "interval": dict(pregate="interval"),
+          "group_gate": dict(group_gate=True), "no_sort": dict(sort=False),
+          **ABLATE_KW},
+    "A'": {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck"),
+           "interval": dict(pregate="interval"), "stats": dict(stats=True),
+           **ABLATE_KW},
+    "B": {"visit_mid": dict(visit="mid"), "visit_far": dict(visit="far"),
+          "interval": dict(pregate="interval"),
+          "group_gate": dict(group_gate=True), "no_sort": dict(sort=False),
+          **ABLATE_KW}}
+# phase 25: pairs of modes, each checked once a depth (not counted, and
+# its error added to the row named first): the interval pregate's lists
+# in id order (ablate "nosort"), and B's visit orders over a pregate's
+# lists (recheck with a visit order needs sort=False)
+_INTERVAL_NOSORT = ("interval", dict(pregate="interval", ablate="nosort"))
+P25_PAIRS = {
+    "A": {"interval_nosort": _INTERVAL_NOSORT},
+    "A'": {"interval_nosort": _INTERVAL_NOSORT},
+    "B": {"interval_nosort": _INTERVAL_NOSORT,
+          "interval_visit_mid": ("interval", dict(pregate="interval",
+                                                  visit="mid")),
+          "recheck_visit_far": ("visit_far", dict(pregate="recheck",
+                                                  sort=False, visit="far"))}}
+COUNTED.update({f"{k}.{m}": ModeCount(COUNTED[k], m)
+                for k, modes in P25.items() for m in modes})
+P25_ROWS = tuple(f"{k}.{m}" for k, modes in P25.items() for m in modes)
 PLAIN = {"C": pack.consolidate_plain, "D": pack.scatter_back_plain,
          "E": lanesort.lane_sort_plain, "F": lanesort.lane_unsort_plain}
 
@@ -2614,6 +2667,382 @@ def secondary_options(renderer: Renderer, cams, cam: Camera, probes,
     return dict(rows=rows, errs=errs, frames=frames, launches=launches)
 
 
+# --- phase 25: the JAX kernels' remaining modes --------------------------
+P25_INTERVAL_STRIDE = 64   # depth >= 1: the interval pregate's plain
+                           # version on every 64th 128-ray group
+# where each mode sits in the TPU kernels (the kernels line's "replaces")
+P25_REPLACES = {
+    ("A", "stats"): "vkrt_tpu/rt/dense.py:247",
+    ("A", "interval"): "vkrt_tpu/rt/dense.py:589",
+    ("A", "group"): "vkrt_tpu/rt/dense.py:540",
+    ("A", "no"): "vkrt_tpu/rt/dense.py:670",
+    ("A", "ablate"): "vkrt_tpu/rt/dense.py:573",
+    ("A'", "sub"): "vkrt_tpu/rt/dense.py:438",
+    ("A'", "recheck"): "vkrt_tpu/rt/dense.py:674",
+    ("A'", "interval"): "vkrt_tpu/rt/dense.py:589",
+    ("A'", "stats"): "vkrt_tpu/rt/dense.py:247",
+    ("A'", "ablate"): "vkrt_tpu/rt/dense.py:573",
+    ("B", "visit"): "vkrt_tpu/rt/occl_multi.py:244",
+    ("B", "interval"): "vkrt_tpu/rt/occl_multi.py:611",
+    ("B", "group"): "vkrt_tpu/rt/occl_multi.py:55",
+    ("B", "no"): "vkrt_tpu/rt/occl_multi.py:394",
+    ("B", "ablate"): "vkrt_tpu/rt/occl_multi.py:297"}
+
+
+def timed(fn):
+    """(fn(), its ms by CUDA events): one call, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def p25_inputs(renderer: Renderer, cam: Camera) -> list:
+    """One config-4 frame's recorded inputs per depth: kernel A's rays,
+    kernel B's segments, and light 0's segments as kernel A''s
+    point-origin call (one origin per engine block)."""
+    rec = RecordingBackend(renderer.backend)
+    pi = torch.as_tensor(cam.proj_inverse, device=renderer.device)
+    vi = torch.as_tensor(cam.view_inverse, device=renderer.device)
+    render_frame_u8(rec, renderer.tex, pi, vi, renderer.lights, renderer.cfg)
+    torch.cuda.synchronize()
+    out = []
+    for (o, d, tm), (lp, sd, st), block in zip(rec.closest_in, rec.occl_in,
+                                               rec.occl_block):
+        n = st[0].numel()
+        out.append({"A": (o, d, tm), "B": (lp, sd, st),
+                    "A'": (light_points(lp, 0, n, block), sd[0].contiguous(),
+                           st[0].contiguous()), "block": block})
+    return out
+
+
+def p25_block(kind: str, inp: dict) -> int:
+    """The dispatch block of kernel `kind`'s phase-25 call: A' takes the
+    block the engine passed B (its point origins'), A the wrapper's
+    default (engine.BLOCK rays: its stats' unit)."""
+    return inp["block"] if kind == "A'" else engine.BLOCK
+
+
+def p25_call(kind: str, tree, args, block: int, kw: dict):
+    """One wrapper call of kernel `kind` on `args` in the mode `kw`."""
+    if kind == "A":
+        return trace_dense(tree, *args, block=block, **kw)
+    if kind == "A'":
+        return trace_occluded(tree, *args, block=block, point_origin=True,
+                              **kw)
+    return occluded_multi(tree, *args, **kw)
+
+
+def p25_rows(kind: str, args, rows: slice):
+    """Kernel `kind`'s lane-major inputs (or outputs) cut to the 128-ray
+    groups `rows` (A' with its origins broadcast to every ray)."""
+    if kind == "B":
+        lp, sd, st = args
+        return lp, sd[:, :, rows].contiguous(), st[:, rows].contiguous()
+    return tuple(x[..., rows, :].contiguous() for x in args)
+
+
+def p25_plain(kind: str, tree, args, block: int, kw: dict,
+              rows: slice = slice(None)):
+    """The plain version of kernel `kind` in the mode `kw` on the 128-ray
+    groups `rows`: the same lists as the wrapper's (closest_worklists /
+    multi_worklists, made for every group and cut to `rows`: a group's
+    list is its own) where a pregate asks for them; the visit order,
+    group_gate, sort and stats change no plain output. A' returns its
+    blocked mask."""
+    pregate = "interval" if kw.get("pregate") == "interval" else (
+        kw.get("pregate") or "")
+    ablate = kw.get("ablate", "")
+    sub = kw.get("sub_gate", False)
+    lists = None
+    if pregate:
+        lists = (multi_worklists(tree, *args) if kind == "B" else
+                 closest_worklists(tree, *args, block=block,
+                                   point_origin=kind == "A'"))
+        lists = type(lists)(*(None if x is None else x[rows].contiguous()
+                              for x in lists))
+    if kind == "A'":
+        args = (broadcast_points(args[0], args[1], block),) + args[1:]
+    args = p25_rows(kind, args, rows)
+    if kind == "B":
+        return occluded_multi_plain(tree, *args, sub_gate=sub, lists=lists,
+                                    pregate=pregate or "recheck",
+                                    ablate=ablate)
+    maxc = tree.tri_data.shape[0]
+    lkw = {}
+    if pregate:
+        lkw = (dict(bounds=listed_bounds(lists, maxc))
+               if pregate == "interval"
+               else dict(listed=listed_matrix(lists, maxc)))
+    plain = trace_dense_plain if kind == "A" else trace_occluded_plain
+    return plain(tree, *args, sub_gate=sub, ablate=ablate, **lkw)
+
+
+def p25_expected(kind: str, default, kw: dict):
+    """The outputs kernel `kind` must give in the mode `kw`: the default
+    kernel's, or for an `ablate` cut those of a walk that commits nothing
+    (A: every ray a miss; A': none blocked, coded; B: none blocked)."""
+    if kw.get("ablate", "") not in CUTS:
+        return default
+    if kind == "B":
+        return (torch.zeros_like(default[0]),)
+    t, slot = default[0], default[1]
+    miss = [torch.full_like(t, torch.inf), torch.full_like(slot, -1)]
+    return tuple(miss + [torch.zeros_like(x) for x in default[2:4 + (
+        kind == "A")]])
+
+
+def p25_outputs(kind: str, out):
+    """A mode call's outputs without stats: A (t, slot, u, v, attrs),
+    A' (t, slot, u, v), B the mask."""
+    if kind == "B":
+        return (out,)
+    return tuple(out[:5 if kind == "A" else 4])
+
+
+def p25_plain_outputs(kind: str, plain):
+    """The plain version's outputs as the kernel's (A' coded)."""
+    if kind == "A":
+        return tuple(plain)
+    if kind == "B":
+        return (plain,)
+    zero = torch.zeros(plain.shape, device=plain.device)
+    return (torch.where(plain, C.RAY_TMIN, torch.inf),
+            torch.where(plain, 1, -1).to(torch.int32), zero, zero)
+
+
+def p25_err(got, want) -> float:
+    """The largest |difference| of the float outputs of two output tuples
+    (elements equal, infinities too, count 0) plus the number of integer
+    or boolean elements (slots, masks) that differ."""
+    err, n = 0.0, 0
+    for g, w in zip(got, want):
+        if g.is_floating_point():
+            d = torch.where(g == w, 0.0, (g - w).abs())
+            err = max(err, d.max().item() if d.numel() else 0.0)
+        else:
+            n += int((g != w).sum().item())
+    return err + n
+
+
+def p25_check(kind: str, tree, args, block: int, kw: dict, out, default,
+              base_plain, groups: slice, where: str):
+    """One mode call's outputs `out` against the default kernel's (or, for
+    an `ablate` cut, a walk that commits nothing) element by element, and
+    the 128-ray groups `groups` of them against the plain version in the
+    mode (`base_plain`, the default's plain outputs and ms, where the
+    mode changes no plain output; `groups` is then every group). Raises on any difference; returns
+    (max_abs_err, plain ms)."""
+    got = p25_outputs(kind, out)
+    want = p25_expected(kind, default, kw)
+    if kw.get("sub_gate") or kw.get("pregate") or kw.get("ablate") in CUTS:
+        plain, plain_ms = timed(
+            lambda: p25_plain(kind, tree, args, block, kw, groups))
+    else:
+        plain, plain_ms = base_plain
+    plain = p25_plain_outputs(kind, plain)
+    cut = p25_rows(kind, got, groups) if kind != "B" else tuple(
+        x[:, groups] for x in got)
+    bad = [i for i, (g, w, p) in enumerate(zip(got, want, plain))
+           if not (torch.equal(g, w) and torch.equal(cut[i], p))]
+    err = max(p25_err(got, want), p25_err(cut, plain))
+    if bad or len(got) != len(want):
+        raise AssertionError(f"phase 25: {where}: outputs {bad} differ from "
+                             f"the default kernel's or the plain version's "
+                             f"({err})")
+    return err, plain_ms
+
+
+def p25_stats(tree, kind, args, block, out, kw) -> dict:
+    """A's or A''s stats against the plain version: lane 0 equal to the
+    JAX work-list length (`stats_lane0_of` without the kernel's bits),
+    lane 1 within `sweep_bounds` (lo: the clusters some ray of a group
+    enters at or before its final far bound; hi: those the group gates
+    at tmax). Returns their means per dispatch block."""
+    o, d, tm = args
+    st = out[-1]
+    point = kind == "A'"
+    lane0 = stats_lane0_of(tree, o, d, tm, block=block, point_origin=point,
+                           pregate="", ablate="")
+    full = broadcast_points(o, d, block) if point else o
+    blocked = out[1] >= 0
+    far = (torch.where(blocked, 0.0, tm) if point
+           else torch.where(blocked, out[0], tm))
+    n = tm.numel()
+    lo, hi = sweep_bounds(tree, full.reshape(3, n), d.reshape(3, n),
+                          tm.reshape(n), far.reshape(n), block)
+    res = dict(lane0_mean=st[:, 0].float().mean().item(),
+               lane1_mean=st[:, 1].float().mean().item(),
+               lo_mean=lo.float().mean().item(),
+               hi_mean=hi.float().mean().item(),
+               lane0_equal=bool(torch.equal(st[:, 0], lane0)),
+               lane1_in_bounds=bool(((lo <= st[:, 1]) & (st[:, 1] <= hi))
+                                    .all()))
+    if not (res["lane0_equal"] and res["lane1_in_bounds"]):
+        raise AssertionError(f"kernel {kind} stats vs plain: {res}")
+    return res
+
+
+def closest_stats_frame(renderer: Renderer) -> dict:
+    """trace_closest_stats (the reference backend's walk) on phase 21's
+    frame (320x240 reference_config() from the start pose), in chunks of
+    REF_CHUNK rays: the lock-step iterations of each chunk."""
+    cfg = dataclasses.replace(C.reference_config(), width=REF_SIZE[0],
+                              height=REF_SIZE[1])
+    cam = start_camera(cfg.width, cfg.height)
+    dev = renderer.device
+    ref = engine.make_backend(renderer.flat, "reference", dev)
+    opt, d, valid = camera_ray_blocks(
+        torch.as_tensor(cam.proj_inverse, device=dev),
+        torch.as_tensor(cam.view_inverse, device=dev), cfg)
+    d = L.from_cvec(d).contiguous()
+    tmax = torch.where(valid.reshape(-1), C.RAY_TMAX, 0.0)
+    iters = []
+    for r0 in range(0, d.shape[0], REF_CHUNK):
+        dc = d[r0:r0 + REF_CHUNK]
+        oc = opt[None, :].expand(dc.shape[0], 3).contiguous()
+        iters.append(int(traverse.trace_closest_stats(
+            ref.bvh, oc, dc, C.RAY_TMIN, tmax[r0:r0 + REF_CHUNK])[4]))
+    return dict(chunks=len(iters), rays_per_chunk=REF_CHUNK,
+                mean_iterations=float(np.mean(iters)),
+                max_iterations=max(iters))
+
+
+def build_in_cache_dir(tree, args) -> dict:
+    """The kernels built once into a temporary directory named by the
+    build-root variable (utils/cache.py), kernel A launched from that
+    library on `args` (equal to the default library's outputs), then the
+    default root restored."""
+    want = trace_dense(tree, *args)
+    old = os.environ.get(CACHE_ENV)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ[CACHE_ENV] = tmp
+        kernels.library.cache_clear()
+        try:
+            info = kernels.build()
+            got = trace_dense(tree, *args)
+            torch.cuda.synchronize()
+        finally:
+            if old is None:
+                os.environ.pop(CACHE_ENV)
+            else:
+                os.environ[CACHE_ENV] = old
+            kernels.library.cache_clear()
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        res = dict(path_in_dir=info.path.is_relative_to(tmp),
+                   cached=info.cached, seconds=info.seconds, equal=equal)
+    log("  kernels built under $VKRT_TORCH_CACHE (a temporary directory):",
+        json.dumps(res))
+    if not (res["path_in_dir"] and not res["cached"] and equal):
+        raise AssertionError(f"build under {CACHE_ENV} failed: {res}")
+    return res
+
+
+def item15_modes(renderer: Renderer, cam: Camera, bounds) -> dict:
+    """Phase 25 (see the module docstring): every mode of P25 launched
+    once a depth on one config-4 frame's inputs (those launches alone
+    counted), each held element by element against the default kernel
+    and against its plain version; ms of each (mean of 5; the pregates
+    less their prologue's), the ablate split, the stats, then
+    trace_closest_stats and the build under the cache variable.
+    `bounds`: phase 9's A and B rows at `cam`."""
+    tree = renderer.backend.tree
+    ntri = live_tris(tree.tri_data)
+    inputs = p25_inputs(renderer, cam)
+    zero_counts()
+    outs = {}
+    for depth, inp in enumerate(inputs):
+        for kind, modes in P25.items():
+            for m, kw in modes.items():
+                outs[kind, m, depth] = p25_call(kind, tree, inp[kind],
+                                                p25_block(kind, inp), kw)
+    torch.cuda.synchronize()
+    launches = {k: COUNTED[k].launches for k in P25_ROWS}
+    log("  phase 25 launches (one a mode a depth):", json.dumps(launches))
+    if any(v != len(inputs) for v in launches.values()):
+        raise AssertionError(f"phase 25 launches {launches}")
+    rows = {k: [] for k in P25_ROWS}
+    pairs = {f"{k}.{m}": [] for k, ms in P25_PAIRS.items() for m in ms}
+    stats = {}
+    for depth, inp in enumerate(inputs):
+        for kind, modes in P25.items():
+            args, block = inp[kind], p25_block(kind, inp)
+            default = p25_outputs(kind, p25_call(kind, tree, args, block, {}))
+            full_ms = cuda_ms(lambda: p25_call(kind, tree, args, block, {}),
+                              5)
+            base_plain, base_plain_ms = timed(
+                lambda: p25_plain(kind, tree, args, block, {}))
+            if kind == "A'":
+                bnd = occl_bound(tree, inp["B"][0][:1], inp["B"][1][:1],
+                                 inp["B"][2][:1], ntri, out_bytes=16)
+            else:
+                bnd = bounds[kind][depth]
+            for m, kw in modes.items():
+                out = outs[kind, m, depth]
+                # the interval pregate past depth 0: a scattered group's
+                # interval lists nearly every cluster, and its plain
+                # version tests every listed pair (78 s for A at depth 1
+                # on the H100), so it runs on every P25_INTERVAL_STRIDE-th
+                # group, against those groups of the kernel's outputs
+                groups = slice(None, None, P25_INTERVAL_STRIDE if (
+                    depth and kw.get("pregate") == "interval") else 1)
+                err, plain_ms = p25_check(
+                    kind, tree, args, block, kw, out, default,
+                    (base_plain, base_plain_ms), groups,
+                    f"{kind} {m}, depth {depth}")
+                if kw.get("stats"):
+                    stats[kind, depth] = p25_stats(tree, kind, args, block,
+                                                   out, kw)
+                ms = cuda_ms(lambda: p25_call(kind, tree, args, block, kw), 5)
+                if kw.get("pregate"):
+                    lists = (multi_worklists if kind == "B" else
+                             lambda t, *a: closest_worklists(
+                                 t, *a, block=block,
+                                 point_origin=kind == "A'"))
+                    ms -= cuda_ms(lambda: lists(tree, *args), 5)
+                cuts = kw.get("ablate") in CUTS
+                r = dict(ms=ms, default_ms=full_ms, plain_ms=plain_ms,
+                         plain_groups_step=groups.step, max_abs_err=err,
+                         **bound(bnd["bytes"], 0 if cuts else bnd["ops"]))
+                rows[f"{kind}.{m}"].append(r)
+            for m, (row, kw) in P25_PAIRS.get(kind, {}).items():
+                # not counted: compared with the default kernel, and with
+                # the plain version on every P25_INTERVAL_STRIDE-th group
+                groups = slice(None, None, P25_INTERVAL_STRIDE)
+                err, _ = p25_check(
+                    kind, tree, args, block, kw,
+                    p25_call(kind, tree, args, block, kw), default,
+                    (base_plain, base_plain_ms), groups,
+                    f"{kind} {m}, depth {depth}")
+                pairs[f"{kind}.{m}"].append(err)
+                rows[f"{kind}.{row}"][-1]["max_abs_err"] = max(
+                    rows[f"{kind}.{row}"][-1]["max_abs_err"], err)
+    log("  phase 25 pairs of modes (max_abs_err per depth):",
+        json.dumps(pairs))
+    for kind in ("A", "B"):
+        for depth in range(len(inputs)):
+            cells = [f"full {rows[f'{kind}.no_sort'][depth]['default_ms']:.3f}"]
+            cells += [f"{a} {rows[f'{kind}.ablate_{a}'][depth]['ms']:.3f}"
+                      for a in ABLATES[1:]]
+            log(f"  phase decomposition, kernel {kind}, depth {depth} (ms, "
+                f"CUDA events, mean of 5): " + " | ".join(cells))
+    for (kind, depth), r in stats.items():
+        log(f"  stats, kernel {kind}, depth {depth}, per block of "
+            f"{p25_block(kind, inputs[depth])} rays:", json.dumps(r))
+    for k, rs in rows.items():
+        log(f"  {k} per depth: " + "; ".join(
+            f"d{d} {r['ms']:.3f} ms (default {r['default_ms']:.3f}), plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound_ms']:.3f} "
+            f"({r['bound_by']})" for d, r in enumerate(rs)))
+    ref = closest_stats_frame(renderer)
+    log("  trace_closest_stats on phase 21's frame:", json.dumps(ref))
+    build_in_cache_dir(tree, inputs[0]["A"])
+    return dict(rows=rows, launches=launches, stats=stats, ref=ref)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -2745,6 +3174,12 @@ def main() -> int:
                                res_9)
     log(f"  phase 24: {time.perf_counter() - t_new:.1f} s")
 
+    log("== 25. the JAX kernels' remaining modes: stats, ablate, interval, "
+        "group_gate / sort, visit, kernel A''s modes")
+    t_new = time.perf_counter()
+    res_25 = item15_modes(renderer, cam, res_9)
+    log(f"  phase 25: {time.perf_counter() - t_new:.1f} s")
+
     log("== 10. kernel G vs plain on probes")
     small = rp.Rasterizer(procedural_model("small", seed=SEED),
                           C.reference_config(), dev)
@@ -2776,7 +3211,7 @@ def main() -> int:
     res_13 = raster_shapes(rast, rcams[0])
 
     t_new = time.perf_counter()
-    out_dir = kernels.BUILD_ROOT / "smoke"       # gitignored, in the checkout
+    out_dir = build_root() / "smoke"      # gitignored by default, in the checkout
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         log(f"== 19. CLI: config 4 fly-through, {CLI_FRAMES} frames at "
@@ -2850,6 +3285,23 @@ def main() -> int:
                    for key in ("bound_ms", "bound_by")},
                 "library_ms": None}
 
+    def p25_entry(key):
+        kind, mode = key.split(".", 1)
+        rows = res_25["rows"][key]
+        name = {"A": "trace_closest", "A'": "trace_occluded",
+                "B": "occl_multi"}[kind]
+        return {"name": f"{name}.{mode}", "route": "cuda",
+                "source": {"A": "vkrt_tpu_torch/csrc/trace_closest.cu",
+                           "A'": "vkrt_tpu_torch/csrc/trace_occluded.cu",
+                           "B": "vkrt_tpu_torch/csrc/occl_multi.cu"}[kind],
+                "replaces": P25_REPLACES[kind, mode.split("_")[0]],
+                "launches": res_25["launches"][key],
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                **{k: add_bounds(rows)[k] for k in ("bound_ms", "bound_by")},
+                "library_ms": None}
+
     log(f"== total {time.perf_counter() - t_start:.1f} s from the build on")
     log(smi)
     log(json.dumps({"kernels": [
@@ -2881,6 +3333,7 @@ def main() -> int:
         mode_entry("B.recheck", "occl_multi.recheck",
                    "vkrt_tpu_torch/csrc/occl_multi.cu",
                    "vkrt_tpu/rt/occl_multi.py:404"),
+        *[p25_entry(k) for k in P25_ROWS],
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

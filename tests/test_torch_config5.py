@@ -141,13 +141,21 @@ def test_update_tree_follows_the_rebuild_mode(scene):
 
 
 def test_renderer_rejects_unknown_rebuild_and_unported_sah_opts(scene):
+    """An unknown rebuild mode raises; every device-SAH option renders
+    (the ablation modes were unported when this test was named): a full
+    rebuild with sah_opts permutes the same triangles, and its frame
+    stays within RMSE_BAR of the default full rebuild's."""
     model, cam = scene
     with pytest.raises(ValueError, match="rebuild"):
         te.Renderer(model, config5(), "cpu", rebuild="lbvh")
-    r = te.Renderer(model, config5(), "cpu", rebuild="full",
-                    sah_opts=dict(axis_mode="extent"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        r.render(cam, transform=M)
-    ok = te.Renderer(model, config5(), "cpu", rebuild="full",
-                     sah_opts=dict(max_levels=6))
-    assert np.isfinite(ok.render(cam, transform=M)[0]).all()
+    base = te.Renderer(model, config5(), "cpu", rebuild="full")
+    want = base.render(cam, transform=M)[0]
+    for opts in (dict(axis_mode="extent"), dict(max_levels=6),
+                 dict(axis_mode="slab", cuts=2, stable=False)):
+        r = te.Renderer(model, config5(), "cpu", rebuild="full",
+                        sah_opts=opts)
+        fb = r.render(cam, transform=M)[0]
+        assert np.isfinite(fb).all() and rmse(fb, want) <= RMSE_BAR
+        leaf = r.update_tree(M).leaf_tri
+        assert torch.equal(leaf.sort().values,
+                           base.update_tree(M).leaf_tri.sort().values)

@@ -1,5 +1,6 @@
-"""Kernels A-G and A' on the card vs their plain PyTorch versions (A and
-B in each of their modes also vs their default mode), the
+"""Kernels A-G and A' on the card vs their plain PyTorch versions (A, A'
+and B in each of their modes also vs their default mode; A's and A''s
+stats within the plain version's bounds), the
 per-frame accel update (refit, device SAH and Morton rebuilds) on the
 card vs the CPU, the app surface on the card (FrameScheduler on CUDA
 events, the CLI's fly-through, the reference backend (LBVH) vs dense),
@@ -37,10 +38,15 @@ from vkrt_tpu_torch.raster.pipeline import (MSAA8, Rasterizer,
                                             sample_pixel_lanes)
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
 from vkrt_tpu_torch.accel.refit import refit_clusters
-from vkrt_tpu_torch.rt.dense import (broadcast_points, trace_dense,
+from vkrt_tpu_torch import kernels
+from vkrt_tpu_torch.rt import dense
+from vkrt_tpu_torch.rt.dense import (ABLATES, CUTS, broadcast_points,
+                                     closest_worklists, stats_lane0_of,
+                                     sweep_bounds, trace_dense,
                                      trace_dense_plain, trace_occluded,
                                      trace_occluded_plain)
-from vkrt_tpu_torch.rt.occl_multi import (MAX_SETS, occluded_multi,
+from vkrt_tpu_torch.rt.occl_multi import (MAX_SETS, multi_worklists,
+                                          occluded_multi,
                                           occluded_multi_plain)
 from vkrt_tpu_torch.runtime import FrameScheduler
 from vkrt_tpu_torch.scene.procedural import procedural_model
@@ -787,3 +793,239 @@ def test_secondary_option_frame_on_card_equals_default(renderer, flag):
     got = render_frame(renderer.backend, renderer.tex, pi, vi,
                        renderer.lights, small_config(**{flag: True}))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# --- the JAX kernels' remaining modes: stats, ablate, the interval
+# pregate, group_gate / sort, visit, and kernel A''s modes ---------------
+ABLATE_MODES = {f"ablate_{a}": dict(ablate=a) for a in ABLATES[1:]}
+A_NEW_MODES = {"interval": dict(pregate="interval"),
+               "interval_sub_gate": dict(pregate=True, sub_gate=True),
+               "group_gate_unsorted": dict(group_gate=True, sort=False),
+               **ABLATE_MODES,
+               "recheck_nosweep": dict(pregate="recheck", ablate="nosweep"),
+               "recheck_nosort": dict(pregate="recheck", ablate="nosort"),
+               "interval_nodma": dict(pregate="interval", ablate="nodma"),
+               "interval_onlysc": dict(pregate="interval", ablate="onlysc"),
+               "interval_nosort": dict(pregate="interval", ablate="nosort")}
+A1_MODES = {"sub_gate": dict(sub_gate=True),
+            "recheck": dict(pregate="recheck"),
+            "interval": dict(pregate="interval"),
+            "interval_nosort": dict(pregate="interval", ablate="nosort"),
+            **ABLATE_MODES}
+B_NEW_MODES = {"visit_mid": dict(visit="mid"), "visit_far": dict(visit="far"),
+               "visit_mid_nosort": dict(visit="mid", ablate="nosort"),
+               "interval": dict(pregate="interval"),
+               "interval_sub_gate": dict(pregate=True, sub_gate=True),
+               "group_gate_unsorted": dict(group_gate=True, sort=False),
+               "interval_nosort": dict(pregate="interval", ablate="nosort"),
+               "interval_visit_mid": dict(pregate="interval", visit="mid"),
+               "recheck_visit_far": dict(pregate="recheck", sort=False,
+                                         visit="far"),
+               **ABLATE_MODES}
+STATS_MODES = {"default": {}, "sub_gate": dict(sub_gate=True),
+               "recheck": dict(pregate="recheck"),
+               "interval": dict(pregate="interval"),
+               "nosweep": dict(ablate="nosweep"),
+               "nosort": dict(ablate="nosort"),
+               "onlysc": dict(ablate="onlysc"),
+               "nodma": dict(ablate="nodma")}
+
+
+def mode_of(kw):
+    """(pregate, ablate) as the wrappers normalise them."""
+    pregate = dense._pregate(kw.get("pregate", False))
+    return pregate, dense._ablate(kw.get("ablate", ""), pregate)
+
+
+def plain_lists_kw(tree, o, d, tmax, kw, block=512, point_origin=False):
+    """The plain versions' list keywords for kernel A's / A''s mode."""
+    pregate, _ = mode_of(kw)
+    lists = (closest_worklists(tree, o, d, tmax, block=block,
+                               point_origin=point_origin)
+             if pregate else None)
+    return dense._plain_lists(tree, lists, pregate), lists
+
+
+def missed(out) -> list:
+    """Kernel A's outputs of a walk that commits nothing."""
+    t, slot = out[0], out[1]
+    return [torch.full_like(t, torch.inf), torch.full_like(slot, -1)] + [
+        torch.zeros_like(x) for x in out[2:]]
+
+
+@pytest.mark.parametrize("mode", sorted(A_NEW_MODES))
+def test_kernel_a_new_modes_match_default_and_plain(renderer, card, mode):
+    """Kernel A in each mode: every output torch.equal to the default
+    kernel's (a cut: every ray a miss) and to the plain version's in the
+    same mode, on scattered and camera rays; the mode's launches are
+    counted."""
+    tree = renderer.backend.tree
+    kw = A_NEW_MODES[mode]
+    pregate, ablate = mode_of(kw)
+    for rays in ("scattered", "camera"):
+        o, d, tmax = (random_rays(card, seed=15) if rays == "scattered"
+                      else camera_rays(renderer, card))
+        before = dict(trace_dense.mode_launches)
+        got = trace_dense(tree, o, d, tmax, **kw)
+        want = trace_dense(tree, o, d, tmax)
+        lkw, _ = plain_lists_kw(tree, o, d, tmax, kw)
+        plain = trace_dense_plain(tree, o, d, tmax, ablate=ablate,
+                                  sub_gate=kw.get("sub_gate", False), **lkw)
+        torch.cuda.synchronize()
+        assert (want[1] >= 0).any()
+        if ablate in CUTS:
+            want = missed(want)
+        for g, w, p in zip(got, want, plain):
+            assert torch.equal(g, w) and torch.equal(g, p)
+        after = trace_dense.mode_launches
+        if ablate:
+            key = f"ablate_{ablate}"
+            assert after[key] == before[key] + 1
+        assert after["interval"] == before["interval"] + (
+            pregate == "interval")
+        assert after["group_gate"] == before["group_gate"] + (
+            "group_gate" in kw)
+
+
+def check_stats(tree, o, d, tmax, far, st, kw, block, point_origin=False,
+                lists=None):
+    """A kernel's stats i32[N/block, 2] against the plain version: lane 0
+    equal, lane 1 within `sweep_bounds` (exact where no sweep commits)."""
+    pregate, ablate = mode_of(kw)
+    want0 = stats_lane0_of(tree, o, d, tmax, block=block,
+                           point_origin=point_origin, pregate=pregate,
+                           ablate=ablate)
+    assert torch.equal(st[:, 0], want0)
+    full = broadcast_points(o, d, block) if point_origin else o
+    n = tmax.numel()
+    lo, hi = sweep_bounds(tree, full.reshape(3, n), d.reshape(3, n),
+                          tmax.reshape(n), far.reshape(n), block,
+                          **dense._plain_lists(tree, lists, pregate))
+    lane1 = st[:, 1]
+    if ablate in CUTS and ablate != "nosweep":
+        assert not lane1.any()
+    else:
+        assert (lo <= lane1).all() and (lane1 <= hi).all(), (lo, lane1, hi)
+        if ablate == "nosweep" and not pregate:
+            assert torch.equal(lane1, hi) and torch.equal(lo, hi)
+    return lo, lane1, hi
+
+
+@pytest.mark.parametrize("mode", sorted(STATS_MODES))
+@pytest.mark.parametrize("block", [256, 512])
+def test_kernel_a_stats_match_plain(renderer, card, mode, block):
+    """Kernel A with stats=True: the usual outputs equal the same call's
+    without stats; lane 0 equals the plain work-list length (the JAX
+    kernel's); lane 1 lies within the plain version's bounds."""
+    tree = renderer.backend.tree
+    kw = STATS_MODES[mode]
+    for rays in ("scattered", "camera"):
+        o, d, tmax = (random_rays(card, seed=16) if rays == "scattered"
+                      else camera_rays(renderer, card))
+        got = trace_dense(tree, o, d, tmax, block=block, stats=True, **kw)
+        want = trace_dense(tree, o, d, tmax, **kw)
+        assert len(got) == 6 and got[5].shape == (tmax.numel() // block, 2)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        far = torch.where(got[1] >= 0, got[0], tmax)
+        _, lists = plain_lists_kw(tree, o, d, tmax, kw)
+        lo, lane1, hi = check_stats(tree, o, d, tmax, far, got[5], kw, block,
+                                    lists=lists)
+        if not mode_of(kw)[1]:
+            assert (got[5][:, 0] > 0).all() and (lane1 > 0).any()
+
+
+@pytest.mark.parametrize("mode", sorted(A1_MODES) + ["stats"])
+@pytest.mark.parametrize("block", [0, 512])
+def test_kernel_a_prime_modes_match_default_and_plain(renderer, card, mode,
+                                                      block):
+    """Kernel A' in each mode, per-ray origins (block 0) and one origin
+    per 512 rays: masks equal the default kernel's (a cut: none blocked)
+    and the plain version's in the mode; outputs coded; stats as A's."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, seed=17)
+    tmax = torch.where(tmax > 0, 12.0, 0.0)
+    kw = dict(stats=True) if mode == "stats" else A1_MODES[mode]
+    pk = dict(block=512, point_origin=True) if block else {}
+    if block:
+        pts = o.reshape(3, -1)[:, ::block].T.contiguous()
+        full = broadcast_points(pts, d, block)
+    else:
+        pts = full = o
+    before = trace_occluded.launches
+    got = trace_occluded(tree, pts, d, tmax, **pk, **kw)
+    want = trace_occluded(tree, pts, d, tmax, **pk)
+    assert trace_occluded.launches == before + 2
+    pregate, ablate = mode_of(kw)
+    lkw, lists = plain_lists_kw(tree, pts, d, tmax, kw, block=block or 512,
+                                point_origin=bool(block))
+    plain = trace_occluded_plain(tree, full, d, tmax, ablate=ablate,
+                                 sub_gate=kw.get("sub_gate", False), **lkw)
+    torch.cuda.synchronize()
+    blocked = want[1] >= 0
+    assert 0.05 < blocked.float().mean().item() < 0.95
+    if ablate in CUTS:
+        blocked = torch.zeros_like(blocked)
+    assert torch.equal(got[1] >= 0, blocked) and torch.equal(plain, blocked)
+    assert occluded_coded(got[:4], blocked)
+    if mode == "stats":
+        far = torch.where(blocked, 0.0, tmax)
+        check_stats(tree, pts, d, tmax, far, got[4], kw, 512,
+                    point_origin=bool(block))
+    # trace_dense(occlusion=True) is the same kernel in the same mode
+    via = trace_dense(tree, pts, d, tmax, occlusion=True,
+                      with_attributes=False, **pk, **kw)
+    assert torch.equal(via[1], got[1])
+
+
+@pytest.mark.parametrize("mode", sorted(B_NEW_MODES))
+@pytest.mark.parametrize("ns", [1, 4])
+def test_kernel_b_new_modes_match_default_and_plain(renderer, card, mode,
+                                                    ns):
+    """Kernel B in each mode, 1 and 4 segment sets: masks torch.equal to
+    the default kernel's (a cut: none blocked) and the plain version's in
+    the mode; the mode's launches are counted."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, seed=18)
+    lights = renderer.lights[:ns].contiguous()
+    st = torch.stack([tmax * (0.01 + 0.1 * s) for s in range(ns)])
+    st[:, 0, :8] = 0.0009
+    sd = torch.stack([d] * ns).contiguous()
+    kw = B_NEW_MODES[mode]
+    pregate, ablate = mode_of(kw)
+    before = dict(occluded_multi.mode_launches)
+    got = occluded_multi(tree, lights, sd, st, **kw)
+    want = occluded_multi(tree, lights, sd, st)
+    lists = multi_worklists(tree, lights, sd, st) if pregate else None
+    plain = occluded_multi_plain(tree, lights, sd, st, lists=lists,
+                                 pregate=pregate, ablate=ablate,
+                                 sub_gate=kw.get("sub_gate", False))
+    torch.cuda.synchronize()
+    assert want.any()
+    if ablate in CUTS:
+        want = torch.zeros_like(want)
+    assert torch.equal(got, want) and torch.equal(got, plain)
+    after = occluded_multi.mode_launches
+    for key in ("visit_mid", "visit_far"):
+        assert after[key] == before[key] + (kw.get("visit") == key[6:])
+
+
+def test_kernels_build_under_the_cache_variable(renderer, card, tmp_path,
+                                                monkeypatch):
+    """VKRT_TORCH_CACHE moves the kernels' build root: a fresh build there,
+    loaded in place of the default one, gives kernel A's outputs."""
+    tree = renderer.backend.tree
+    o, d, tmax = random_rays(card, seed=19)
+    want = trace_dense(tree, o, d, tmax)
+    monkeypatch.setenv("VKRT_TORCH_CACHE", str(tmp_path))
+    kernels.library.cache_clear()
+    try:
+        info = kernels.build()
+        assert not info.cached and info.path.is_relative_to(tmp_path)
+        got = trace_dense(tree, o, d, tmax)
+        torch.cuda.synchronize()
+    finally:
+        monkeypatch.delenv("VKRT_TORCH_CACHE")
+        kernels.library.cache_clear()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

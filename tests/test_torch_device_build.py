@@ -4,11 +4,11 @@
 numpy inputs go through them and through the JAX functions. Bars: Morton
 codes equal; `_assemble`'s tree byte-equal to the JAX `_assemble` tree
 and to the port's host assembly for the same order; `device_sah_order` a
-true permutation EQUAL to the JAX order (min, max, whole-number sums,
-one stable sort per level and elementwise float32 on both sides; XLA's
-CPU code may contract the SAH cost's product-sums, and a tie that falls
-differently for that would show as an unequal order here — none does on
-these inputs); total cluster area at most 1.30x the host build's and
+true permutation EQUAL to the JAX order in every mode (min, max,
+whole-number sums, one sort per level and elementwise float32 on both
+sides; XLA's CPU code contracts the SAH costs' product sums into fused
+multiply-adds, and the port rounds those once too, so ties fall alike);
+total cluster area at most 1.30x the host build's and
 below 0.8x the Morton order's (tests/test_device_sah.py's bars).
 """
 
@@ -146,6 +146,22 @@ def test_device_sah_levels_and_bins_are_arguments():
     assert areas[0] > areas[1] > areas[2]
 
 
+def line_triangles():
+    """(v0, e1, e2) of 1,024 triangles whose centroids lie evenly spaced
+    on the line x = y = z, each jittered in shape: every segment of every
+    level holds a run of the line, so no two of its triangles share a
+    quantised centroid on any axis and the sort keys are distinct (the
+    order of equal keys, which `stable=False` leaves open, is defined by
+    neither package)."""
+    rng = np.random.default_rng(4)
+    n = 1024
+    c = np.repeat(np.linspace(-10, 10, n, dtype=np.float32)[:, None], 3, 1)
+    e1 = (rng.normal(size=(n, 3)) * 0.01).astype(np.float32)
+    e2 = (rng.normal(size=(n, 3)) * 0.01).astype(np.float32)
+    v0 = (c - (e1 + e2) / 3.0).astype(np.float32)
+    return v0, e1, e2
+
+
 @pytest.mark.parametrize("opts", [dict(axis_mode="extent"),
                                   dict(axis_mode="variance"),
                                   dict(axis_mode="slab"),
@@ -155,11 +171,21 @@ def test_device_sah_levels_and_bins_are_arguments():
                          ids=lambda o: "-".join(f"{k}={v}"
                                                 for k, v in o.items()))
 def test_unported_sah_modes_raise(opts):
-    v0, e1, e2 = to_torch(*triangles("scene"))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        device_sah_order(v0, e1, e2, **opts)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.build_clusters(v0, e1, e2, method="sah", sah_opts=opts)
+    """The ablation modes of the JAX device_sah_order, now ported (the
+    name is kept from when they raised): each order equal to the JAX
+    order on the small scene (stable=False: on `line_triangles`, whose
+    keys are distinct), a permutation, and build_clusters(method="sah",
+    sah_opts=...) the tree `_assemble` makes of it."""
+    tris = line_triangles() if opts == dict(stable=False) \
+        else triangles("scene")
+    want = np.asarray(jax_sah_order(*map(jnp.asarray, tris), **opts))
+    v0, e1, e2 = to_torch(*tris)
+    got = device_sah_order(v0, e1, e2, **opts)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(np.sort(want), np.arange(len(want)))
+    tree = tc.build_clusters(v0, e1, e2, method="sah", sah_opts=opts)
+    for g, w in zip(tree, tc._assemble(v0, e1, e2, got)):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("method", ["sah", "split", "morton"])

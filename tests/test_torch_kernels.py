@@ -21,7 +21,7 @@ echo "$@" >> "{args}"
 
 @pytest.fixture()
 def build_root(tmp_path, monkeypatch):
-    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setenv("VKRT_TORCH_CACHE", str(tmp_path / "build"))
     return tmp_path
 
 

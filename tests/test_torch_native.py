@@ -28,6 +28,7 @@ from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.golden import cpu_tracer as tgold
 from vkrt_tpu_torch.scene import build_texture_heap, flatten_model
 from vkrt_tpu_torch.scene.procedural import procedural_model
+from vkrt_tpu_torch.utils.cache import build_root
 
 
 def jax_native():
@@ -40,7 +41,7 @@ def jax_native():
     so = Path(jnative._SO)
     src = so.with_name("tracer.cpp")
     if not so.is_file() or src.stat().st_mtime > so.stat().st_mtime:
-        built = tnative.build(src, tnative.BUILD_ROOT / "jax")
+        built = tnative.build(src, build_root() / "native" / "jax")
         tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
         shutil.copyfile(built, tmp)
         os.replace(tmp, so)

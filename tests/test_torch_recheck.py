@@ -11,7 +11,9 @@ vkrt_tpu/rt/occl_multi.py:611-630 (equal). The interval gate is
 conservative: every (group, cluster) pair a ray's own gate passes is
 gated. Plain A and B in either mode, and in both, equal the default
 plain versions bit for bit; so do the CUDA kernels
-(tests/test_torch_cuda.py). A sub-run box is widened before its test and
+(tests/test_torch_cuda.py). The interval pregate and kernel A''s modes
+(tests/test_torch_modes.py against the JAX kernel) give the defaults'
+outputs too. A sub-run box is widened before its test and
 an empty (inverted) one fails it: its zeroed rows commit nothing.
 """
 
@@ -295,15 +297,22 @@ def test_empty_sub_run_commits_nothing(trees):
 
 
 def test_unported_pregate_and_occlusion_modes_raise(trees):
-    """The interval pregate and kernel A' modes stay unported (ROADMAP.md
-    queue 1 item 15); the default plain version takes no lists."""
+    """The interval pregate and kernel A''s modes, now ported (the name is
+    kept from when they raised): each gives the default's outputs; the
+    default plain version takes no lists."""
     _, ttree = trees
     o, d, tm = (torch.from_numpy(x) for x in rays())
+    want = trace_dense(ttree, o, d, tm)
     for pregate in (True, "interval"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            trace_dense(ttree, o, d, tm, pregate=pregate)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        trace_dense(ttree, o, d, tm, occlusion=True, sub_gate=True)
+        for g, w in zip(trace_dense(ttree, o, d, tm, pregate=pregate), want):
+            assert torch.equal(g, w)
+    blocked = trace_dense(ttree, o, d, tm, occlusion=True)
+    for kw in (dict(sub_gate=True), dict(pregate="recheck"),
+               dict(pregate=True, sub_gate=True)):
+        for g, w in zip(trace_dense(ttree, o, d, tm, occlusion=True, **kw),
+                        blocked):
+            assert torch.equal(g, w)
+    assert (blocked[1] >= 0).any()
     out = trace_dense_plain(ttree, o, d, tm)
     for g, w in zip(out, trace_dense(ttree, o, d, tm, pregate=False)):
         assert torch.equal(g, w)

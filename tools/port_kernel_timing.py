@@ -1,7 +1,7 @@
 """Times of the port's kernels A, A', B, E, F and G, for comparing two checkouts on one card.
 
     python3 tools/port_kernel_timing.py [--frames N]
-        [--parts trace,occluded,sort,unsort,raster]
+        [--parts trace,occluded,sort,unsort,raster,rebuild]
 
 Run it from the root of a checkout of the repository on a machine with an
 NVIDIA GPU and nvcc; it imports `vkrt_tpu_torch` (and chip_smoke.py's
@@ -40,6 +40,14 @@ kernels on one card, minutes apart.
   * raster: G (`raster_edge`): frames of Rasterizer(full procedural scene,
     1600x1200, msaa 8) by CUDA events, then G alone on one frame's 32
     recorded calls, summed per discard round.
+  * rebuild: config-5 frames (1920x1080, depth 4) with rebuild="full"
+    (the device SAH order every frame) and "full_morton" under the
+    y-rotation that grows each frame, by CUDA events as above, then the
+    same frames one at a time: the host's ms to enqueue each, and the
+    caching allocator's cudaMalloc / cudaFree calls over them; then
+    `device_sah_order` alone (the shipped mode) on the scene's
+    triangles: device ms by CUDA events and the host's enqueue ms per
+    call, mean of 5 after a warm-up. Not in the default --parts.
 
 Prints the card's nvidia-smi name and power limit, then one JSON object.
 """
@@ -295,6 +303,47 @@ def time_trace(dev, frames: int) -> dict:
             "config5_refit": kernels_by_depth(r5, cam, rot_y(0.02))}
 
 
+def time_rebuild(dev, frames: int) -> dict:
+    from chip_smoke import rot_y
+    from vkrt_tpu_torch.accel.device_sah import device_sah_order
+    cfg = C.config5_stress()
+    model = procedural_model("full", seed=0)
+    cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
+                                 frames + 1))
+    tfs = [rot_y(0.01 * k) for k in range(len(cams))]
+    out = {}
+    keys = ("num_device_alloc", "num_device_free", "num_alloc_retries")
+    for mode in ("full", "full_morton"):
+        r = Renderer(model, cfg, dev, quantize=True, rebuild=mode)
+        ms = frames_ms(r, cams, tfs)
+        out[f"config5_{mode}_frame_ms"] = ms
+        out[f"config5_{mode}_frame_ms_mean"] = float(np.mean(ms))
+        # the host's ms per frame alone (each frame waited for), and the
+        # caching allocator's cudaMalloc / cudaFree calls over those frames
+        before = torch.cuda.memory_stats(dev)
+        host = []
+        for k in range(1, len(cams)):
+            t0 = time.perf_counter()
+            r.render_async(cams[k], tfs[k])
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        after = torch.cuda.memory_stats(dev)
+        out[f"config5_{mode}_host_ms"] = host
+        out[f"config5_{mode}_allocator"] = {
+            k: after.get(k, 0) - before.get(k, 0) for k in keys}
+    tris = r.rebuild_inputs()[0]
+    out["sah_order_ms"] = event_ms(lambda: device_sah_order(*tris), 5)
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        device_sah_order(*tris)
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    out["sah_order_enqueue_ms"] = float(np.mean(host))
+    out["triangles"] = int(tris[0].shape[0])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=2)
@@ -328,6 +377,8 @@ def main() -> int:
         out["unsort"] = time_unsort(dev)
     if "raster" in parts:
         out["raster"] = time_raster(dev, args.frames)
+    if "rebuild" in parts:
+        out["rebuild"] = time_rebuild(dev, args.frames)
     print(runtime.nvidia_smi_line())
     for ln in ptxas:
         print("ptxas:", ln)

@@ -82,10 +82,11 @@ def build_clusters(v0, e1, e2, attrs=None, with_attributes: bool = False,
     torch tensors (or method "sah" / "morton"): the device build on the
     tensors' device (numpy inputs go to `device` first), the per-frame
     rebuild path. method="sah" or "split" orders with
-    accel/device_sah.device_sah_order (`sah_opts` forwards max_levels and
-    nbins), method="morton" with one stable argsort of 30-bit Morton
-    codes quantised inside `aabb=(lo, hi)` (the centroids' own bounds if
-    omitted; conservative bounds are fine). `attrs` then holds tensors
+    accel/device_sah.device_sah_order (`sah_opts` forwards its keywords:
+    max_levels, nbins, axis_mode, cuts, stable), method="morton" with
+    one stable argsort of 30-bit Morton codes quantised inside
+    `aabb=(lo, hi)` (the centroids' own bounds if omitted; conservative
+    bounds are fine). `attrs` then holds tensors
     (or arrays) keyed as `scene_attrs`."""
     if method not in ("split", "sah", "morton"):
         raise ValueError(f"build_clusters: unknown method {method!r}")

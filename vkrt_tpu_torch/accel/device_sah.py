@@ -1,6 +1,8 @@
 """Device-side variable-cut SAH cluster order — counterpart of
-vkrt_tpu/accel/device_sah.py, its shipped mode (binned axis choice,
-stable sort, one cut per level).
+vkrt_tpu/accel/device_sah.py, with every mode of the JAX function: the
+shipped one (binned axis choice, stable sort, one cut per level) and its
+ablations (`axis_mode` "extent", "hybrid:N", "sampled:S", "variance",
+"slab"; `cuts` > 1; `stable=False`), which measured worse there.
 
 The host build's recursion (accel/clusters.split_permutation: triangle
 granularity, variable K1-aligned cuts) as fixed-shape batched passes on
@@ -20,6 +22,14 @@ wait (no .item(), no nonzero) in the level loop: the per-frame rebuild
 calls this every frame. The JAX package computes the same passes in XLA,
 outside any Pallas kernel.
 
+The JAX function's float sums of products are compiled by XLA on the
+CPU into fused multiply-adds. The ablation modes round the same ones
+once (`_fma`, fused=True), so that ties between axes or cuts fall alike
+(tests/test_torch_device_build.py holds every mode equal to the JAX
+order; sampled:8 meets an exact tie there). The shipped mode keeps
+float32 products and sums: the per-frame rebuild runs it, and the fused
+rounding costs it three float64 casts a product sum.
+
 torch has no associative_scan, so the segmented box scans run as ONE
 cummin / cummax over int64 keys: segment ids are monotone along the
 chunks, so a key of (segment rank << 32 | order-preserving bits of the
@@ -29,19 +39,36 @@ scan, confines the running extreme to the current segment exactly.
 
 from __future__ import annotations
 
+import re
+
 import torch
 
 from vkrt_tpu_torch.accel.clusters import _INF, K1, K2
 
 NBINS = 16   # axis-choice SAH bins
+_MULTI_CUT_LEVELS = 4     # trailing levels that run cuts > 1 rounds a sort
 _CEN_BITS = 18            # quantised centroid bits in the composite key
+AXIS_MODES = re.compile(r"binned|extent|variance|slab|hybrid:\d+"
+                        r"|sampled:\d+")
 _M32 = 0xFFFFFFFF
 _SIGN = 0x80000000
 
 
-def _area(ext):
-    return (ext[..., 0] * ext[..., 1] + ext[..., 1] * ext[..., 2]
-            + ext[..., 2] * ext[..., 0])
+def _fma(a, b, c, fused: bool):
+    """a * b + c: fused, rounded once as XLA's CPU code contracts the JAX
+    function's product sums (in float64: the product is exact, the sum
+    rounds, then float32); else the float32 product, then the sum."""
+    if not fused:
+        return a * b + c
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def _area(ext, fused: bool):
+    """Half the surface area of boxes of extents ext [..., 3] (`_fma`'s
+    rounding)."""
+    return _fma(ext[..., 2], ext[..., 0],
+                _fma(ext[..., 0], ext[..., 1], ext[..., 1] * ext[..., 2],
+                     fused), fused)
 
 
 def _ordered_bits(x):
@@ -92,40 +119,39 @@ def _segment_reduce(src, sid, nseg: int, reduce: str, empty: float):
     return out.reshape((nseg,) + src.shape[1:])
 
 
-def _level(S, cb, nbins: int):
-    """One level: S f32[Tp,11] packed carry in current order (cen | tmin |
-    tmax | weight | original index), cb bool[Nc] segment-start bits →
-    (S in the new order, cb with each segment's best cut added)."""
-    tp = S.shape[0]
-    nc = tp // K1
-    dev = S.device
-    cen_s, w_s = S[:, 0:3], S[:, 9]
-    iota_c = torch.arange(nc, device=dev)
-    sid_c = torch.cumsum(cb.to(torch.int64), dim=0) - 1          # [Nc]
+def _first_min(cost):
+    """Index of the least of the 3 columns of cost [S,3], the first on a
+    tie (as jnp.argmin): strict < from axis 0 on."""
+    best = (cost[:, 1] < cost[:, 0]).to(torch.int64)
+    return torch.where(cost[:, 2] < torch.minimum(cost[:, 0], cost[:, 1]),
+                       2, best)
 
-    # --- 1. axis choice per segment (triangle-granularity binned SAH) ----
-    cen_o = cen_s.reshape(nc, K1, 3)
-    omin = S[:, 3:6].reshape(nc, K1, 3)
-    omax = S[:, 6:9].reshape(nc, K1, 3)
-    tw = w_s.reshape(nc, K1)
-    tvalid = tw > 0
-    smin = _segment_reduce(torch.where(tvalid[..., None], cen_o, _INF)
-                           .amin(dim=1), sid_c, nc, "amin", torch.inf)
-    smax = _segment_reduce(torch.where(tvalid[..., None], cen_o, -_INF)
-                           .amax(dim=1), sid_c, nc, "amax", -torch.inf)
-    lo_c = smin[sid_c]                                           # [Nc,3]
-    span_c = torch.clamp(smax[sid_c] - lo_c, min=1e-12)
-    bin_t = torch.clamp((cen_o - lo_c[:, None, :]) / span_c[:, None, :]
+
+def _first_max(x):
+    """Index of the greatest of the 3 columns of x [S,3], the first on a
+    tie (as jnp.argmax)."""
+    return _first_min(-x)
+
+
+def _axis_binned(cen_o, omin, omax, tw, tvalid, lo_c, span_c, sid_c,
+                 nbins: int, stride: int, fused: bool):
+    """Triangle-granularity binned SAH axis choice per segment (every
+    `stride`-th triangle of each chunk: "sampled:S")."""
+    nc = cen_o.shape[0]
+    dev = cen_o.device
+    cen_b, omin_b, omax_b = (x[:, ::stride] for x in (cen_o, omin, omax))
+    tval_b, tw_b = tvalid[:, ::stride], tw[:, ::stride]
+    bin_t = torch.clamp((cen_b - lo_c[:, None, :]) / span_c[:, None, :]
                         * nbins, 0.0, nbins - 1.0).to(torch.int32)
     bid = torch.arange(nbins, dtype=torch.int32, device=dev)
     bmn_ax, bmx_ax, bct_ax = [], [], []
     for ax in range(3):
-        oh = (bin_t[..., ax][..., None] == bid) & tvalid[..., None]
-        bmn_ax.append(torch.where(oh[..., None], omin[:, :, None, :], _INF)
+        oh = (bin_t[..., ax][..., None] == bid) & tval_b[..., None]
+        bmn_ax.append(torch.where(oh[..., None], omin_b[:, :, None, :], _INF)
                       .amin(dim=1))                              # [Nc,NB,3]
-        bmx_ax.append(torch.where(oh[..., None], omax[:, :, None, :], -_INF)
-                      .amax(dim=1))
-        bct_ax.append((oh * tw[..., None]).sum(dim=1))           # [Nc,NB]
+        bmx_ax.append(torch.where(oh[..., None], omax_b[:, :, None, :],
+                                  -_INF).amax(dim=1))
+        bct_ax.append((oh * tw_b[..., None]).sum(dim=1))         # [Nc,NB]
     bmn = _segment_reduce(torch.stack(bmn_ax, dim=1), sid_c, nc, "amin",
                           torch.inf)                             # [S,3,NB,3]
     bmx = _segment_reduce(torch.stack(bmx_ax, dim=1), sid_c, nc, "amax",
@@ -138,36 +164,111 @@ def _level(S, cb, nbins: int):
     smx = torch.cummax(bmx.flip(2), dim=2).values.flip(2)
     tot = pct[:, :, -1:]
     sct = tot - torch.cat([torch.zeros_like(tot), pct[:, :, :-1]], dim=2)
-    a_l = _area(torch.clamp(pmx - pmn, min=0.0))                 # [S,3,NB]
-    a_r = _area(torch.clamp(smx - smn, min=0.0))
+    a_l = _area(torch.clamp(pmx - pmn, min=0.0), fused)          # [S,3,NB]
+    a_r = _area(torch.clamp(smx - smn, min=0.0), fused)
     # cut AFTER bin b: left = prefix[b], right = suffix[b+1]
-    cost = a_l[:, :, :-1] * pct[:, :, :-1] + a_r[:, :, 1:] * sct[:, :, 1:]
+    cost = _fma(a_l[:, :, :-1], pct[:, :, :-1],
+                a_r[:, :, 1:] * sct[:, :, 1:], fused)
     cost = torch.where((pct[:, :, :-1] > 0) & (sct[:, :, 1:] > 0), cost,
                        _INF)
-    # first minimum wins, as jnp.argmin: axes 0, 1, 2 in turn, strict <
-    cmin = cost.amin(dim=2)                                      # [S,3]
-    best_ax = ((cmin[:, 1] < cmin[:, 0]).to(torch.int64))
-    best_ax = torch.where(cmin[:, 2] < torch.minimum(cmin[:, 0], cmin[:, 1]),
-                          2, best_ax)
+    return _first_min(cost.amin(dim=2))
 
-    # --- 2. ONE stable sort by (segment, centroid on the chosen axis) ----
-    ax_c = best_ax[sid_c][:, None]                               # [Nc,1]
-    key_cen = cen_o.gather(2, ax_c[:, :, None].expand(nc, K1, 1))[..., 0]
-    lo_t = lo_c.gather(1, ax_c)
-    span_t = span_c.gather(1, ax_c)
-    qmax = (1 << _CEN_BITS) - 1
-    q = torch.clamp((key_cen - lo_t) / span_t * qmax, 0.0, float(qmax))
-    # dead padding sorts to its segment's tail
-    q = torch.where(tvalid, q.to(torch.int64), qmax)
-    key = ((sid_c << _CEN_BITS)[:, None] | q).reshape(tp)
-    pos_new = torch.sort(key, stable=True).indices
-    # ONE wide-row gather applies the level's permutation to the carry
-    S_new = S[pos_new]
 
-    # --- 3. exact SAH over the sorted order (chunk granularity) ----------
-    nmin = S_new[:, 3:6].reshape(nc, K1, 3).amin(dim=1)
-    nmax = S_new[:, 6:9].reshape(nc, K1, 3).amax(dim=1)
-    ncnt = S_new[:, 9].reshape(nc, K1).sum(dim=1)
+def _axis_chunks(omin, omax, ccnt, lo_c, span_c, sid_c, nbins: int,
+                 fused: bool):
+    """Chunk-granularity binned SAH axis choice ("hybrid:N" after its
+    first N levels): the [Nc] chunk boxes binned by their centres."""
+    nc = omin.shape[0]
+    cmin, cmax = omin.amin(dim=1), omax.amax(dim=1)              # [Nc,3]
+    nonempty = ccnt > 0
+    ccen = torch.where(nonempty[:, None], (cmin + cmax) * 0.5, _INF)
+    bin_c = torch.clamp((ccen - lo_c) / span_c * nbins, 0.0,
+                        nbins - 1.0).to(torch.int32)             # [Nc,3]
+    costs = []
+    for ax in range(3):
+        bmn, bmx, bct = [], [], []
+        for b in range(nbins):
+            m = nonempty & (bin_c[:, ax] == b)
+            bmn.append(_segment_reduce(torch.where(m[:, None], cmin, _INF),
+                                       sid_c, nc, "amin", torch.inf))
+            bmx.append(_segment_reduce(torch.where(m[:, None], cmax, -_INF),
+                                       sid_c, nc, "amax", -torch.inf))
+            bct.append(_segment_reduce(torch.where(m, ccnt, 0.0), sid_c, nc,
+                                       "sum", 0.0))
+        bmn, bmx = torch.stack(bmn, dim=1), torch.stack(bmx, dim=1)
+        bct = torch.stack(bct, dim=1)                            # [S,NB]
+        pmn = torch.cummin(bmn, dim=1).values
+        pmx = torch.cummax(bmx, dim=1).values
+        pct = torch.cumsum(bct, dim=1)
+        smn = torch.cummin(bmn.flip(1), dim=1).values.flip(1)
+        smx = torch.cummax(bmx.flip(1), dim=1).values.flip(1)
+        sct = torch.cumsum(bct.flip(1), dim=1).flip(1)
+        a_l = _area(torch.clamp(pmx - pmn, min=0.0), fused)
+        a_r = _area(torch.clamp(smx - smn, min=0.0), fused)
+        cost = a_l[:, :-1] * pct[:, :-1] + a_r[:, 1:] * sct[:, 1:]
+        costs.append(torch.where((pct[:, :-1] > 0) & (sct[:, 1:] > 0), cost,
+                                 _INF).amin(dim=1))
+    return _first_min(torch.stack(costs, dim=1))
+
+
+def _axis_slab(cen_o, tw, tvalid, lo_c, span_c, smin, smax, sid_c,
+               nbins: int):
+    """Counts-only binned SAH ("slab"): a bin side's box is its occupied
+    bins' slab along the axis by the segment's extents on the other
+    two."""
+    nc = cen_o.shape[0]
+    dev = cen_o.device
+    bid = torch.arange(nbins, dtype=torch.int32, device=dev)
+    bin_t = torch.clamp((cen_o - lo_c[:, None, :]) / span_c[:, None, :]
+                        * nbins, 0.0, nbins - 1.0).to(torch.int32)
+    ext = torch.clamp(smax - smin, min=1e-12)                    # [S,3]
+    costs = []
+    for ax in range(3):
+        oh = (bin_t[..., ax][..., None] == bid) & tvalid[..., None]
+        bct = _segment_reduce((oh * tw[..., None]).sum(dim=1), sid_c, nc,
+                              "sum", 0.0)                        # [S,NB]
+        occ = bct > 0
+        pmax = torch.cummax(torch.where(occ, bid, -1), dim=1).values
+        smin_b = torch.cummin(torch.where(occ, bid, nbins).flip(1),
+                              dim=1).values.flip(1)
+        pct = torch.cumsum(bct, dim=1)
+        tot = pct[:, -1:]
+        unit = ext[:, ax:ax + 1] / nbins
+        e_l = (pmax[:, :-1].to(torch.float32) + 1.0) * unit
+        e_r = (nbins - smin_b[:, 1:].to(torch.float32)) * unit
+        o1 = ext[:, (ax + 1) % 3][:, None]
+        o2 = ext[:, (ax + 2) % 3][:, None]
+        a_l = e_l * o1 + o1 * o2 + o2 * e_l
+        a_r = e_r * o1 + o1 * o2 + o2 * e_r
+        n_l = pct[:, :-1]
+        n_r = tot - n_l
+        costs.append(torch.where((n_l > 0) & (n_r > 0),
+                                 a_l * n_l + a_r * n_r, _INF).amin(dim=1))
+    return _first_min(torch.stack(costs, dim=1))
+
+
+def _axis_variance(cen_o, tvalid, ccnt, lo_c, sid_c):
+    """Largest weighted centroid variance per segment ("variance"),
+    centred on the segment's least centroid."""
+    nc = cen_o.shape[0]
+    cen_rel = torch.where(tvalid[..., None], cen_o - lo_c[:, None, :], 0.0)
+    s1 = _segment_reduce(cen_rel.sum(dim=1), sid_c, nc, "sum", 0.0)
+    s2 = _segment_reduce((cen_rel * cen_rel).sum(dim=1), sid_c, nc, "sum",
+                         0.0)
+    cnt = torch.clamp(_segment_reduce(ccnt, sid_c, nc, "sum", 0.0), min=1.0)
+    mean = s1 / cnt[:, None]
+    return _first_max(s2 / cnt[:, None] - mean * mean)
+
+
+def _cut_round(cb, nmin, nmax, ncnt, fused: bool):
+    """One cut round over the sorted order: chunk-granular segmented
+    prefix / suffix box scans, exact SAH at every K1-aligned cut (K1*K2-
+    aligned while a segment exceeds a supercluster), and each segment's
+    best cut (its lowest chunk index at the minimum) as a new boundary."""
+    nc = cb.shape[0]
+    dev = cb.device
+    iota_c = torch.arange(nc, device=dev)
+    sid_c = torch.cumsum(cb.to(torch.int64), dim=0) - 1
     seg_start = torch.cummax(torch.where(cb, iota_c, 0), dim=0).values
     off = iota_c - seg_start
     nxt = torch.full((nc,), nc, device=dev)
@@ -178,16 +279,14 @@ def _level(S, cb, nbins: int):
     smn, smx, sct = _seg_scan_box(sid_c, nmin, nmax, ncnt, reverse=True)
 
     align = torch.where(seg_len > K2, K2, 1)
-    cost_l = _area(torch.clamp(pmx - pmn, min=0.0)) * pct        # at k-1
-    cost_r = _area(torch.clamp(smx - smn, min=0.0)) * sct        # at k
+    cost_l = _area(torch.clamp(pmx - pmn, min=0.0), fused) * pct  # at k-1
+    cost_r = _area(torch.clamp(smx - smn, min=0.0), fused) * sct  # at k
     cost_l_prev = torch.cat([cost_l.new_full((1,), _INF), cost_l[:-1]])
     pct_prev = torch.cat([pct.new_zeros(1), pct[:-1]])
     # a valid cut is aligned AND leaves real triangles on BOTH sides
     valid_cut = ((off > 0) & (off % align == 0) & (pct_prev > 0)
                  & (sct > 0))
     cut_cost = torch.where(valid_cut, cost_l_prev + cost_r, _INF)
-
-    # --- 4. per-segment best cut: the lowest chunk index at the minimum --
     best_cost = _segment_reduce(cut_cost, sid_c, nc, "amin", torch.inf)
     is_best = ((cut_cost == best_cost[sid_c]) & valid_cut
                & (best_cost[sid_c] < _INF))
@@ -198,7 +297,73 @@ def _level(S, cb, nbins: int):
     bits = torch.zeros(nc, dtype=torch.int64, device=dev).scatter_reduce(
         0, torch.clamp(first_best, 0, nc - 1),
         (first_best < nc).to(torch.int64), "amax", include_self=True)
-    return S_new, cb | (bits > 0)
+    return cb | (bits > 0)
+
+
+def _level(S, cb, nbins: int, axis_mode: str = "binned",
+           tri_bins: bool = True, n_cuts: int = 1, stable: bool = True,
+           fused: bool = False):
+    """One level: S f32[Tp,11] packed carry in current order (cen | tmin |
+    tmax | weight | original index), cb bool[Nc] segment-start bits →
+    (S in the new order, cb with each segment's best cut added, `n_cuts`
+    rounds: the later ones cut each child along its parent's axis without
+    a new sort). `axis_mode` as device_sah_order's; tri_bins=False bins
+    chunk boxes ("hybrid:N" after its first N levels); `fused`: `_fma`'s
+    rounding."""
+    tp = S.shape[0]
+    nc = tp // K1
+    cen_s, w_s = S[:, 0:3], S[:, 9]
+    sid_c = torch.cumsum(cb.to(torch.int64), dim=0) - 1          # [Nc]
+
+    # --- 1. axis choice per segment --------------------------------------
+    cen_o = cen_s.reshape(nc, K1, 3)
+    omin = S[:, 3:6].reshape(nc, K1, 3)
+    omax = S[:, 6:9].reshape(nc, K1, 3)
+    tw = w_s.reshape(nc, K1)
+    tvalid = tw > 0
+    smin = _segment_reduce(torch.where(tvalid[..., None], cen_o, _INF)
+                           .amin(dim=1), sid_c, nc, "amin", torch.inf)
+    smax = _segment_reduce(torch.where(tvalid[..., None], cen_o, -_INF)
+                           .amax(dim=1), sid_c, nc, "amax", -torch.inf)
+    lo_c = smin[sid_c]                                           # [Nc,3]
+    span_c = torch.clamp(smax[sid_c] - lo_c, min=1e-12)
+    if axis_mode == "extent":
+        best_ax = _first_max(smax - smin)
+    elif axis_mode == "slab":
+        best_ax = _axis_slab(cen_o, tw, tvalid, lo_c, span_c, smin, smax,
+                             sid_c, nbins)
+    elif axis_mode == "variance":
+        best_ax = _axis_variance(cen_o, tvalid, tw.sum(dim=1), lo_c, sid_c)
+    elif not tri_bins:
+        best_ax = _axis_chunks(omin, omax, tw.sum(dim=1), lo_c, span_c,
+                               sid_c, nbins, fused)
+    else:
+        stride = (int(axis_mode.split(":")[1])
+                  if axis_mode.startswith("sampled") else 1)
+        best_ax = _axis_binned(cen_o, omin, omax, tw, tvalid, lo_c, span_c,
+                               sid_c, nbins, stride, fused)
+
+    # --- 2. ONE sort by (segment, centroid on the chosen axis) -----------
+    ax_c = best_ax[sid_c][:, None]                               # [Nc,1]
+    key_cen = cen_o.gather(2, ax_c[:, :, None].expand(nc, K1, 1))[..., 0]
+    lo_t = lo_c.gather(1, ax_c)
+    span_t = span_c.gather(1, ax_c)
+    qmax = (1 << _CEN_BITS) - 1
+    q = torch.clamp((key_cen - lo_t) / span_t * qmax, 0.0, float(qmax))
+    # dead padding sorts to its segment's tail
+    q = torch.where(tvalid, q.to(torch.int64), qmax)
+    key = ((sid_c << _CEN_BITS)[:, None] | q).reshape(tp)
+    pos_new = torch.sort(key, stable=stable).indices
+    # ONE wide-row gather applies the level's permutation to the carry
+    S_new = S[pos_new]
+
+    # --- 3-4. exact SAH over the sorted order, `n_cuts` rounds -----------
+    nmin = S_new[:, 3:6].reshape(nc, K1, 3).amin(dim=1)
+    nmax = S_new[:, 6:9].reshape(nc, K1, 3).amax(dim=1)
+    ncnt = S_new[:, 9].reshape(nc, K1).sum(dim=1)
+    for _ in range(n_cuts):
+        cb = _cut_round(cb, nmin, nmax, ncnt, fused)
+    return S_new, cb
 
 
 def device_sah_order(v0, e1, e2, max_levels: int = 14,
@@ -208,16 +373,19 @@ def device_sah_order(v0, e1, e2, max_levels: int = 14,
 
     v0/e1/e2 f32[T,3] torch tensors on one device. Returns i32[T], a
     permutation of 0..T-1 whose consecutive K1-runs are the clusters.
-    One stable sort + segmented scans per level. Only the shipped mode is
-    ported: any other `axis_mode`, `cuts` > 1 or `stable=False` raises
-    NotImplementedError naming ROADMAP.md queue 1 item 13 (item 15 lists
-    them, still to port: ablations that measured worse)."""
-    if axis_mode != "binned" or cuts != 1 or not stable:
-        raise NotImplementedError(
-            f"device_sah_order(axis_mode={axis_mode!r}, cuts={cuts}, "
-            f"stable={stable}): only axis_mode='binned', cuts=1, "
-            "stable=True is ported (ROADMAP.md queue 1 item 13: the other "
-            "modes are ablations that measured worse)")
+    One sort + segmented scans per level. axis_mode: "binned" (shipped),
+    "extent" (largest centroid extent), "hybrid:N" (triangle bins for the
+    first N levels, chunk bins after), "sampled:S" (every S-th triangle
+    of a chunk binned), "variance" (largest centroid variance), "slab"
+    (counts-only bins); `cuts` > 1 runs that many cut rounds a sort on
+    the last 4 levels; `stable=False` sorts without keeping the order of
+    equal keys (which neither package defines). The JAX function's modes;
+    every one but the shipped one rounds its product sums as XLA on the
+    CPU contracts them (see the module docstring)."""
+    if not AXIS_MODES.fullmatch(axis_mode):
+        raise ValueError(
+            f"axis_mode {axis_mode!r} invalid: expected 'binned', 'extent', "
+            f"'variance', 'slab', 'hybrid:N' or 'sampled:S' (N/S integers)")
     T = v0.shape[0]
     tp = -(-T // K1) * K1
     pad = tp - T
@@ -241,8 +409,19 @@ def device_sah_order(v0, e1, e2, max_levels: int = 14,
                                    device=dev)[:, None]], dim=1)  # [Tp,11]
     cb = torch.zeros(tp // K1, dtype=torch.bool, device=dev)
     cb[0] = True
-    for _ in range(max_levels):
-        S, cb = _level(S, cb, nbins)
+    if axis_mode.startswith("hybrid"):
+        n_tri = min(int(axis_mode.split(":")[1]), max_levels)
+        plan = [dict(tri_bins=k < n_tri) for k in range(max_levels)]
+    elif cuts > 1:
+        n_single = max(max_levels - _MULTI_CUT_LEVELS, 0)
+        plan = [dict(n_cuts=1 if k < n_single else cuts)
+                for k in range(max_levels)]
+    else:
+        plan = [{}] * max_levels
+    fused = not (axis_mode == "binned" and cuts == 1 and stable)
+    for kw in plan:
+        S, cb = _level(S, cb, nbins, axis_mode, stable=stable, fused=fused,
+                       **kw)
     order = S[:, 10].to(torch.int32)
     if pad:
         # strip padding slots, preserving order (stable compaction)

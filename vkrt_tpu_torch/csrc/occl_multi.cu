@@ -36,13 +36,19 @@
 // surface points, the clusters that any set's interval test passes, with
 // the sets' bits in wl_smask) the block walks that list in place of its
 // own gates. Both give the default's masks.
+//
+// walk.cuh's run-time `Modes` (the TPU kernel's `visit`, :244-290 and
+// :362-390, `ablate`, :297-308 and :455, and the interval pregate,
+// :611-630, on the lists above with `interval` set) run in an instance
+// of their own (MODES), so the default kernel is the walk without them.
+// None changes a mask; a cut `ablate` blocks nothing.
 #include <type_traits>
 
 #include "walk.cuh"
 
 namespace vkrt {
 
-template <int NS, bool SUB, bool RECHECK>
+template <int NS, bool SUB, bool RECHECK, bool MODES>
 __global__ void __launch_bounds__(K1, 4)
 occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                   const float* __restrict__ cl_boxes,
@@ -50,7 +56,7 @@ occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                   const float* __restrict__ light_pts,  // [ns, 3]
                   const float* __restrict__ dirs,       // [ns, 3, n]
                   const float* __restrict__ tmax,       // [ns, n]
-                  int n, WorkLists wls,
+                  int n, WorkLists wls, Modes modes,
                   unsigned char* __restrict__ blocked) {        // [ns, n]
   extern __shared__ __align__(16) unsigned char dyn[];
   u64* sc_list = reinterpret_cast<u64*>(dyn);                  // [n_sc]
@@ -73,27 +79,27 @@ occl_multi_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
     sh.state[j] = 0;
   }
 
-  group_walk<NS, Occl, false, SUB, RECHECK>(
+  group_walk<NS, Occl, false, SUB, RECHECK, MODES>(
       sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key, sc_list,
-      wls.row(blockIdx.x));
+      wls.row(blockIdx.x), modes);
 #pragma unroll
   for (int s = 0; s < NS; ++s) blocked[(size_t)s * n + i] = sh.state[t + s * K1];
 }
 
-template <int NS, bool SUB, bool RECHECK>
+template <int NS, bool SUB, bool RECHECK, bool MODES>
 int launch(const float* sc_boxes, int c2p, int n_sc, const float* cl_boxes,
            const float* tri_data, const float* light_pts, const float* dirs,
-           const float* tmax, int n, WorkLists wls, unsigned char* blocked,
-           cudaStream_t stream) {
+           const float* tmax, int n, WorkLists wls, Modes modes,
+           unsigned char* blocked, cudaStream_t stream) {
   const size_t dyn =
       RECHECK ? 0 : (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
   cudaError_t err = cudaFuncSetAttribute(
-      occl_multi_kernel<NS, SUB, RECHECK>,
+      occl_multi_kernel<NS, SUB, RECHECK, MODES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  occl_multi_kernel<NS, SUB, RECHECK><<<n / K1, K1, dyn, stream>>>(
+  occl_multi_kernel<NS, SUB, RECHECK, MODES><<<n / K1, K1, dyn, stream>>>(
       sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, n, wls,
-      blocked);
+      modes, blocked);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -101,17 +107,25 @@ template <int NS>
 int launch_modes(bool sub, const float* sc_boxes, int c2p, int n_sc,
                  const float* cl_boxes, const float* tri_data,
                  const float* light_pts, const float* dirs, const float* tmax,
-                 int n, WorkLists wls, unsigned char* blocked,
+                 int n, WorkLists wls, Modes modes, unsigned char* blocked,
                  cudaStream_t st) {
-  auto go = [&](auto s, auto r) {
-    return launch<NS, decltype(s)::value, decltype(r)::value>(
-        sc_boxes, c2p, n_sc, cl_boxes, tri_data, light_pts, dirs, tmax, n,
-        wls, blocked, st);
+  auto go = [&](auto s, auto r, auto w) {
+    return launch<NS, decltype(s)::value, decltype(r)::value,
+                  decltype(w)::value>(sc_boxes, c2p, n_sc, cl_boxes,
+                                      tri_data, light_pts, dirs, tmax, n,
+                                      wls, modes, blocked, st);
   };
   using T = std::true_type;
   using F = std::false_type;
-  if (wls.cid) return sub ? go(T{}, T{}) : go(F{}, T{});
-  return sub ? go(T{}, F{}) : go(F{}, F{});
+  auto by_lists = [&](auto s, auto w) {
+    return wls.cid ? go(s, T{}, w) : go(s, F{}, w);
+  };
+  auto by_sub = [&](auto w) {
+    return sub ? by_lists(T{}, w) : by_lists(F{}, w);
+  };
+  const bool any_mode =
+      modes.ablate != ABL_NONE || modes.visit != VISIT_NEAR || modes.interval;
+  return any_mode ? by_sub(T{}) : by_sub(F{});
 }
 
 }  // namespace vkrt
@@ -120,34 +134,37 @@ int launch_modes(bool sub, const float* sc_boxes, int c2p, int n_sc,
 // after the launch, or cudaErrorInvalidValue for ns outside 1..4, a ray
 // count that is not a multiple of 128 or a tree whose supercluster keys
 // do not fit in shared memory; the launch does not synchronise.
-// sub_gate and a non-null wl_cid select the modes (see above).
+// sub_gate and a non-null wl_cid select the modes (see above); ablate,
+// visit and interval (with lists) the run-time ones.
 extern "C" int vkrt_occl_multi(const float* sc_boxes, int c2p, int n_sc,
                                const float* cl_boxes, const float* tri_data,
                                const float* light_pts, const float* dirs,
                                const float* tmax, int ns, int n, int sub_gate,
                                const int* wl_cid, const float* wl_tlb,
                                const int* wl_smask, const int* wl_count,
-                               int wl_stride, unsigned char* blocked,
+                               int wl_stride, int ablate, int visit,
+                               int interval, unsigned char* blocked,
                                void* stream) {
   using namespace vkrt;
   if (n == 0) return static_cast<int>(cudaGetLastError());
   if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
   const WorkLists wls{wl_cid, wl_tlb, wl_smask, wl_count, wl_stride};
+  const Modes modes{ablate, visit, interval, nullptr, nullptr, 0, 0, nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool sub = sub_gate != 0;
   switch (ns) {
     case 1: return launch_modes<1>(sub, sc_boxes, c2p, n_sc, cl_boxes,
                                    tri_data, light_pts, dirs, tmax, n, wls,
-                                   blocked, st);
+                                   modes, blocked, st);
     case 2: return launch_modes<2>(sub, sc_boxes, c2p, n_sc, cl_boxes,
                                    tri_data, light_pts, dirs, tmax, n, wls,
-                                   blocked, st);
+                                   modes, blocked, st);
     case 3: return launch_modes<3>(sub, sc_boxes, c2p, n_sc, cl_boxes,
                                    tri_data, light_pts, dirs, tmax, n, wls,
-                                   blocked, st);
+                                   modes, blocked, st);
     case 4: return launch_modes<4>(sub, sc_boxes, c2p, n_sc, cl_boxes,
                                    tri_data, light_pts, dirs, tmax, n, wls,
-                                   blocked, st);
+                                   modes, blocked, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -46,6 +46,12 @@
 // kernel A has one set) the block walks
 // that list in place of its own supercluster and cluster gates. Both
 // give the default's outputs bit for bit.
+//
+// The modes of walk.cuh's `Modes` (the TPU kernel's `stats`, :247 and
+// :636-637, `ablate`, :573-588, and the interval pregate, :589-623, on
+// the lists above with `interval` set) run in an instance of their own
+// (MODES), so the default kernel is the walk without them. A cut
+// `ablate` commits nothing: every ray misses.
 #include <type_traits>
 
 #include "walk.cuh"
@@ -95,7 +101,7 @@ struct Closest {
   }
 };
 
-template <bool SUB, bool RECHECK>
+template <bool SUB, bool RECHECK, bool MODES>
 __global__ void __launch_bounds__(K1, 8)
 trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      const float* __restrict__ cl_boxes,
@@ -104,7 +110,8 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                      int block,                        // 0: per-ray origins
                      const float* __restrict__ dirs,   // [3, n]
                      const float* __restrict__ tmax,   // [n]
-                     int n, WorkLists wls, float* __restrict__ t_out,
+                     int n, WorkLists wls, Modes modes,
+                     float* __restrict__ t_out,
                      int* __restrict__ slot_out,
                      float* __restrict__ u_out, float* __restrict__ v_out,
                      float* __restrict__ attr_out) {   // [36, n]
@@ -138,9 +145,9 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   sh.inv[t] = make_float4(r.ix, r.iy, r.iz, 0.0f);
   sh.state[t] = hit_key(tm, NO_KEY);
 
-  group_walk<1, Closest, false, SUB, RECHECK>(
+  group_walk<1, Closest, false, SUB, RECHECK, MODES>(
       sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key, sc_list,
-      wls.row(blockIdx.x));
+      wls.row(blockIdx.x), modes);
 
   const u64 key = sh.state[t];
   const int best = (uint32_t)key == NO_KEY ? -1 : (int)(uint32_t)key;
@@ -162,22 +169,22 @@ trace_closest_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
     attr_out[(size_t)a * n + i] = best >= 0 ? __ldg(row + a) : 0.0f;
 }
 
-template <bool SUB, bool RECHECK>
+template <bool SUB, bool RECHECK, bool MODES>
 static int launch(const float* sc_boxes, int c2p, int n_sc,
                   const float* cl_boxes, const float* tri_data,
                   const float* orig, int block, const float* dirs,
-                  const float* tmax, int n, WorkLists wls, float* t_out,
-                  int* slot_out, float* u_out, float* v_out, float* attr_out,
-                  cudaStream_t stream) {
+                  const float* tmax, int n, WorkLists wls, Modes modes,
+                  float* t_out, int* slot_out, float* u_out, float* v_out,
+                  float* attr_out, cudaStream_t stream) {
   const size_t dyn =
       RECHECK ? 0 : (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
   cudaError_t err = cudaFuncSetAttribute(
-      trace_closest_kernel<SUB, RECHECK>,
+      trace_closest_kernel<SUB, RECHECK, MODES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
   if (err != cudaSuccess) return static_cast<int>(err);
-  trace_closest_kernel<SUB, RECHECK><<<n / K1, K1, dyn, stream>>>(
+  trace_closest_kernel<SUB, RECHECK, MODES><<<n / K1, K1, dyn, stream>>>(
       sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
-      wls, t_out, slot_out, u_out, v_out, attr_out);
+      wls, modes, t_out, slot_out, u_out, v_out, attr_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,9 +192,12 @@ static int launch(const float* sc_boxes, int c2p, int n_sc,
 
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a ray count that is not
-// a multiple of 128 (the wrapper's lanes) or a tree whose supercluster
-// keys do not fit in shared memory; the launch does not synchronise.
-// sub_gate and a non-null wl_cid select the modes (see above).
+// a multiple of 128 (the wrapper's lanes), a stats block that is not a
+// whole number of groups or a tree whose supercluster keys do not fit in
+// shared memory; the launch does not synchronise. sub_gate and a non-null
+// wl_cid select the modes (see above); ablate, interval (with lists) and
+// a non-null stats (i32[n / (128 stat_groups), 2], zeroed; stat_mask
+// u32[same, mask_words], zeroed; stat_btmax f32[same]) the run-time ones.
 extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
                                   const float* cl_boxes, const float* tri_data,
                                   const float* orig, int block,
@@ -195,21 +205,34 @@ extern "C" int vkrt_trace_closest(const float* sc_boxes, int c2p, int n_sc,
                                   int n, int sub_gate, const int* wl_cid,
                                   const float* wl_tlb, const int* wl_smask,
                                   const int* wl_count, int wl_stride,
+                                  int ablate, int interval, int* stats,
+                                  unsigned* stat_mask, int mask_words,
+                                  int stat_groups, const float* stat_btmax,
                                   float* t_out,
                                   int* slot_out, float* u_out, float* v_out,
                                   float* attr_out, void* stream) {
   using namespace vkrt;
   if (n == 0) return static_cast<int>(cudaGetLastError());
-  if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n % K1 != 0 || n_sc < 0 || (stats && stat_groups <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   const WorkLists wls{wl_cid, wl_tlb, wl_smask, wl_count, wl_stride};
+  const Modes modes{ablate,    VISIT_NEAR, interval,    stats,
+                    stat_mask, mask_words, stat_groups, stat_btmax};
+  const bool any_mode = ablate != ABL_NONE || interval || stats;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto go = [&](auto sub, auto recheck) {
-    return launch<decltype(sub)::value, decltype(recheck)::value>(
+  auto go = [&](auto sub, auto recheck, auto with_modes) {
+    return launch<decltype(sub)::value, decltype(recheck)::value,
+                  decltype(with_modes)::value>(
         sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
-        wls, t_out, slot_out, u_out, v_out, attr_out, st);
+        wls, modes, t_out, slot_out, u_out, v_out, attr_out, st);
   };
   using T = std::true_type;
   using F = std::false_type;
-  if (wl_cid) return sub_gate ? go(T{}, T{}) : go(F{}, T{});
-  return sub_gate ? go(T{}, F{}) : go(F{}, F{});
+  auto by_lists = [&](auto sub, auto with_modes) {
+    return wl_cid ? go(sub, T{}, with_modes) : go(sub, F{}, with_modes);
+  };
+  auto by_sub = [&](auto with_modes) {
+    return sub_gate ? by_lists(T{}, with_modes) : by_lists(F{}, with_modes);
+  };
+  return any_mode ? by_sub(T{}) : by_sub(F{});
 }

@@ -29,11 +29,21 @@
 // (tmax = 0) is not blocked, and neither is a live one with 0 < tmax <=
 // TMIN (its interval is empty). Outputs as the Pallas kernel leaves
 // them: blocked → slot 1, t = TMIN; free → slot -1, t = +inf; u = v = 0.
+//
+// Modes, as kernel B's at one segment set (walk.cuh): sub_gate (SUB),
+// candidate lists (RECHECK: per 128-ray group, wl_smask null; the lists
+// of kernel A's re-check, rt/dense.py::closest_worklists) re-tested per
+// lane or, with `interval`, trusted; and walk.cuh's run-time `Modes`
+// (stats, ablate) in an instance of their own (MODES). The TPU kernel
+// reaches them through trace_dense(occlusion=True, ...) (dense.py:802).
+// None changes a mask; a cut `ablate` blocks nothing.
+#include <type_traits>
+
 #include "walk.cuh"
 
 namespace vkrt {
 
-template <bool ONE_ORIGIN>
+template <bool ONE_ORIGIN, bool SUB, bool RECHECK, bool MODES>
 __global__ void __launch_bounds__(K1, 4)
 trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                       const float* __restrict__ cl_boxes,
@@ -42,7 +52,8 @@ trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
                       int block,                        // 0: per-ray origins
                       const float* __restrict__ dirs,   // [3, n]
                       const float* __restrict__ tmax,   // [n]
-                      int n, float* __restrict__ t_out, int* __restrict__ slot_out,
+                      int n, WorkLists wls, Modes modes,
+                      float* __restrict__ t_out, int* __restrict__ slot_out,
                       float* __restrict__ u_out, float* __restrict__ v_out) {
   extern __shared__ __align__(16) unsigned char dyn[];
   u64* sc_list = reinterpret_cast<u64*>(dyn);                  // [n_sc]
@@ -68,8 +79,9 @@ trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   sh.inv[t] = make_float4(safe_inv(dx), safe_inv(dy), safe_inv(dz), 0.0f);
   sh.state[t] = 0;
 
-  group_walk<1, Occl, ONE_ORIGIN>(sh, sc_boxes, c2p, n_sc, cl_boxes,
-                                  tri_data, sc_key, sc_list);
+  group_walk<1, Occl, ONE_ORIGIN, SUB, RECHECK, MODES>(
+      sh, sc_boxes, c2p, n_sc, cl_boxes, tri_data, sc_key, sc_list,
+      wls.row(blockIdx.x), modes);
   // (an all-parked group returns from the walk at once: written here too)
   const bool hit = sh.state[t];
   t_out[i] = hit ? TMIN : __int_as_float(0x7f800000);  // +inf
@@ -78,31 +90,70 @@ trace_occluded_kernel(const float* __restrict__ sc_boxes, int c2p, int n_sc,
   v_out[i] = 0.0f;
 }
 
+template <bool ONE_ORIGIN, bool SUB, bool RECHECK, bool MODES>
+static int launch(const float* sc_boxes, int c2p, int n_sc,
+                  const float* cl_boxes, const float* tri_data,
+                  const float* orig, int block, const float* dirs,
+                  const float* tmax, int n, WorkLists wls, Modes modes,
+                  float* t_out, int* slot_out, float* u_out, float* v_out,
+                  cudaStream_t stream) {
+  auto kern = trace_occluded_kernel<ONE_ORIGIN, SUB, RECHECK, MODES>;
+  const size_t dyn =
+      RECHECK ? 0 : (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kern<<<n / K1, K1, dyn, stream>>>(sc_boxes, c2p, n_sc, cl_boxes, tri_data,
+                                    orig, block, dirs, tmax, n, wls, modes,
+                                    t_out, slot_out, u_out, v_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace vkrt
 
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
 // after the launch, or cudaErrorInvalidValue for a ray count that is not
-// a multiple of 128 or a tree whose supercluster keys do not fit in
-// shared memory; the launch does not synchronise.
+// a multiple of 128, a stats block that is not a whole number of groups
+// or a tree whose supercluster keys do not fit in shared memory; the
+// launch does not synchronise. The mode arguments are kernel A's
+// (trace_closest.cu's entry point).
 extern "C" int vkrt_trace_occluded(const float* sc_boxes, int c2p, int n_sc,
                                    const float* cl_boxes,
                                    const float* tri_data, const float* orig,
                                    int block, const float* dirs,
-                                   const float* tmax, int n, float* t_out,
-                                   int* slot_out, float* u_out, float* v_out,
-                                   void* stream) {
+                                   const float* tmax, int n, int sub_gate,
+                                   const int* wl_cid, const float* wl_tlb,
+                                   const int* wl_count, int wl_stride,
+                                   int ablate, int interval, int* stats,
+                                   unsigned* stat_mask, int mask_words,
+                                   int stat_groups, const float* stat_btmax,
+                                   float* t_out, int* slot_out, float* u_out,
+                                   float* v_out, void* stream) {
   using namespace vkrt;
-  if (n > 0) {
-    if (n % K1 != 0 || n_sc < 0) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t dyn = (size_t)n_sc * (sizeof(u64) + sizeof(uint32_t));
-    auto kern = block > 0 ? trace_occluded_kernel<true>
-                          : trace_occluded_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kern<<<n / K1, K1, dyn, static_cast<cudaStream_t>(stream)>>>(
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  if (n % K1 != 0 || n_sc < 0 || (stats && stat_groups <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const WorkLists wls{wl_cid, wl_tlb, nullptr, wl_count, wl_stride};
+  const Modes modes{ablate,    VISIT_NEAR, interval,    stats,
+                    stat_mask, mask_words, stat_groups, stat_btmax};
+  const bool any_mode = ablate != ABL_NONE || interval || stats;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto one, auto sub, auto recheck, auto with_modes) {
+    return launch<decltype(one)::value, decltype(sub)::value,
+                  decltype(recheck)::value, decltype(with_modes)::value>(
         sc_boxes, c2p, n_sc, cl_boxes, tri_data, orig, block, dirs, tmax, n,
-        t_out, slot_out, u_out, v_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+        wls, modes, t_out, slot_out, u_out, v_out, st);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  auto by_modes = [&](auto one, auto sub, auto recheck) {
+    return any_mode ? go(one, sub, recheck, T{}) : go(one, sub, recheck, F{});
+  };
+  auto by_lists = [&](auto one, auto sub) {
+    return wl_cid ? by_modes(one, sub, T{}) : by_modes(one, sub, F{});
+  };
+  auto by_sub = [&](auto one) {
+    return sub_gate ? by_lists(one, T{}) : by_lists(one, F{});
+  };
+  return block > 0 ? by_sub(T{}) : by_sub(F{});
 }

@@ -2,11 +2,13 @@
 
 At first use each source is compiled by its own nvcc process, all started
 together, for sm_90a; the objects are linked into one shared library with
-a plain C interface, under `_build/<hash of the sources>/` (listed in
-.gitignore), and loaded with ctypes. A later call in the same process, or
-a later process on the same checkout, reuses the library. Nothing here
-runs at import time: the CPU tests import every module on a machine
-without nvcc.
+a plain C interface, under `<build root>/<hash of the sources>/`, and
+loaded with ctypes. The build root is `vkrt_tpu_torch/_build/` (listed in
+.gitignore) or the directory that the environment variable
+VKRT_TORCH_CACHE names (utils/cache.py). A later call in the same
+process, or a later process with the same build root, reuses the
+library. Nothing here runs at import time: the CPU tests import every
+module on a machine without nvcc.
 
 Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
 occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G);
@@ -31,8 +33,9 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
+from vkrt_tpu_torch.utils.cache import build_root
+
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
            "pack.cu", "lanesort.cu", "raster_edge.cu")
 HEADERS = ("common.cuh", "walk.cuh")
@@ -71,9 +74,10 @@ class BuildInfo(NamedTuple):
 
 
 def build() -> BuildInfo:
-    """Compile csrc/ into _build/<hash>/libvkrt_kernels.so unless that
-    library exists. Raises RuntimeError if nvcc fails."""
-    out_dir = BUILD_ROOT / _source_hash()
+    """Compile csrc/ into <build root>/<hash>/libvkrt_kernels.so unless
+    that library exists (the root: `build_root()`, read now). Raises
+    RuntimeError if nvcc fails."""
+    out_dir = build_root() / _source_hash()
     lib = out_dir / "libvkrt_kernels.so"
     if lib.is_file():
         return BuildInfo(lib, 0.0, "", cached=True)
@@ -109,17 +113,22 @@ _I = ctypes.c_int
 
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use; `cache_clear()`
+    makes the next call build or find it under the build root then
+    current)."""
     lib = ctypes.CDLL(str(build().path))
+    modes = [_I, _I, _P, _P, _I, _I, _P]     # ablate .. stat_btmax
     lib.vkrt_trace_closest.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P,
-                                       _I, _I, _P, _P, _P, _P, _I, _P, _P,
-                                       _P, _P, _P, _P]
+                                       _I, _I, _P, _P, _P, _P, _I, *modes,
+                                       _P, _P, _P, _P, _P, _P]
     lib.vkrt_trace_closest.restype = _I
     lib.vkrt_trace_occluded.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P, _P,
-                                        _I, _P, _P, _P, _P, _P]
+                                        _I, _I, _P, _P, _P, _I, *modes,
+                                        _P, _P, _P, _P, _P]
     lib.vkrt_trace_occluded.restype = _I
     lib.vkrt_occl_multi.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _P, _P, _P, _P, _I, _P, _P]
+                                    _I, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                                    _P]
     lib.vkrt_occl_multi.restype = _I
     lib.vkrt_consolidate.argtypes = [_P, _P, _I, _I, _P, _P]
     lib.vkrt_scatter_back.argtypes = [_P, _P, _I, _I, _P, _P]

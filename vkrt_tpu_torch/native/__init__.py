@@ -5,8 +5,9 @@ tracer.cpp is a byte-for-byte copy of vkrt_tpu/native/tracer.cpp, built
 with the same g++ flags (read from this directory's Makefile), so the two
 packages' oracles give the same bits on one machine. Nothing builds at
 import. The first `library()` call compiles it with g++ into
-vkrt_tpu_torch/_build/native/<hash of source and flags>/ (a temporary name
-first, then an atomic rename, so concurrent builds never tear), and a
+<build root>/native/<hash of source and flags>/ (utils/cache.py: the
+package's _build/ or $VKRT_TORCH_CACHE; a temporary name first, then an
+atomic rename, so concurrent builds never tear), and a
 failed build raises with the compiler's output: the oracle never goes
 missing quietly.
 """
@@ -24,9 +25,10 @@ from pathlib import Path
 
 import numpy as np
 
+from vkrt_tpu_torch.utils.cache import build_root
+
 SRC_DIR = Path(__file__).resolve().parent
 SOURCE = SRC_DIR / "tracer.cpp"
-BUILD_ROOT = SRC_DIR.parent / "_build" / "native"
 CXX = "g++"
 
 
@@ -37,14 +39,15 @@ def cxxflags() -> list:
     return m.group(1).split()
 
 
-def build(src: Path = SOURCE, build_root: Path = BUILD_ROOT) -> Path:
-    """Compile `src` into build_root/<hash>/libvkrt_native.so unless that
-    library exists; returns its path. Raises RuntimeError with g++'s
-    output if the build fails."""
+def build(src: Path = SOURCE, root: Path | None = None) -> Path:
+    """Compile `src` into root/<hash>/libvkrt_native.so unless that
+    library exists (root: `build_root()/native`, utils/cache.py); returns
+    its path. Raises RuntimeError with g++'s output if the build fails."""
+    root = Path(root) if root is not None else build_root() / "native"
     flags = cxxflags()
     h = hashlib.sha256(" ".join([CXX] + flags).encode())
     h.update(Path(src).read_bytes())
-    out_dir = Path(build_root) / h.hexdigest()[:16]
+    out_dir = root / h.hexdigest()[:16]
     lib = out_dir / "libvkrt_native.so"
     if lib.is_file():
         return lib

@@ -21,11 +21,19 @@ a hit where t < the committed t, or t equals it and the slot is lower. In
 occlusion mode slot >= 0 means blocked: a blocked ray reads slot 1,
 t = TMIN, a free one slot -1, t = inf; u, v (and attrs) are 0.
 
-Kernel A's two modes (`sub_gate`, `pregate="recheck"`) and their
-prologue live here too: `interval_gate`, `partition_worklists`,
-`cluster_bounds` and `recheck_lists` (the JAX package's XLA prologue,
-dense.py:73-211) build the per-group candidate lists; `sub_run_pass` is
-the sub-run box test. The modes skip work and change no output.
+Every keyword of the JAX `trace_dense` but the TPU-only `interpret` and
+`approx_recip` is taken, with the JAX package's outputs. Kernel A's and
+A''s modes: `sub_gate` (the sub-run box test, `sub_run_pass`), the
+pregates "recheck" and "interval" (per-group candidate lists from an
+interval prologue, `interval_gate`, `partition_worklists`,
+`cluster_bounds`, `recheck_lists`: the JAX package's XLA prologue,
+dense.py:73-211; "interval" trusts the lists' bounds, "recheck" re-tests
+each listed box per ray), `stats` (a work-list length and a sweep count
+per dispatch block) and `ablate` (the JAX kernel's phase-timing cut
+points). Only a cut `ablate` changes an output: it commits nothing.
+`group_gate` and `sort` are accepted and met by the walk's structure:
+every walk gates per 128-ray group and visits front to back, so each
+value gives the default outputs.
 """
 
 from __future__ import annotations
@@ -49,8 +57,11 @@ PAIR_CHUNK = 16384    # plain versions: (ray, cluster) pairs tested at a time
 _INF = 3.0e38         # the interval gate's "unbounded"
 SUB_MARGIN_ABS = 1e-3  # sub-run box widening (csrc/walk.cuh `sub_pass`):
 SUB_MARGIN_REL = 1e-4  # abs + rel x the corner's magnitude, each axis
-PREGATES = ("", "recheck")
-ITEM_15 = "ROADMAP.md queue 1 item 15"
+PREGATES = ("", "interval", "recheck")
+# the JAX kernels' `ablate` cut points, in csrc/walk.cuh's order (Modes)
+ABLATES = ("", "onlysc", "noemit", "nodma_nosort", "nodma", "nosweep",
+           "nosort")
+CUTS = ABLATES[1:6]    # the modes that cut the walk: nothing commits
 
 
 def _safe_inv(x):
@@ -59,16 +70,34 @@ def _safe_inv(x):
                              torch.where(x < 0, -tiny, tiny), x)
 
 
-def _pregate(pregate) -> str:
-    """The JAX `pregate` argument as a mode name: False / "" (the kernel's
-    own gates) or "recheck"; the interval pregate (True, "interval") is
-    not ported."""
-    mode = {False: "", None: ""}.get(pregate, pregate)
+def _pregate(pregate, group_gate: bool = False) -> str:
+    """The JAX `pregate` argument as a mode name: "" (False: the kernel's
+    own gates), "interval" (True) or "recheck". The interval pregate and
+    group_gate are exclusive, as the JAX kernel asserts (dense.py:944)."""
+    mode = ("interval" if pregate is True
+            else "" if pregate is False or pregate is None else pregate)
     if mode not in PREGATES:
-        raise NotImplementedError(
-            f"pregate={pregate!r} is not ported ({ITEM_15}); the port has "
-            f"{PREGATES}")
+        raise ValueError(f"pregate={pregate!r}: expected False, True or one "
+                         f"of {PREGATES}")
+    if mode == "interval" and group_gate:
+        raise ValueError("the interval pregate and group_gate are exclusive")
     return mode
+
+
+def _ablate(ablate: str, pregate: str) -> str:
+    """The cut point a walk takes for the JAX `ablate` argument: under a
+    pregate the JAX kernel skips the prepass that "onlysc" and "noemit"
+    cut (dense.py:589-629), so they walk in full there."""
+    if ablate not in ABLATES:
+        raise ValueError(f"ablate={ablate!r}: expected one of {ABLATES}")
+    return "" if pregate and ablate in ("onlysc", "noemit") else ablate
+
+
+def _check_block(what: str, block: int, n: int) -> None:
+    """The JAX dispatch block: a multiple of 128 that divides the rays."""
+    if block <= 0 or block % LANES or n % block:
+        raise ValueError(f"{what}: ray count {n} is not a multiple of block "
+                         f"{block} (itself a multiple of {LANES})")
 
 
 def interval_gate(tree: ClusterTree, origins, dirs, tmax, *, block: int,
@@ -215,19 +244,27 @@ def closest_worklists(tree: ClusterTree, origins, dirs, tmax, *,
     return recheck_lists(gate, tlb)
 
 
-def listed_matrix(lists: WorkLists, maxc: int, nsets: int = 1):
-    """The (row, cluster) pairs the lists nominate: bool[nsets * G, maxc],
-    row s * G + g for set s of group g (nsets > 1: the set bits decide)."""
+def listed_bounds(lists: WorkLists, maxc: int, nsets: int = 1):
+    """The lists' entry bounds as a matrix f32[nsets * G, maxc]: row
+    s * G + g holds tlb of each cluster listed for set s of group g
+    (nsets > 1: the set bits decide), +inf where none is listed."""
     ng, cp = lists.cid.shape
     used = (torch.arange(cp, device=lists.cid.device)[None, :]
             < lists.count[:, None])
-    out = torch.zeros(nsets, ng, maxc + 1, dtype=torch.bool,
-                      device=lists.cid.device)
+    out = torch.full((nsets, ng, maxc + 1), torch.inf,
+                     device=lists.cid.device)
     for s in range(nsets):
         on = used if lists.smask is None else (
             used & (((lists.smask >> s) & 1) > 0))
-        out[s].scatter_(1, torch.where(on, lists.cid.long(), maxc), True)
+        out[s].scatter_(1, torch.where(on, lists.cid.long(), maxc),
+                        torch.where(on, lists.tlb, torch.inf))
     return out[:, :, :maxc].reshape(nsets * ng, maxc)
+
+
+def listed_matrix(lists: WorkLists, maxc: int, nsets: int = 1):
+    """The (row, cluster) pairs the lists nominate: bool[nsets * G, maxc],
+    row s * G + g for set s of group g (nsets > 1: the set bits decide)."""
+    return listed_bounds(lists, maxc, nsets) < torch.inf
 
 
 def _check_tree(tree: ClusterTree, device) -> None:
@@ -243,9 +280,10 @@ def _check_tree(tree: ClusterTree, device) -> None:
         raise ValueError("tree.tri_data is not 16-byte aligned")
 
 
-def _slab(o, inv, lo, hi, t_s):
+def _slab_tn(o, inv, lo, hi, t_s):
     """Slab test of R rays (o, inv [3,R], far bound t_s [R]) against B
-    boxes (lo, hi [3,B]) → bool [R,B]; the kernels' `slab`."""
+    boxes (lo, hi [3,B]) → (bool [R,B], entry t [R,B]); the kernels'
+    `slab`."""
     tn = tf = None
     for a in range(3):
         t0 = (lo[a][None, :] - o[a][:, None]) * inv[a][:, None]
@@ -254,10 +292,35 @@ def _slab(o, inv, lo, hi, t_s):
         tn = near if tn is None else torch.maximum(tn, near)
         tf = far if tf is None else torch.minimum(tf, far)
     t_s = t_s[:, None]
-    return (tn <= tf) & (tf >= TMIN) & (tn <= t_s) & (t_s > TMIN)
+    return (tn <= tf) & (tf >= TMIN) & (tn <= t_s) & (t_s > TMIN), tn
 
 
-def gated_pairs(tree: ClusterTree, o, d, tmax, listed=None):
+def _slab(o, inv, lo, hi, t_s):
+    """`_slab_tn`'s test alone."""
+    return _slab_tn(o, inv, lo, hi, t_s)[0]
+
+
+def _tree_gates(tree, ro, ri, rt, rows=None, listed=None, bounds=None):
+    """bool[R, maxc]: the kernels' gate of each (ray, cluster) of R rays
+    (origins, inverse directions ro, ri [3,R], far bounds rt [R]) — the
+    ray's own test of the cluster's box and of its supercluster's; with
+    `listed` (the re-check) the cluster's box listed for the ray's row
+    `rows` [R]; with `bounds` (the interval pregate) no box test, the
+    cluster listed for the row with a bound the far bound reaches."""
+    bounds_ = cluster_bounds(tree)
+    valid = bounds_[0] <= bounds_[3]                  # padding clusters
+    if bounds is not None:
+        return (bounds[rows] <= rt[:, None]) & (rt > TMIN)[:, None]
+    gate = _slab(ro, ri, bounds_[0:3], bounds_[3:6], rt) & valid[None]
+    if listed is not None:
+        return gate & listed[rows]
+    n_sc = tree.num_superclusters
+    g_sc = _slab(ro, ri, tree.sc_boxes[0:3, :n_sc], tree.sc_boxes[3:6, :n_sc],
+                 rt)
+    return gate & g_sc.repeat_interleave(K2, dim=1)
+
+
+def gated_pairs(tree: ClusterTree, o, d, tmax, listed=None, bounds=None):
     """Yield (ray index, cluster id) pairs, RAY_CHUNK rays gated at a time
     and at most PAIR_CHUNK pairs per yield (so memory stays bounded at
     any ray count): every cluster whose box, and whose supercluster's box,
@@ -267,29 +330,83 @@ def gated_pairs(tree: ClusterTree, o, d, tmax, listed=None):
     clusters that cannot hold a nearer hit). With `listed` (bool[N/128,
     maxc], `listed_matrix`: the re-check's candidates of each 128-ray
     row) a pair needs its cluster listed for the ray's row and the ray's
-    own test of the cluster's box, the kernels' re-check."""
-    n_sc = tree.num_superclusters
+    own test of the cluster's box, the kernels' re-check; with `bounds`
+    (f32[N/128, maxc], `listed_bounds`: the interval pregate) a live ray
+    pairs with every cluster listed for its row whose bound its tmax
+    reaches."""
     inv = _safe_inv(d)
-    sc_lo, sc_hi = tree.sc_boxes[0:3, :n_sc], tree.sc_boxes[3:6, :n_sc]
-    bounds = cluster_bounds(tree)
-    cl_lo, cl_hi = bounds[0:3], bounds[3:6]
-    valid = cl_lo[0] <= cl_hi[0]                      # padding clusters
     n = tmax.shape[0]
     for r0 in range(0, n, RAY_CHUNK):
         r1 = min(r0 + RAY_CHUNK, n)
-        ro, ri, rt = o[:, r0:r1], inv[:, r0:r1], tmax[r0:r1]
+        rt = tmax[r0:r1]
         if not bool((rt > TMIN).any()):
             continue
-        gate = _slab(ro, ri, cl_lo, cl_hi, rt) & valid[None]
-        if listed is None:
-            g_sc = _slab(ro, ri, sc_lo, sc_hi, rt)
-            gate &= g_sc.repeat_interleave(K2, dim=1)
-        else:
-            rows = torch.arange(r0, r1, device=o.device) // LANES
-            gate &= listed[rows]
+        rows = torch.arange(r0, r1, device=o.device) // LANES
+        gate = _tree_gates(tree, o[:, r0:r1], inv[:, r0:r1], rt, rows,
+                           listed, bounds)
         ray, cl = torch.nonzero(gate, as_tuple=True)
         for p0 in range(0, ray.shape[0], PAIR_CHUNK):
             yield ray[p0:p0 + PAIR_CHUNK] + r0, cl[p0:p0 + PAIR_CHUNK]
+
+
+def stats_lane0(tree: ClusterTree, o, d, tmax, block: int):
+    """The JAX kernel's work-list length per dispatch block of `block` rays
+    (stats lane 0; dense.py:527-582 with t = tmax): the clusters of every
+    supercluster whose box some ray of the block passes at its tmax, whose
+    own box some ray of the block passes with entry t below the block's
+    largest tmax, by the JAX slab arithmetic (a padding cluster's inverted
+    box passes it). o, d [3,N], tmax [N] → i32[N/block]."""
+    n_sc = tree.num_superclusters
+    n = tmax.shape[0]
+    nblocks = n // block
+    dev = tmax.device
+    inv = _safe_inv(d)
+    bounds = cluster_bounds(tree)
+    btmax = tmax.reshape(nblocks, block).amax(dim=1)
+    sc_n = torch.zeros(nblocks, n_sc, dtype=torch.int32, device=dev)
+    cl_n = torch.zeros(nblocks, bounds.shape[1], dtype=torch.int32,
+                       device=dev)
+    for r0 in range(0, n, RAY_CHUNK):
+        r1 = min(r0 + RAY_CHUNK, n)
+        ro, ri, rt = o[:, r0:r1], inv[:, r0:r1], tmax[r0:r1]
+        blk = torch.arange(r0, r1, device=dev) // block
+        sc_n.index_add_(0, blk, _slab(ro, ri, tree.sc_boxes[0:3, :n_sc],
+                                      tree.sc_boxes[3:6, :n_sc],
+                                      rt).to(torch.int32))
+        hit, tn = _slab_tn(ro, ri, bounds[0:3], bounds[3:6], rt)
+        cl_n.index_add_(0, blk, (hit & (tn < btmax[blk][:, None]))
+                        .to(torch.int32))
+    return ((sc_n > 0).repeat_interleave(K2, dim=1) & (cl_n > 0)).sum(
+        dim=1, dtype=torch.int32)
+
+
+def sweep_bounds(tree: ClusterTree, o, d, tmax, far, block: int,
+                 listed=None, bounds=None):
+    """Bounds of stats lane 1 (the (128-ray group, cluster) sweeps a walk
+    runs) per dispatch block of `block` rays → (lo, hi) i32[N/block]. lo:
+    the clusters that some ray of a group enters at or before its final
+    far bound `far` [N] (the nearest hit's t, else tmax; 0 for a blocked
+    any-hit ray), each of which every walk sweeps; hi: the clusters the
+    group's gate passes at tmax (`_tree_gates`; with `listed` or `bounds`
+    as there), beyond which no walk sweeps. o, d [3,N], tmax [N]."""
+    n = tmax.shape[0]
+    inv = _safe_inv(d)
+    lo = torch.zeros(n // LANES, dtype=torch.int32, device=tmax.device)
+    hi = torch.zeros_like(lo)
+    for r0 in range(0, n, RAY_CHUNK):
+        r1 = min(r0 + RAY_CHUNK, n)
+        ro, ri = o[:, r0:r1], inv[:, r0:r1]
+        rows = torch.arange(r0, r1, device=tmax.device) // LANES
+        g0, g1 = r0 // LANES, r1 // LANES
+        for out, rt, kw in ((lo, far[r0:r1], {}),
+                            (hi, tmax[r0:r1],
+                             dict(listed=listed, bounds=bounds))):
+            gate = _tree_gates(tree, ro, ri, rt, rows, **kw)
+            out[g0:g1] = gate.reshape(g1 - g0, LANES, -1).any(dim=1).sum(
+                dim=1, dtype=torch.int32)
+    per = block // LANES
+    return (lo.reshape(-1, per).sum(dim=1, dtype=torch.int32),
+            hi.reshape(-1, per).sum(dim=1, dtype=torch.int32))
 
 
 def _mt_terms(tri, o, d):
@@ -346,13 +463,15 @@ def _sub_gated(tree, ok, cl, o, d, tm):
 
 
 def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax, *,
-                      sub_gate: bool = False, listed=None):
+                      sub_gate: bool = False, listed=None, bounds=None,
+                      ablate: str = ""):
     """Plain PyTorch version of kernel A (same inputs and outputs as
     `trace_dense`). Works through gated (ray, cluster) pairs in chunks,
     so memory stays bounded at any ray count. sub_gate: only the
-    triangles whose sub-run box passes (`sub_run_pass`); listed: the
-    re-check's pairs (`gated_pairs`). Either gives the default's
-    outputs."""
+    triangles whose sub-run box passes (`sub_run_pass`); listed, bounds:
+    the re-check's and the interval pregate's pairs (`gated_pairs`). Each
+    gives the default's outputs; an `ablate` cut (CUTS) commits nothing
+    (every ray misses), "nosort" is the default."""
     nb = dirs.shape[1]
     n = nb * LANES
     dev = dirs.device
@@ -360,7 +479,9 @@ def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax, *,
     geo = tree.tri_data[:, :, 0:9].contiguous()       # [C1p, K1, 9]
     kidx = torch.arange(K1, device=dev)
     rays, ts, slots, us, vs = [], [], [], [], []
-    for ray, cl in gated_pairs(tree, o, d, tm, listed):
+    pairs = () if ablate in CUTS else gated_pairs(tree, o, d, tm, listed,
+                                                  bounds)
+    for ray, cl in pairs:
         det, up, vp, tp = _mt_terms(geo[cl], o[:, ray], d[:, ray])
         adet = det.abs()
         rec = 1.0 / torch.where(det == 0, 1.0, det)
@@ -406,18 +527,22 @@ def trace_dense_plain(tree: ClusterTree, origins, dirs, tmax, *,
 
 
 def trace_occluded_plain(tree: ClusterTree, origins, dirs, tmax, *,
-                         sub_gate: bool = False, listed=None):
+                         sub_gate: bool = False, listed=None, bounds=None,
+                         ablate: str = ""):
     """Plain PyTorch version of kernel A' with per-ray origins (same
     inputs as `trace_dense`) → blocked bool[Nb,128]: any gated triangle
     that passes the division-free test blocks the ray. Same arithmetic,
     in the same order, as `occluded_multi_plain`, which passes kernel B's
-    modes on (sub_gate, listed: see `trace_dense_plain`)."""
+    modes on (sub_gate, listed, bounds, ablate: see
+    `trace_dense_plain`; a cut blocks nothing)."""
     nb = dirs.shape[1]
     n = nb * LANES
     o, d, tm = origins.reshape(3, n), dirs.reshape(3, n), tmax.reshape(n)
     geo = tree.tri_data[:, :, 0:9].contiguous()
     blocked = torch.zeros(n, dtype=torch.bool, device=dirs.device)
-    for ray, cl in gated_pairs(tree, o, d, tm, listed):
+    pairs = () if ablate in CUTS else gated_pairs(tree, o, d, tm, listed,
+                                                  bounds)
+    for ray, cl in pairs:
         det, up, vp, tp = _mt_terms(geo[cl], o[:, ray], d[:, ray])
         adet = det.abs()
         sgn = torch.where(det < 0, -1.0, 1.0)
@@ -436,20 +561,18 @@ def broadcast_points(o_pts, dirs, block: int):
     return o.expand(dirs.shape).contiguous()
 
 
-def _check_rays(what, origins, dirs, tmax, block: int, point_origin: bool):
-    """Validate a trace wrapper's ray arguments; returns (device, Nb)."""
+def _check_rays(what, origins, dirs, tmax, block: int, point_origin: bool,
+                stats: bool = False):
+    """Validate a trace wrapper's ray arguments; returns (device, Nb).
+    `block` is a multiple of 128; with point origins or stats, whose
+    unit it is, it also divides the rays."""
     dev = dirs.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {dev}")
     nb = dirs.shape[1]
     n = nb * LANES
-    if point_origin:
-        if block <= 0 or block % LANES or n % block:
-            raise ValueError(f"{what}: ray count {n} is not a multiple of "
-                             f"block {block} (itself a multiple of {LANES})")
-        o_shape = (n // block, 3)
-    else:
-        o_shape = (3, nb, LANES)
+    _check_block(what, block, n if point_origin or stats else block)
+    o_shape = (n // block, 3) if point_origin else (3, nb, LANES)
     if (dirs.shape != (3, nb, LANES) or origins.shape != o_shape
             or tmax.shape != (nb, LANES)):
         raise ValueError(f"{what}: shapes o {tuple(origins.shape)} "
@@ -468,42 +591,173 @@ def _kernel_args(tree: ClusterTree, origins, block: int, dirs, tmax):
             dirs.data_ptr(), tmax.data_ptr(), tmax.numel())
 
 
-def trace_occluded(tree: ClusterTree, origins, dirs, tmax, *,
-                   block: int = 512, point_origin: bool = False):
-    """Any-hit trace (kernel A' and its wrapper): `trace_dense`'s
-    occlusion mode, same ray arguments. Returns (t, slot, u, v), all
-    [Nb,128]: slot 1, t = TMIN on a blocked ray, slot -1, t = inf on a
-    free one, u = v = 0. A CUDA tensor launches kernel A' and counts it
-    in `trace_occluded.launches`; a CPU tensor runs
-    `trace_occluded_plain`."""
-    dev, nb = _check_rays("trace_occluded", origins, dirs, tmax, block,
-                          point_origin)
-    if dev.type == "cpu":
+def _plain_lists(tree: ClusterTree, lists, pregate: str, nsets: int = 1):
+    """The plain versions' keywords for a pregate's candidate lists."""
+    if not pregate:
+        return {}
+    maxc = tree.tri_data.shape[0]
+    if pregate == "interval":
+        return dict(bounds=listed_bounds(lists, maxc, nsets))
+    return dict(listed=listed_matrix(lists, maxc, nsets))
+
+
+def popcount_rows(mask):
+    """Set bits of each row of an i32 matrix → i32[rows]."""
+    bit = torch.arange(32, dtype=torch.int32, device=mask.device)
+    return ((mask[..., None] >> bit) & 1).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def stats_lane0_of(tree: ClusterTree, origins, dirs, tmax, *, block: int,
+                   point_origin: bool, pregate: str, ablate: str,
+                   mask=None, lists=None):
+    """Stats lane 0 per dispatch block, as the JAX kernel counts it: 0
+    where the walk is cut before its lists ("onlysc", "noemit"); under a
+    pregate the prologue's interval-gated count at `block` (the JAX
+    kernel copies it, dense.py:596): at block 128 the counts of the
+    walk's own `lists` (`closest_worklists` gates per 128-ray group), at
+    a wider block a gate of its own, whose intervals span the whole
+    block as the JAX kernel's do; else the work list's length, from the
+    kernel's cluster bits `mask` or, without, `stats_lane0`."""
+    n = tmax.numel()
+    if ablate in ("onlysc", "noemit"):
+        return torch.zeros(n // block, dtype=torch.int32, device=tmax.device)
+    if pregate and block == LANES and lists is not None:
+        return lists.count
+    if pregate:
+        gate = interval_gate(tree, origins, dirs, tmax, block=block,
+                             point_origin=point_origin)[0]
+        return gate.sum(dim=1, dtype=torch.int32)
+    if mask is not None:
+        return popcount_rows(mask)
+    if point_origin:
+        origins = broadcast_points(origins, dirs, block)
+    return stats_lane0(tree, origins.reshape(3, n), dirs.reshape(3, n),
+                       tmax.reshape(n), block)
+
+
+def plain_stats(tree: ClusterTree, origins, dirs, tmax, *, block: int,
+                point_origin: bool, pregate: str, ablate: str, lists=None):
+    """The plain versions' stats i32[N/block, 2]: lane 0 as the JAX
+    kernel's (`stats_lane0_of`); lane 1 the sweeps of a walk that never
+    prunes (`sweep_bounds`' hi), 0 where the walk is cut before its
+    sweeps."""
+    lane0 = stats_lane0_of(tree, origins, dirs, tmax, block=block,
+                           point_origin=point_origin, pregate=pregate,
+                           ablate=ablate, lists=lists)
+    n = tmax.numel()
+    if ablate in CUTS and ablate != "nosweep":
+        lane1 = torch.zeros_like(lane0)
+    else:
         if point_origin:
             origins = broadcast_points(origins, dirs, block)
-        blocked = trace_occluded_plain(tree, origins, dirs, tmax)
+        tm = tmax.reshape(n)
+        lane1 = sweep_bounds(tree, origins.reshape(3, n), dirs.reshape(3, n),
+                             tm, tm, block,
+                             **_plain_lists(tree, lists, pregate))[1]
+    return torch.stack([lane0, lane1], dim=1)
+
+
+def _stat_buffers(tree: ClusterTree, tmax, block: int):
+    """Kernel-side stats buffers (zeroed: the kernel adds into them):
+    (stats i32[N/block, 2], cluster bits i32[N/block, words], the
+    blocks' largest tmax f32[N/block])."""
+    nblocks = tmax.numel() // block
+    words = -(-tree.tri_data.shape[0] // 32)
+    return (torch.zeros(nblocks, 2, dtype=torch.int32, device=tmax.device),
+            torch.zeros(nblocks, words, dtype=torch.int32,
+                        device=tmax.device),
+            tmax.reshape(nblocks, block).amax(dim=1).contiguous())
+
+
+def mode_args(ablate: str, interval: bool, bufs, block: int):
+    """The C entry points' run-time mode arguments (ablate, interval,
+    stats, stat_mask, mask_words, stat_groups, stat_btmax)."""
+    if bufs is None:
+        return ABLATES.index(ablate), int(interval), None, None, 0, 0, None
+    out, mask, btmax = bufs
+    return (ABLATES.index(ablate), int(interval), out.data_ptr(),
+            mask.data_ptr(), mask.shape[1], block // LANES, btmax.data_ptr())
+
+
+def _count(fn, **modes) -> None:
+    """Count a launch in `fn.launches` and each mode it asked for in
+    `fn.mode_launches` (the key "ablate_<cut>" for an `ablate`)."""
+    fn.launches += 1
+    for key, on in modes.items():
+        if key == "ablate":
+            if on:
+                fn.mode_launches[f"ablate_{on}"] += 1
+        else:
+            fn.mode_launches[key] += int(bool(on))
+
+
+def _mode_counts(*keys) -> dict:
+    return dict.fromkeys(keys + tuple(f"ablate_{a}" for a in ABLATES[1:]), 0)
+
+
+def trace_occluded(tree: ClusterTree, origins, dirs, tmax, *,
+                   block: int = 512, point_origin: bool = False,
+                   sub_gate: bool = False, pregate=False, ablate: str = "",
+                   stats: bool = False):
+    """Any-hit trace (kernel A' and its wrapper): `trace_dense`'s
+    occlusion mode, same ray arguments and modes (sub_gate, pregate,
+    ablate, stats: see `trace_dense`). Returns (t, slot, u, v[, stats]),
+    all [Nb,128]: slot 1, t = TMIN on a blocked ray, slot -1, t = inf on
+    a free one, u = v = 0. A CUDA tensor launches kernel A' and counts it
+    in `trace_occluded.launches` (each mode asked for in
+    `trace_occluded.mode_launches`); a CPU tensor runs
+    `trace_occluded_plain` in the same mode."""
+    pregate = _pregate(pregate)
+    ablate = _ablate(ablate, pregate)
+    dev, nb = _check_rays("trace_occluded", origins, dirs, tmax, block,
+                          point_origin, stats)
+    lists = (closest_worklists(tree, origins, dirs, tmax,
+                               point_origin=point_origin, block=block)
+             if pregate else None)
+    sk = dict(block=block, point_origin=point_origin, pregate=pregate,
+              ablate=ablate)
+    if dev.type == "cpu":
+        full = broadcast_points(origins, dirs, block) if point_origin \
+            else origins
+        blocked = trace_occluded_plain(tree, full, dirs, tmax,
+                                       sub_gate=sub_gate, ablate=ablate,
+                                       **_plain_lists(tree, lists, pregate))
         zero = torch.zeros(nb, LANES)
-        return (torch.where(blocked, TMIN, torch.inf),
-                torch.where(blocked, 1, -1).to(torch.int32), zero, zero)
+        out = (torch.where(blocked, TMIN, torch.inf),
+               torch.where(blocked, 1, -1).to(torch.int32), zero, zero)
+        if stats:
+            out += (plain_stats(tree, origins, dirs, tmax, lists=lists,
+                                **sk),)
+        return out
     _check_tree(tree, dev)
     origins, dirs, tmax = (x.contiguous() for x in (origins, dirs, tmax))
     t = torch.empty(nb, LANES, device=dev)
     slot = torch.empty(nb, LANES, dtype=torch.int32, device=dev)
     u = torch.empty(nb, LANES, device=dev)
     v = torch.empty(nb, LANES, device=dev)
+    bufs = _stat_buffers(tree, tmax, block) if stats else None
+    cid, tlb, _, count, stride = list_args(lists)
     lib = kernels.library()
     with torch.cuda.device(dev):
         err = lib.vkrt_trace_occluded(
             *_kernel_args(tree, origins, block if point_origin else 0, dirs,
-                          tmax),
+                          tmax), int(sub_gate), cid, tlb, count, stride,
+            *mode_args(ablate, pregate == "interval", bufs, block),
             t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "trace_occluded")
-    trace_occluded.launches += 1
-    return t, slot, u, v
+    _count(trace_occluded, sub_gate=sub_gate, recheck=pregate == "recheck",
+           interval=pregate == "interval", stats=stats, ablate=ablate)
+    if not stats:
+        return t, slot, u, v
+    bufs[0][:, 0] = stats_lane0_of(tree, origins, dirs, tmax, mask=bufs[1],
+                                   lists=lists, **sk)
+    return t, slot, u, v, bufs[0]
 
 
-trace_occluded.launches = 0
+trace_occluded.launches = 0       # kernel A', every mode
+trace_occluded.mode_launches = _mode_counts("sub_gate", "recheck",
+                                            "interval", "stats")
 
 
 def list_args(lists: WorkLists | None):
@@ -518,50 +772,68 @@ def list_args(lists: WorkLists | None):
 
 def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
                 occlusion: bool = False, with_attributes: bool = True,
-                point_origin: bool = False, sub_gate: bool = False,
-                pregate=""):
+                stats: bool = False, point_origin: bool = False,
+                sort: bool = True, group_gate: bool = False, pregate=False,
+                ablate: str = "", sub_gate: bool = False):
     """Trace rays against the cluster tree (lane-major I/O).
 
     origins, dirs: f32[3, Nb, 128]; tmax: f32[Nb, 128] (0 = parked ray).
-    point_origin=True: the rays of each block of `block` share one origin
-    and `origins` is f32[N/block, 3]; N must then be a multiple of
-    `block` (a multiple of 128). Returns (t, slot, u, v[, attrs]) — see
-    the module docstring. occlusion=True is `trace_occluded` (kernel A',
-    which has no modes: the JAX engine passes it none).
+    N must be a multiple of `block`, the JAX kernel's dispatch block (a
+    multiple of 128; else ValueError). point_origin=True: the rays of
+    each block of `block` share one origin and `origins` is f32[N/block,
+    3]. Returns (t, slot, u, v[, attrs][, stats]) — see the module
+    docstring; unlike the JAX function, with_attributes defaults to True.
+    occlusion=True is `trace_occluded` (kernel A', the same modes; attrs
+    are zeros).
 
-    Kernel A's two modes, the JAX kernel's (dense.py:802-890), give the
-    same outputs bit for bit: sub_gate sweeps only the 16-triangle
-    sub-runs whose widened box a ray enters before its t_cur;
-    pregate="recheck" walks per-group candidate lists from an interval
-    prologue (`closest_worklists`) in place of the kernel's own
-    supercluster and cluster gates. A CUDA tensor launches kernel A in
-    the asked mode and counts it in `trace_dense.launches` and each mode
-    on in `trace_dense.mode_launches`; a CPU tensor runs
+    The JAX kernel's modes (dense.py:802-890), each with the default's
+    outputs bit for bit: sub_gate sweeps only the 16-triangle sub-runs
+    whose widened box a ray enters before its t_cur; pregate="recheck"
+    walks per-group candidate lists from an interval prologue
+    (`closest_worklists`) in place of the kernel's own supercluster and
+    cluster gates, re-testing each listed box per ray; pregate=True or
+    "interval" walks the same lists trusting their bounds (exclusive
+    with group_gate, as in JAX). stats=True appends i32[N/block, 2] per
+    dispatch block: lane 0 the JAX work-list length (equal to the JAX
+    kernel's), lane 1 the (128-ray group, cluster) sweeps run (the JAX
+    kernel counts clusters per block; `sweep_bounds` bounds the port's).
+    ablate (phase timing, csrc/walk.cuh's map): the cut points "onlysc",
+    "noemit", "nodma_nosort", "nodma", "nosweep" commit nothing (every
+    ray misses), "nosort" walks each list in id order (outputs
+    unchanged). group_gate and sort are met by the walk's structure (it
+    gates per 128-ray group and visits front to back whatever they say):
+    accepted, counted, no output changes. A CUDA tensor launches kernel A
+    in the asked mode and counts it in `trace_dense.launches` and each
+    mode asked for in `trace_dense.mode_launches`; a CPU tensor runs
     `trace_dense_plain` in the same mode (with the same prologue)."""
-    pregate = _pregate(pregate)
+    pregate = _pregate(pregate, group_gate)
+    ablate = _ablate(ablate, pregate)
     if occlusion:
-        if sub_gate or pregate:
-            raise NotImplementedError(
-                f"kernel A' modes (sub_gate, pregate) are not ported "
-                f"({ITEM_15})")
         out = trace_occluded(tree, origins, dirs, tmax, block=block,
-                             point_origin=point_origin)
+                             point_origin=point_origin, sub_gate=sub_gate,
+                             pregate=pregate, ablate=ablate, stats=stats)
         if with_attributes:
-            out += (torch.zeros((_N_ATTR,) + tmax.shape, device=tmax.device),)
+            out = out[:4] + (torch.zeros((_N_ATTR,) + tmax.shape,
+                                         device=tmax.device),) + out[4:]
         return out
     dev, nb = _check_rays("trace_dense", origins, dirs, tmax, block,
-                          point_origin)
+                          point_origin, stats)
     lists = (closest_worklists(tree, origins, dirs, tmax,
                                point_origin=point_origin, block=block)
              if pregate else None)
+    sk = dict(block=block, point_origin=point_origin, pregate=pregate,
+              ablate=ablate)
     if dev.type == "cpu":
-        if point_origin:
-            origins = broadcast_points(origins, dirs, block)
-        listed = (listed_matrix(lists, tree.tri_data.shape[0])
-                  if lists is not None else None)
-        out = trace_dense_plain(tree, origins, dirs, tmax, sub_gate=sub_gate,
-                                listed=listed)
-        return out if with_attributes else out[:4]
+        full = broadcast_points(origins, dirs, block) if point_origin \
+            else origins
+        out = trace_dense_plain(tree, full, dirs, tmax, sub_gate=sub_gate,
+                                ablate=ablate,
+                                **_plain_lists(tree, lists, pregate))
+        out = out if with_attributes else out[:4]
+        if stats:
+            out += (plain_stats(tree, origins, dirs, tmax, lists=lists,
+                                **sk),)
+        return out
     _check_tree(tree, dev)
     origins, dirs, tmax = (x.contiguous() for x in (origins, dirs, tmax))
     t = torch.empty(nb, LANES, device=dev)
@@ -570,20 +842,49 @@ def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
     v = torch.empty(nb, LANES, device=dev)
     attrs = (torch.empty(_N_ATTR, nb, LANES, device=dev)
              if with_attributes else None)
+    bufs = _stat_buffers(tree, tmax, block) if stats else None
     lib = kernels.library()
     with torch.cuda.device(dev):
         err = lib.vkrt_trace_closest(
             *_kernel_args(tree, origins, block if point_origin else 0, dirs,
                           tmax), int(sub_gate), *list_args(lists),
+            *mode_args(ablate, pregate == "interval", bufs, block),
             t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(),
             attrs.data_ptr() if with_attributes else None,
             torch.cuda.current_stream(dev).cuda_stream)
     kernels.check(err, "trace_closest")
-    trace_dense.launches += 1
-    trace_dense.mode_launches["sub_gate"] += int(sub_gate)
-    trace_dense.mode_launches["recheck"] += int(bool(pregate))
-    return (t, slot, u, v, attrs) if with_attributes else (t, slot, u, v)
+    _count(trace_dense, sub_gate=sub_gate, recheck=pregate == "recheck",
+           interval=pregate == "interval", stats=stats, ablate=ablate,
+           group_gate=group_gate, no_sort=not sort)
+    out = (t, slot, u, v, attrs) if with_attributes else (t, slot, u, v)
+    if stats:
+        bufs[0][:, 0] = stats_lane0_of(tree, origins, dirs, tmax,
+                                       mask=bufs[1], lists=lists, **sk)
+        out += (bufs[0],)
+    return out
 
 
 trace_dense.launches = 0          # kernel A, every mode
-trace_dense.mode_launches = {"sub_gate": 0, "recheck": 0}
+trace_dense.mode_launches = _mode_counts("sub_gate", "recheck", "interval",
+                                         "stats", "group_gate", "no_sort")
+
+
+def trace_dense_rays(tree: ClusterTree, origins, dirs, tmax, *,
+                     with_attributes: bool = False, **kw):
+    """`trace_dense` over row-major rays (origins, dirs [N,3], tmax [N]),
+    the JAX package's test and tooling wrapper (dense.py:1066-1083):
+    converts to lane-major, traces, converts back → (t, slot, u, v [N][,
+    attrs [N,36]][, stats]); with_attributes defaults to False, as
+    there."""
+    from vkrt_tpu_torch.utils import layout as L
+
+    out = trace_dense(tree, L.to_cvec(origins), L.to_cvec(dirs),
+                      L.to_lanes(tmax), with_attributes=with_attributes,
+                      **kw)
+    flat = [L.from_lanes(x) for x in out[:4]]
+    rest = out[4:]
+    if with_attributes:
+        attrs = rest[0]
+        flat.append(torch.movedim(attrs, 0, -1).reshape(-1, attrs.shape[0]))
+        rest = rest[1:]
+    return tuple(flat) + tuple(rest)

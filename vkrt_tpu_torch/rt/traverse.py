@@ -13,7 +13,10 @@ whether any ray is still active (one host wait per iteration: slow,
 correct, and enough for a reference backend).
 
 trace_closest returns (t, tri, u, v) with tri in the original triangle
-numbering (-1 and t = tmax on a miss); trace_occluded any-hit bool[B].
+numbering (-1 and t = tmax on a miss); trace_closest_stats the same and
+the lock-step iteration count (the steps the slowest ray took: the
+reference walk's divergence metric, equal to the JAX loop's count on the
+same rays); trace_occluded any-hit bool[B].
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ STACK_DEPTH = 64
 
 def _traverse_block(bvh: BVH2, origins, dirs, tmin: float, tmax,
                     occlusion: bool):
-    """origins, dirs f32[B,3], tmax f32[B]. Returns (t, slot, u, v)."""
+    """origins, dirs f32[B,3], tmax f32[B]. Returns (t, slot, u, v,
+    lock-step iterations)."""
     B = origins.shape[0]
     dev = origins.device
     inv_d = safe_inv_dir(dirs)
@@ -58,7 +62,9 @@ def _traverse_block(bvh: BVH2, origins, dirs, tmin: float, tmax,
         u_best = torch.where(ok, u, u_best)
         v_best = torch.where(ok, v, v_best)
 
+    steps = 0
     while not bool(finished.all()):
+        steps += 1
         box = bvh.boxes[node]                       # [B,12]
         kid = bvh.kids[node].long()                 # [B,2]
         limit = torch.minimum(tmax, t_best)
@@ -100,7 +106,7 @@ def _traverse_block(bvh: BVH2, origins, dirs, tmin: float, tmax,
                            torch.where(need_pop, popped,
                                        torch.where(both, near, one)))
         sp = torch.where(need_pop & ~finished, popped_sp, sp)
-    return t_best, slot_best, u_best, v_best
+    return t_best, slot_best, u_best, v_best, steps
 
 
 def _tmax_rows(tmax, origins):
@@ -112,14 +118,21 @@ def _tmax_rows(tmax, origins):
 def trace_closest(bvh: BVH2, origins, dirs, tmin: float, tmax):
     """Closest hit of rays f32[B,3] within (tmin, tmax); tmax a float or
     f32[B]. Returns (t, tri i32, u, v); tri = -1 on a miss."""
-    t, slot, u, v = _traverse_block(bvh, origins, dirs, tmin,
-                                    _tmax_rows(tmax, origins), False)
+    return trace_closest_stats(bvh, origins, dirs, tmin, tmax)[:4]
+
+
+def trace_closest_stats(bvh: BVH2, origins, dirs, tmin: float, tmax):
+    """`trace_closest` and the lock-step iteration count of the whole
+    batch (i32 scalar on the rays' device; vkrt_tpu/rt/traverse.py:163)."""
+    t, slot, u, v, steps = _traverse_block(bvh, origins, dirs, tmin,
+                                           _tmax_rows(tmax, origins), False)
     tri = torch.where(slot >= 0, bvh.leaf_tri[torch.clamp(slot, min=0)], -1)
-    return t, tri.to(torch.int32), u, v
+    return (t, tri.to(torch.int32), u, v,
+            torch.tensor(steps, dtype=torch.int32, device=origins.device))
 
 
 def trace_occluded(bvh: BVH2, origins, dirs, tmin: float, tmax):
     """Any hit within (tmin, tmax): bool[B], True where blocked."""
-    _, slot, _, _ = _traverse_block(bvh, origins, dirs, tmin,
-                                    _tmax_rows(tmax, origins), True)
+    slot = _traverse_block(bvh, origins, dirs, tmin,
+                           _tmax_rows(tmax, origins), True)[1]
     return slot >= 0

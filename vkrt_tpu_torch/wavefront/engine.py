@@ -656,14 +656,57 @@ def upload_matrix(m, device):
     return m.to(device, non_blocking=True)
 
 
+# In-process scene cache (vkrt_tpu/wavefront/engine.py:767-801): a glTF
+# file is loaded and flattened once a process per (path, texture size),
+# and its material heap and trace backends are uploaded once per device.
+_MODEL_CACHE: dict = {}
+_SCENE_CACHE: dict = {}
+
+
+def cached_model(model_path, max_texture_dim: int = 0):
+    """The Model loaded from `model_path` (textures cut to
+    `max_texture_dim`, 0 = full size), loaded once a process."""
+    key = (os.fspath(model_path), max_texture_dim)
+    if key not in _MODEL_CACHE:
+        model = load_model(key[0], max_texture_dim=max_texture_dim)
+        _MODEL_CACHE[key] = (model, flatten_model(model))
+    return _MODEL_CACHE[key][0]
+
+
+def load_scene_assets(model_path, max_texture_dim: int = 0, device="cuda"):
+    """(FlatScene, TextureArrays on `device`, {backend kind: backend}) of
+    the scene at `model_path`: cached per (path, texture size, device),
+    the backends filled by `cached_backend`."""
+    dev = torch.device(device)
+    key = (os.fspath(model_path), max_texture_dim, str(dev))
+    if key not in _SCENE_CACHE:
+        model = cached_model(model_path, max_texture_dim)
+        flat = _MODEL_CACHE[key[:2]][1]
+        _SCENE_CACHE[key] = (flat, texture_arrays(model.images, flat, dev),
+                             {})
+    return _SCENE_CACHE[key]
+
+
+def cached_backend(model_path, max_texture_dim: int, kind: str,
+                   device="cuda"):
+    """(FlatScene, TextureArrays, backend `kind`) of the scene at
+    `model_path` on `device`, each made once a process."""
+    flat, tex, backends = load_scene_assets(model_path, max_texture_dim,
+                                            device)
+    if kind not in backends:
+        backends[kind] = make_backend(flat, kind, torch.device(device))
+    return flat, tex, backends[kind]
+
+
 class SceneOnDevice:
     """What both renderers build from a scene: the flattened scene, the
     material heap and the trace backend ("dense" or "reference") on
     `device`, with TF32 off.
 
     `scene` is a `vkrt_tpu_torch.scene.Model` or the path of a glTF file
-    (loaded with its textures cut to `max_texture_dim`, 0 = full size);
-    `cfg` must be this package's RenderConfig."""
+    (loaded with its textures cut to `max_texture_dim`, 0 = full size,
+    through `cached_backend`: once a process, shared by every instance
+    on the device); `cfg` must be this package's RenderConfig."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device,
                  backend: str = "dense", max_texture_dim: int = 0):
@@ -674,8 +717,10 @@ class SceneOnDevice:
         self.device = torch.device(device)
         runtime.exact_f32()
         if isinstance(scene, (str, os.PathLike)):
-            scene = load_model(os.fspath(scene),
-                               max_texture_dim=max_texture_dim)
+            self.model = cached_model(scene, max_texture_dim)
+            self.flat, self.tex, self.backend = cached_backend(
+                scene, max_texture_dim, backend, self.device)
+            return
         self.model = scene
         self.flat = flatten_model(scene)
         self.tex = texture_arrays(scene.images, self.flat, self.device)
