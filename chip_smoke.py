@@ -6,7 +6,16 @@ Phases; any failure raises and the run exits non-zero. They run in this
 order, except that 14-18, 24 and 25 (which share the config-4 renderer)
 run between the profile after phase 9 and phase 10, and 19-23 (the app
 surface, the golden gate, the reference backend, mip_lod and the sharded
-frames) after phase 13:
+frames) and 26 after phase 13. Each phase states its path: the renderers
+of phases 7, 9, 12-14, 16-18, 24 and 25 and the sharded frames of 23 are
+eager (graph=False: they record kernel inputs, time ranges by CUDA events
+or profile per range, and their frames are phase 26's references);
+phases 6, 8, 11, 15, 17's small frames, 19, 23's dry run, its 4-shard
+raster frame and --shard, and 26 run the default, a CUDA graph a frame
+(graphs.py). Launches are counted on the host by the kernels' wrappers
+(an eager frame's, and a graph's warm-up and capture: a replay runs no
+Python) and, for graphs, on the card by torch.profiler, which records
+every kernel node of a replay by name (graphs.kernel_launches):
   1. device   fail at once without CUDA; print the device report
   2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
@@ -31,14 +40,15 @@ frames) after phase 13:
               defaults vs the numpy brute-force oracle
               (vkrt_tpu_torch.golden.cpu_tracer)
   7. main     Renderer.render_async → render_frame_u8 at config 4's
-              shipped defaults (the depth>=1 shadow reorder on),
+              shipped defaults (the depth>=1 shadow reorder on), eager,
               1920x1080, full procedural scene (262,267 triangles): one
               warm-up frame, then N_FRAMES timed frames along the
               fly-through camera path; exactly A 2, B 2, C 1, D 1, E 1,
-              F 1 launches per frame
+              F 1 launches per frame; device and host enqueue ms a frame
   8. flags off  the same frames with the three reorder flags off (the
-              path before C-F): A 2, B 2 and no C-F launches per frame;
-              its u8 frames and ray counts must equal phase 7's bit for bit
+              path before C-F), as CUDA graphs: A 2, B 2 and no C-F
+              launches per frame; its u8 frames and ray counts must equal
+              phase 7's bit for bit
   9. shapes   kernels A-F vs their plain versions on the inputs one
               main-path frame gives them (recorded from the engine), their
               times there (C-F on a filled queue, so that the device's
@@ -56,12 +66,16 @@ frames) after phase 13:
               continuation round behind every hit; per pose a tie probe
               (one triangle in two clusters, the copy of the higher slot
               in the cluster the front-to-back walk visits first: the
-              lower slot must win)
+              lower slot must win); on the full scene (33 superclusters)
+              per pose the chunk probe: G with its work list cut to
+              G_CHUNK superclusters a chunk, torch.equal to G in one chunk
+              and to the plain version
  11. raster   64x48 raster frames of the small scene vs the raster oracle
               (vkrt_tpu_torch.golden.raster_oracle): edge method at msaa 1
               and 8 under the flip gate, ray-cast method at msaa 1 by RMSE
  12. raster main  Rasterizer(full scene, reference_config() = 1600x1200,
-              "cuda", msaa=8): one warm-up frame, then RASTER_FRAMES timed
+              "cuda", msaa=8, eager): one warm-up frame, then RASTER_FRAMES
+              timed
               frames along the fly-through path; exactly 32 launches of G
               and none of A-F per frame; then two profiled frames (device
               time per raster range) and one ray-cast frame on the first
@@ -84,8 +98,9 @@ frames) after phase 13:
               origins and without attributes vs A's plain version, and with
               point origins equal to the broadcast origins' result
  15. per light  config 4 with DenseBackend.per_light (one A' dispatch per
-              light in place of B): A 2, A' 8, C-F 1 launches per frame and
-              none of B; u8 frames and ray counts bit-equal to phase 7's
+              light in place of B), as CUDA graphs: A 2, A' 8, C-F 1
+              launches per frame on the card and none of B; u8 frames and
+              ray counts bit-equal to phase 7's
               first frames; then A' vs plain and vs B on one frame's recorded
               segments, its time there beside B's, and its bound
  16. config 5   Renderer at config5_stress() (1920x1080, depth 4, 4 lights,
@@ -110,8 +125,9 @@ frames) after phase 13:
  19. CLI       app/cli.main(["--config", "4", "--frames", "9", "--metrics",
               "--output", png, "--checkpoint", json], scene=model) on the
               card: the pipelined fly-through (3 frames in flight,
-              runtime.FrameScheduler) at 1920x1080; exactly A 2, B 2, C-F
-              1 launches a frame; its last frame bit-equal to
+              runtime.FrameScheduler) at 1920x1080, a CUDA graph a frame
+              (the CLI's default); exactly A 2, B 2, C-F 1 launches a
+              frame; its last frame bit-equal to the eager
               Renderer.render of the ninth camera, the checkpoint at frame
               9; the FrameTimer summary (wall clock: device, u8 download
               and host work); then 40 frames, whose steady wall ms/frame
@@ -138,14 +154,14 @@ frames) after phase 13:
  23. sharded  parallel/mesh.py on logical shards of the one card: config 4
               at 1920x1080 through render_frame_sharded on make_mesh() (the
               card) and on [card] * 2, 4, 7 (7 pads the 16,320 rows by 4),
-              1 + SHARD_FRAMES frames each: f32 frames and ray grids
+              eagerly, 1 + SHARD_FRAMES frames each: f32 frames and grids
               torch.equal to render_frame's on the same cameras, launches A
               2k, B 2k, C-F k a frame; per k the device ms a frame back to
               back (CUDA events), the host's enqueue ms a frame
               (perf_counter, no wait; again from an idle stream), the
               device's busy ms a frame (torch.profiler) and peak memory,
               beside the unsharded frame's; the raster frame at 1600x1200,
-              MSAA 8, on 1 and 4 shards bit-equal to
+              MSAA 8, on 1 and 4 shards (and on 4 as graphs) bit-equal to
               render_raster_frame_edge's (32k launches of G); the dry run
               dryrun_multichip(4, "cuda"); the CLI's --shard (2 frames, last
               frame equal to Renderer.render's) and --shard 2, which must
@@ -185,10 +201,27 @@ frames) after phase 13:
               decomposition; trace_closest_stats' iterations on phase
               21's frame; the kernels built once under $VKRT_TORCH_CACHE
               (a temporary directory) and kernel A launched from there
+ 26. graphs   the frames of phases 7, 16, 12, 23 and 19 on the default
+              path, one CUDA graph per static key captured at the first
+              frame and replayed: config 4 (1 + N_FRAMES poses), config 5
+              in each rebuild mode under the growing rotation, the raster
+              frame at 1600x1200, MSAA 8, render_frame_sharded on [card] *
+              1, 2, 4, 7; frames and ray counts torch.equal to those
+              phases' eager frames of the same cameras, launches a frame
+              as they gate them (on the card, the frames replayed once
+              more under torch.profiler; on the host, the captures); per
+              run the device ms a frame (CUDA events back to back), the
+              host's enqueue ms a frame, the busy share (torch.profiler),
+              capture ms and peak memory, beside the eager run's; phase
+              23's table again with graphs; then the CLI's 40-frame run
+              eagerly (its Renderer patched to graph=False) beside phase
+              19's, last frames equal
 Then the card's nvidia-smi name and power limit, one JSON line with each
-kernel's launches on its main path (phase 7 for A-F, phase 15 for A', phase
-12 for G, phase 24's frames for the four mode rows, phase 25's drive for
-its rows), its largest error, its time per frame and the bound of that
+kernel's launches on its main path, on the card (phase 26's config-4 graph
+frames for A-F, phase 15's graph frames for A', phase 26's raster graph
+frames for G), or on the host for the modes (phase 24's eager frames for
+the four mode rows, phase 25's drive for its rows), its largest error,
+its time per frame and the bound of that
 work, and, as the last line, {"ok": true, "device": {...}}.
 """
 
@@ -197,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -211,7 +245,7 @@ import numpy as np
 import torch
 
 from vkrt_tpu_torch import config as C
-from vkrt_tpu_torch import kernels, runtime
+from vkrt_tpu_torch import graphs, kernels, runtime
 from vkrt_tpu_torch.accel import clusters
 from vkrt_tpu_torch.accel.clusters import K1, K2, SUB_COL, SUBRUNS
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
@@ -293,9 +327,12 @@ SHARDS = (2, 4, 7)       # phase 23: logical shards of the one card, beside
                          # make_mesh()'s one (7 pads 16,320 rows by 4)
 SHARD_FRAMES = 3         # ... timed frames after a warm-up frame
 RASTER_SHARDS = (1, 4)
+G_CHUNK = 4              # phase 10: kernel G's work list cut to 4
+                         # superclusters a chunk (the full scene has 33)
 CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1)   # a config-4 frame
+CONFIG5_LAUNCHES = dict(A=4, B=4, C=3, D=3, E=3, F=3)   # a config-5 frame
 SHARD_KEYS = ("device_ms", "host_enqueue_ms", "host_enqueue_ms_idle_stream",
-              "device_busy_ms", "peak_mem_gb")
+              "device_busy_ms", "busy_share_profiled", "peak_mem_gb")
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
 
@@ -326,6 +363,12 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "A.recheck": ModeCount(trace_dense, "recheck"),
            "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
            "B.recheck": ModeCount(occluded_multi, "recheck")}
+# kernel → the name of its __global__ function (graphs.KERNELS), by which
+# the profiler's device events count its launches on the card: a replayed
+# graph's too, which run no Python and so move no wrapper's count
+ON_CARD = {"A": "trace_closest", "A'": "trace_occluded", "B": "occl_multi",
+           "C": "consolidate", "D": "scatter_back", "E": "lane_sort",
+           "F": "lane_unsort", "G": "raster_edge"}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 # phase 25: the JAX kernels' remaining modes, each a wrapper's
@@ -364,6 +407,38 @@ PLAIN = {"C": pack.consolidate_plain, "D": pack.scatter_back_plain,
 
 def log(*a):
     print(*a, flush=True)
+
+
+def eager(r):
+    """A copy of renderer `r` (a Renderer or a Rasterizer) that runs every
+    op from Python (graph=False): for the phases whose frames are the
+    eager references, record a frame's kernel inputs, time engine ranges
+    by CUDA events or profile per range (no record_function range shows
+    inside a graph's replay)."""
+    e = copy.copy(r)
+    e.graph = False
+    return e
+
+
+def graphed(r):
+    """A copy of renderer `r` on the default path (graph=None: a CUDA
+    graph per static key, replayed), with a FrameGraph of its own."""
+    g = copy.copy(r)
+    g.graph, g.graphs = None, graphs.FrameGraph()
+    return g
+
+
+@contextlib.contextmanager
+def eager_cli():
+    """While active, the CLI's Renderer runs eagerly: the CLI has no flag
+    for it (nor has the JAX CLI), so engine.Renderer, which cli.main
+    imports when called, becomes Renderer with graph=False."""
+    saved = engine.Renderer
+    engine.Renderer = functools.partial(saved, graph=False)
+    try:
+        yield
+    finally:
+        engine.Renderer = saved
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -1097,7 +1172,8 @@ def golden_frame(device) -> float:
                          cam.proj_inverse, cam.view_inverse, cfg,
                          accel="brute")
     err = rmse(fb, want)
-    log(f"  64x48 frame vs oracle: rmse {err:.3e} (bar {GOLDEN_RMSE}), "
+    log(f"  64x48 frame vs oracle ({'graph' if r.captured() else 'eager'}):"
+        f" rmse {err:.3e} (bar {GOLDEN_RMSE}), "
         f"rays {rays}, finite {bool(np.isfinite(fb).all())}")
     if not (np.isfinite(fb).all() and fb.shape == (48, 64, 3)
             and err <= GOLDEN_RMSE):
@@ -1107,49 +1183,71 @@ def golden_frame(device) -> float:
 
 def drive(renderer: Renderer, cams, per_frame: dict, label: str,
           transforms=None):
-    """Phases 7, 8, 15 and 16: a warm-up frame on cams[0], then one timed
-    frame per further camera, enqueued back to back through render_async
-    (with transforms[k] as the frame's instance transform, if given).
-    Every launch count is set to 0 just before and read just after; each
-    must be per_frame[k] times the number of frames. Returns (results,
-    [(u8 frame, ray count)] per camera)."""
+    """Phases 7, 8, 15, 16 and 26: a warm-up frame on cams[0] (a graph's
+    capture), then one timed frame per further camera, enqueued back to
+    back through render_async (with transforms[k] as the frame's instance
+    transform, if given), the host's ms to enqueue each (perf_counter, no
+    wait) beside the device's (CUDA events). Every launch count is set to
+    0 just before and read just after (`host_launches`), and must be
+    per_frame[k] a frame eagerly; on a graph, per_frame[k] twice for the
+    first frame's warm-up and capture and nothing for a replay. A graph's
+    frames then replay once more, the same cameras back to back, under
+    torch.profiler (`launches`: each kernel's launches on the card, which
+    must be per_frame[k] a frame; `profile`: the busy share). Returns
+    (results, [(u8 frame, ray count)] per camera)."""
     cfg = renderer.cfg
     n = len(cams) - 1
     tf = (lambda k: ()) if transforms is None else (lambda k:
                                                     (transforms[k],))
+    graph = renderer.captured()
+    held = len(renderer.graphs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in COUNTED.values():
-        f.launches = 0
+    zero_counts()
     wall0 = time.perf_counter()
     first = renderer.render_async(cams[0], *tf(0))          # warm-up
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - wall0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    outs = []
+    outs, host = [], []
     wall1 = time.perf_counter()
     events[0].record()
     for k in range(n):
+        t0 = time.perf_counter()
         outs.append(renderer.render_async(cams[k + 1], *tf(k + 1)))
+        host.append((time.perf_counter() - t0) * 1e3)
         events[k + 1].record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - wall1
-    launches = {k: f.launches for k, f in COUNTED.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     frame_ms = [events[k].elapsed_time(events[k + 1]) for k in range(n)]
+    prof = None
+    if graph:
+        prof = profiled([functools.partial(renderer.render_async, c, *tf(k))
+                         for k, c in enumerate(cams)], f"{label}, replays",
+                        per_frame=per_frame)
+    launches = {k: f.launches for k, f in COUNTED.items()}
+    captured = len(renderer.graphs) > held
+    host_frames = (2 * captured) if graph else n + 1
     ray_total = sum(int(r.item()) for _, r in outs)
     total_ms = sum(frame_ms)
-    res = dict(frames=n, warmup_s=warm_s,
+    res = dict(frames=n, path="graph" if graph else "eager",
+               warmup_s=warm_s,
                frame_ms=float(np.mean(frame_ms)), frame_ms_each=frame_ms,
+               host_enqueue_ms=float(np.mean(host)),
                wall_ms_per_frame=wall_s * 1e3 / n,
                rays_per_frame=ray_total / n,
                mrays_per_s=ray_total / (total_ms * 1e3),
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-               launches=launches)
-    log(f"  {label}:", json.dumps(res))
-    want = {k: per_frame.get(k, 0) * (n + 1) for k in COUNTED}
+               peak_mem_gb=peak,
+               launches=prof["launches"] if graph else launches,
+               host_launches=launches, profile=prof)
+    log(f"  {label}:", json.dumps({k: v for k, v in res.items()
+                                   if k != "profile"}))
+    want = {k: per_frame.get(k, 0) * host_frames for k in COUNTED}
     if launches != want:
-        raise AssertionError(f"{label}: expected launches {want} "
-                             f"({per_frame} per frame), got {launches}")
+        raise AssertionError(f"{label}: expected launches on the host "
+                             f"{want} ({per_frame} per frame, path "
+                             f"{res['path']}), got {launches}")
     outs = [first] + outs
     for fb, r in outs:
         if fb.shape != (cfg.height, cfg.width, 3) or fb.dtype != torch.uint8:
@@ -1244,24 +1342,34 @@ CONFIG5_RANGES = ENGINE_RANGES + ("accel_update",)
 RASTER_RANGES = ("raster_setup", "raster_edge_s", "raster_sample")
 
 
-def profile_frames(render, label: str, names=ENGINE_RANGES) -> dict:
+def profile_frames(render, label: str, names=ENGINE_RANGES,
+                   per_frame: dict | None = None) -> dict:
     """PROFILE_FRAMES frames of `render()` (a Renderer's or a Rasterizer's
     render_async of one camera, or a sharded frame) after a warm-up one,
-    enqueued back to back under torch.profiler: device time per range
-    whose name starts with one of `names` (record_function in
-    wavefront/engine.py and raster/pipeline.py) and outside them, per
-    frame; the device's busy share of the wall clock from the first
-    enqueue to the last result; the top device kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    n = PROFILE_FRAMES
+    through `profiled`."""
     render()
     torch.cuda.synchronize()
+    return profiled([render] * PROFILE_FRAMES, label, names, per_frame)
+
+
+def profiled(calls, label: str, names=ENGINE_RANGES,
+             per_frame: dict | None = None) -> dict:
+    """The frames of `calls` enqueued back to back under torch.profiler:
+    device time per range whose name starts with one of `names`
+    (record_function in wavefront/engine.py and raster/pipeline.py; a
+    graph's replay shows none) and outside them, per frame; the device's
+    busy share of the wall clock from the first enqueue to the last
+    result; the top device kernels; each counted kernel's launches on
+    the card (`launches`: graphs.kernel_launches, replays included),
+    which with `per_frame` must be per_frame[k] a frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(calls)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(n):
-            render()
+        for call in calls:
+            call()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     ev = prof.key_averages()
@@ -1271,15 +1379,24 @@ def profile_frames(render, label: str, names=ENGINE_RANGES) -> dict:
     dev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA
            and not e.key.startswith(names)]
     busy_us = sum(e.self_device_time_total for e in dev)
+    on_card = graphs.kernel_launches(ev)
+    launches = {k: on_card[name] for k, name in ON_CARD.items()}
     res = dict(frames=n, wall_ms_per_frame=wall_us / 1e3 / n,
                device_busy_ms_per_frame=busy_us / 1e3 / n,
                busy_share=busy_us / wall_us,
                range_ms=dict(sorted(ranges.items())),
-               other_ms=busy_us / 1e3 / n - sum(ranges.values()))
+               other_ms=busy_us / 1e3 / n - sum(ranges.values()),
+               launches=launches)
     log(f"  profiled frames ({label}):", json.dumps(res))
     for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / n:9.3f} ms/frame "
             f"x{e.count:<4d} {e.key[:90]}")
+    if per_frame is not None:
+        want = {k: per_frame.get(k, 0) * n for k in ON_CARD}
+        if launches != want:
+            raise AssertionError(f"{label}: expected launches on the card "
+                                 f"{want} ({per_frame} per frame), got "
+                                 f"{launches}")
     return res
 
 
@@ -1384,13 +1501,37 @@ def tie_probe(setup, scb, clb, px, py, inside, label: str) -> float:
     return out["max_abs_err"]
 
 
+def chunk_probe(setup, scb, clb, px, py, inside, label: str) -> None:
+    """Kernel G on a tree beyond one chunk: the work list cut to G_CHUNK
+    superclusters, so the kernel walks the tree chunk by chunk, carrying
+    each pixel's depth and slot; every output must be torch.equal to the
+    kernel's in one chunk and to the plain version's."""
+    zf = torch.where(inside, 0.0, edge.ZFAR_PARK)
+    got = edge.raster_edge(setup, scb, clb, px, py, zf, chunk=G_CHUNK)
+    one = edge.raster_edge(setup, scb, clb, px, py, zf)
+    want = edge.raster_edge_plain(setup, scb, clb, px, py, zf)
+    n_sc = clb.shape[0]
+    res = dict(superclusters=n_sc, chunk=G_CHUNK,
+               chunks=-(-n_sc // G_CHUNK),
+               hit_frac=(got[1] >= 0).float().mean().item(),
+               equal_one_chunk=all(torch.equal(a, b)
+                                   for a, b in zip(got, one)),
+               equal_plain=all(torch.equal(a, b) for a, b in zip(got, want)))
+    log(f"  kernel G in chunks{label}):", json.dumps(res))
+    if not (res["chunks"] > 1 and res["equal_one_chunk"]
+            and res["equal_plain"]):
+        raise AssertionError(f"kernel G in chunks failed: {res}")
+
+
 def probe_raster(dev, scenes) -> float:
     """Phase 10: kernel G vs its plain version on probes. For each scene
     (name, tree, width, height): the start pose and a pose by a wall, at
     the pixel centre and two MSAA offsets, with depth floors 0 (60%),
     random in [0.9, 1) (25%) and parked (15%, and the tile padding), then
     a continuation round with the floor at every hit's depth; per pose
-    the tie probe (`tie_probe`). Returns the largest error."""
+    the tie probe (`tie_probe`) and, on a tree of more than G_CHUNK
+    superclusters, the chunk probe (`chunk_probe`). Returns the largest
+    error."""
     rng = np.random.default_rng(SEED)
     err, n = 0.0, 0
     for name, tree, w, h in scenes:
@@ -1421,6 +1562,10 @@ def probe_raster(dev, scenes) -> float:
             err = max(err, tie_probe(setup, scb, clb, px, py, inside,
                                      f" ({name} {w}x{h}, {pose}"))
             n += 1
+            if clb.shape[0] > G_CHUNK:
+                chunk_probe(setup, scb, clb, px, py, inside,
+                            f" ({name} {w}x{h}, {pose}")
+                n += 1
     log(f"  G vs plain on probes: {n} cases agree; max abs err {err}")
     return err
 
@@ -1442,7 +1587,9 @@ def raster_frames_vs_oracle(dev) -> None:
                                     cam.view_inverse, cfg, msaa=msaa)
         d = np.abs(fb - want).max(axis=-1)
         flipped = d > FLIP
-        out = dict(method=method, msaa=msaa, flip_share=float(flipped.mean()),
+        out = dict(method=method, msaa=msaa,
+                   path="graph" if rast.captured() else "eager",
+                   flip_share=float(flipped.mean()),
                    max_other=float(d[~flipped].max()), rmse=rmse(fb, want),
                    finite=bool(np.isfinite(fb).all()))
         log("  64x48 raster frame vs oracle:", json.dumps(out))
@@ -1457,40 +1604,55 @@ def raster_frames_vs_oracle(dev) -> None:
 
 
 def drive_raster(rast, cams) -> tuple:
-    """Phase 12: a warm-up frame on cams[0], then one timed frame per
-    further camera, enqueued back to back (CUDA events between frames).
-    Every launch count is set to 0 just before and read just after: G
-    must have 32 launches per frame and A-F none. Returns (results, the
-    first frame)."""
+    """Phases 12 and 26: a warm-up frame on cams[0], then one timed frame
+    per further camera, enqueued back to back (CUDA events between
+    frames; the host's enqueue ms of each, no wait). Every launch count
+    is set to 0 just before and read just after: G must have 32 launches
+    per frame and A-F none, counted as `drive` says (on a graph: the
+    host counts the first frame's warm-up and capture, and the card,
+    under torch.profiler, the frames replayed once more). Returns
+    (results, the frames)."""
     n = len(cams) - 1
+    per_frame = {"G": 32}
+    graph = rast.captured()
+    held = len(rast.graphs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in COUNTED.values():
-        f.launches = 0
+    zero_counts()
     wall0 = time.perf_counter()
     first = rast.render_async(cams[0])
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - wall0
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
-    outs = []
+    outs, host = [], []
     wall1 = time.perf_counter()
     events[0].record()
     for k in range(n):
+        t0 = time.perf_counter()
         outs.append(rast.render_async(cams[k + 1]))
+        host.append((time.perf_counter() - t0) * 1e3)
         events[k + 1].record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - wall1
-    launches = {k: f.launches for k, f in COUNTED.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     frame_ms = [events[k].elapsed_time(events[k + 1]) for k in range(n)]
-    res = dict(frames=n, warmup_s=warm_s, frame_ms=float(np.mean(frame_ms)),
-               frame_ms_each=frame_ms, wall_ms_per_frame=wall_s * 1e3 / n,
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-               launches=launches)
-    want = {k: 0 for k in COUNTED}
-    want["G"] = 32 * (n + 1)
+    prof = None
+    if graph:
+        prof = profiled([functools.partial(rast.render_async, c)
+                         for c in cams], "raster main path, replays",
+                        RASTER_RANGES, per_frame)
+    launches = {k: f.launches for k, f in COUNTED.items()}
+    host_frames = 2 * (len(rast.graphs) > held) if graph else n + 1
+    res = dict(frames=n, path="graph" if graph else "eager",
+               warmup_s=warm_s, frame_ms=float(np.mean(frame_ms)),
+               frame_ms_each=frame_ms, host_enqueue_ms=float(np.mean(host)),
+               wall_ms_per_frame=wall_s * 1e3 / n, peak_mem_gb=peak,
+               launches=prof["launches"] if graph else launches,
+               host_launches=launches, profile=prof)
+    want = {k: per_frame.get(k, 0) * host_frames for k in COUNTED}
     if launches != want:
-        raise AssertionError(f"raster main path: expected launches {want}, "
-                             f"got {launches}")
+        raise AssertionError(f"raster main path: expected launches on the "
+                             f"host {want}, got {launches}")
     cam0 = cams[0]
     setup_ms = cuda_ms(lambda: edge.build_raster_setup(
         rast.backend.tree,
@@ -1498,15 +1660,17 @@ def drive_raster(rast, cams) -> tuple:
         torch.as_tensor(cam0.projection_matrix, device=rast.device),
         rast.cfg.width, rast.cfg.height), 5)
     res.update(setup_ms=setup_ms, setup_share=setup_ms / res["frame_ms"])
-    log("  raster main path:", json.dumps(res))
-    for fb in [first] + outs:
+    log("  raster main path:", json.dumps({k: v for k, v in res.items()
+                                           if k != "profile"}))
+    outs = [first] + outs
+    for fb in outs:
         if fb.shape != (rast.cfg.height, rast.cfg.width, 3):
             raise AssertionError(f"raster frame shape {tuple(fb.shape)}")
         if not bool(torch.isfinite(fb).all()):
             raise AssertionError("raster frame is not finite")
         if fb.std().item() < 0.01:
             raise AssertionError("raster frame is flat")
-    return res, first
+    return res, outs
 
 
 def wavefront_vs_edge(rast, cam, edge_fb) -> float:
@@ -1886,20 +2050,28 @@ def rot_y(angle: float) -> np.ndarray:
                     np.float32)
 
 
-def config5_modes(base: Renderer, cams) -> dict:
+def config5_tfs(n: int) -> list:
+    """The config-5 frames' instance transforms: a y-rotation of 0.01 rad
+    more every frame."""
+    return [rot_y(0.01 * k) for k in range(n)]
+
+
+def config5_modes(base: Renderer, cams) -> tuple:
     """Phase 16: config 5 at full width on the full scene, per rebuild
-    mode: a warm-up frame + CONFIG5_FRAMES timed frames under a y-rotation
-    of 0.01 rad more every frame, then the accel update alone (CUDA
+    mode: a warm-up frame + CONFIG5_FRAMES timed frames under the
+    growing rotation (`config5_tfs`), then the accel update alone (CUDA
     events around Renderer.update_tree, mean of 5, and the host's time to
-    enqueue one). `base` lends its scene, heap and host-built tree."""
+    enqueue one). `base` lends its scene, heap and host-built tree, and
+    its path (eager: these frames are phase 26's references). Returns
+    ({mode: results}, {mode: frames})."""
     cfg = C.config5_stress()
-    tfs = [rot_y(0.01 * k) for k in range(len(cams))]
-    per_frame = dict(A=4, B=4, C=3, D=3, E=3, F=3)
-    res = {}
+    tfs = config5_tfs(len(cams))
+    res, frames = {}, {}
     for mode in REBUILD_MODES:
         r = copy.copy(base)
         r.cfg, r.rebuild = cfg, mode
-        out, _ = drive(r, cams, per_frame, f"config 5, rebuild={mode}", tfs)
+        out, frames[mode] = drive(r, cams, CONFIG5_LAUNCHES,
+                                  f"config 5, rebuild={mode}", tfs)
         m = rot_y(0.02)
         out["update_ms"] = cuda_ms(lambda: r.update_tree(m), 5)
         torch.cuda.synchronize()
@@ -1914,7 +2086,7 @@ def config5_modes(base: Renderer, cams) -> dict:
             f"{out['update_ms']:.3f} ms ({out['update_share']:.1%} of the "
             f"frame; host enqueue {out['update_enqueue_ms']:.1f} ms)")
         res[mode] = out
-    return res
+    return res, frames
 
 
 def tree_area(tree) -> float:
@@ -2006,7 +2178,8 @@ def config5_gates(base: Renderer, cam: Camera, dev) -> dict:
                 small_cam.proj_inverse, small_cam.view_inverse, small_cfg,
                 accel="brute")
         err = rmse(fb, golden)
-        log(f"  64x48 depth-4 frame under rot_y(0.05), rebuild={mode}, vs "
+        log(f"  64x48 depth-4 frame under rot_y(0.05), rebuild={mode} "
+            f"({'graph' if sr.captured() else 'eager'}), vs "
             f"oracle: rmse {err:.3e} (bar {GOLDEN_RMSE}), rays {rays}")
         out[f"golden_{mode}"] = err
         if not (np.isfinite(fb).all() and err <= GOLDEN_RMSE):
@@ -2050,6 +2223,40 @@ def read_counts(label: str, want: dict) -> dict:
     return got
 
 
+@contextlib.contextmanager
+def measured(label: str, per_frame: dict, frames: int, graph: bool,
+             captures: int = 1):
+    """A run of `frames` frames of per_frame's launches, counted on the
+    card (torch.profiler, graphs.kernel_launches: replays included) and
+    on the host (every count set to 0 just before and read just after).
+    Eager, both must be per_frame[k] a frame. On graphs, with `captures`
+    of the frames captured in the run: the card runs per_frame[k] a frame
+    and once more a capture (its warm-up), and the host counts
+    per_frame[k] twice a capture (warm-up and capture) and nothing for a
+    replay. Yields a dict that gets `card` and `host`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    torch.cuda.synchronize()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield out
+        torch.cuda.synchronize()
+    on_card = graphs.kernel_launches(prof.key_averages())
+    out.update(card={k: on_card[name] for k, name in ON_CARD.items()},
+               host={k: f.launches for k, f in COUNTED.items()})
+    card_frames = frames + captures if graph else frames
+    host_frames = 2 * captures if graph else frames
+    want = dict(card={k: per_frame.get(k, 0) * card_frames for k in ON_CARD},
+                host={k: per_frame.get(k, 0) * host_frames for k in COUNTED})
+    log(f"  {label} ({'graph' if graph else 'eager'}): launches on the "
+        f"card {json.dumps(out['card'])}, on the host "
+        f"{json.dumps({k: v for k, v in out['host'].items() if v})}")
+    if out != want:
+        raise AssertionError(f"{label}: expected launches {want}, got {out}")
+
+
 def run_cli(main_fn, argv, model) -> tuple:
     """main_fn(argv, scene=model) with its standard output and error
     captured (the CLI's metrics JSON, its per-frame lines); returns (exit
@@ -2075,27 +2282,49 @@ def read_png(path) -> np.ndarray:
         return np.asarray(im)
 
 
+def cli_steady(model, png: Path, event_ms: float, label: str) -> dict:
+    """The CLI's pipelined CLI_STEADY_FRAMES-frame config-4 run (3 in
+    flight), its last frame written to `png`: the steady wall ms a frame
+    (retirements 5 to CLI_STEADY_FRAMES - 3) and Mrays/s."""
+    argv = ["--config", "4", "--frames", str(CLI_STEADY_FRAMES), "--metrics",
+            "--output", str(png)]
+    rc, lines, errs, wall_s = run_cli(cli.main, argv, model)
+    walls = frame_walls(errs)
+    steady = walls[4:-3]
+    rays = json.loads(lines[-1])["total_rays"] / len(walls)
+    log(f"  {CLI_STEADY_FRAMES} frames ({label}): exit {rc}, {wall_s:.1f} s "
+        f"with setup; FrameTimer {lines[-1]}; steady (retirements 5 to "
+        f"{len(walls) - 3}): {np.mean(steady):.3f} ms a frame (wall), "
+        f"{rays / np.mean(steady) / 1e3:.1f} Mrays/s; phase 7's CUDA-event "
+        f"frame {event_ms:.3f} ms")
+    if rc != 0 or len(walls) != CLI_STEADY_FRAMES:
+        raise AssertionError(f"CLI steady fly-through ({label}) failed")
+    return dict(steady_wall_ms=float(np.mean(steady)),
+                mrays_per_s=rays / np.mean(steady) / 1e3, setup_s=wall_s)
+
+
 def cli_rt(model, tmp: Path, event_ms: float, dev):
     """Phase 19: the CLI's pipelined fly-through at config 4, 1920x1080,
-    on the card. Returns the synchronous Renderer it was checked with."""
+    on the card, on its default path (a CUDA graph a frame: the CLI has
+    no flag for it). Returns the synchronous eager Renderer it was
+    checked with and the steady run's numbers."""
     png, ckpt = tmp / "cli_rt.png", tmp / "cli_rt.json"
     argv = ["--config", "4", "--frames", str(CLI_FRAMES), "--metrics",
             "--output", str(png), "--checkpoint", str(ckpt)]
-    zero_counts()
-    rc, lines, errs, wall_s = run_cli(cli.main, argv, model)
-    read_counts("CLI fly-through", {k: n * CLI_FRAMES for k, n in
-                                    dict(A=2, B=2, C=1, D=1, E=1,
-                                         F=1).items()})
+    with measured("CLI fly-through", CONFIG4_LAUNCHES, CLI_FRAMES,
+                  graph=True):
+        rc, lines, errs, wall_s = run_cli(cli.main, argv, model)
     summary = json.loads(lines[-1])
     cfg = C.config4_flythrough()
     cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
                                  CLI_FRAMES))
-    sync = Renderer(model, cfg, dev, quantize=True)
+    sync = Renderer(model, cfg, dev, quantize=True, graph=False)
     want, rays = sync.render(cams[-1])
     got = read_png(png)
     _, ck_cam, ck_frame, _ = load_state(str(ckpt))
     diff = int((got != want).any(axis=-1).sum())
-    log(f"  exit {rc}, {wall_s:.1f} s with setup; FrameTimer (wall clock "
+    log(f"  path: graph (the CLI's default); exit {rc}, {wall_s:.1f} s with "
+        f"setup; FrameTimer (wall clock "
         f"between retired frames: device, u8 download and host work): "
         f"{json.dumps(summary)}; per frame {frame_walls(errs)}")
     log(f"  last frame vs Renderer.render of camera {CLI_FRAMES - 1}: "
@@ -2106,19 +2335,9 @@ def cli_rt(model, tmp: Path, event_ms: float, dev):
             CLI_FRAMES or summary["total_rays"] <= 0 or not np.array_equal(
                 ck_cam.view_matrix, cams[-1].view_matrix):
         raise AssertionError("CLI fly-through failed its checks")
-    argv = ["--config", "4", "--frames", str(CLI_STEADY_FRAMES), "--metrics"]
-    rc, lines, errs, wall_s = run_cli(cli.main, argv, model)
-    walls = frame_walls(errs)
-    steady = walls[4:-3]
-    rays = json.loads(lines[-1])["total_rays"] / len(walls)
-    log(f"  {CLI_STEADY_FRAMES} frames: exit {rc}, {wall_s:.1f} s with "
-        f"setup; FrameTimer {lines[-1]}; steady (retirements 5 to "
-        f"{len(walls) - 3}): {np.mean(steady):.3f} ms a frame (wall), "
-        f"{rays / np.mean(steady) / 1e3:.1f} Mrays/s; phase 7's CUDA-event "
-        f"frame {event_ms:.3f} ms")
-    if rc != 0 or len(walls) != CLI_STEADY_FRAMES:
-        raise AssertionError("CLI steady fly-through failed")
-    return sync
+    steady = cli_steady(model, tmp / "cli_steady_graph.png", event_ms,
+                        "graph")
+    return sync, {**steady, "frame": read_png(tmp / "cli_steady_graph.png")}
 
 
 def cli_raster(model, rast, tmp: Path) -> None:
@@ -2126,10 +2345,9 @@ def cli_raster(model, rast, tmp: Path) -> None:
     equal to Rasterizer.render_async of the start camera outside the FPS
     text (its pixels change with the measured rate)."""
     png = tmp / "cli_raster.png"
-    zero_counts()
-    rc, _, _, wall_s = run_cli(cli.main, ["--raster", "--frames", "1",
-                                          "--output", str(png)], model)
-    read_counts("CLI raster", {"G": 32})
+    with measured("CLI raster", {"G": 32}, 1, graph=True):
+        rc, _, _, wall_s = run_cli(cli.main, ["--raster", "--frames", "1",
+                                              "--output", str(png)], model)
     cfg = rast.cfg
     want = to_unorm8(rast.render_async(
         start_camera(cfg.width, cfg.height)).cpu().numpy())
@@ -2264,18 +2482,21 @@ def mip_lod(sync, cams, event_ms: float, dev) -> None:
 
 
 def time_frames(render, mats, label: str, per_frame: dict,
-                want=None) -> tuple:
-    """Phase 23: `render(m)` for the camera matrices m of each of `mats`,
-    the first as a warm-up, the rest enqueued back to back: the host's
-    enqueue ms of each call (perf_counter, no wait) and the device's ms
-    between CUDA events recorded after each, which the host's pace bounds
-    from below. The launch counts are zeroed before and read after:
-    per_frame[k] times the number of frames. Every (frame, ray grid) must
-    torch.equal want's (unless None). Then each frame once more from an
-    idle stream (the host's enqueue ms with the card's launch queue empty
-    at the start: a queue held full stops the host at its depth) and two
-    frames under torch.profiler (the device's busy ms a frame, alone).
-    Returns (results, outputs)."""
+                want=None, graph: bool = False) -> tuple:
+    """Phases 23 and 26: `render(m)` for the camera matrices m of each of
+    `mats`, the first as a warm-up (on graphs: the capture), the rest
+    enqueued back to back: the host's enqueue ms of each call
+    (perf_counter, no wait) and the device's ms between CUDA events
+    recorded after each, which the host's pace bounds from below. The
+    launch counts are zeroed before and read after: per_frame[k] times
+    the number of frames eagerly, per_frame[k] twice (the warm-up and the
+    capture) on graphs. Every (frame, ray grid) must torch.equal want's
+    (unless None). Then each frame once more from an idle stream (the
+    host's enqueue ms with the card's launch queue empty at the start: a
+    queue held full stops the host at its depth) and two frames under
+    torch.profiler (the device's busy ms a frame, alone, and each
+    kernel's launches on the card: per_frame[k] a frame). Returns
+    (results, outputs)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
@@ -2290,7 +2511,7 @@ def time_frames(render, mats, label: str, per_frame: dict,
         host.append((time.perf_counter() - t0) * 1e3)
         events[i + 1].record()
     torch.cuda.synchronize()
-    launches = read_counts(label, {k: n * len(mats)
+    launches = read_counts(label, {k: n * (2 if graph else len(mats))
                                    for k, n in per_frame.items()})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     differ = [] if want is None else [
@@ -2304,8 +2525,9 @@ def time_frames(render, mats, label: str, per_frame: dict,
         render(m)
         idle.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    prof = profile_frames(lambda: render(mats[1]), label)
-    res = dict(frames=len(mats) - 1,
+    prof = profile_frames(lambda: render(mats[1]), label,
+                          per_frame=per_frame)
+    res = dict(frames=len(mats) - 1, path="graph" if graph else "eager",
                device_ms=float(np.mean([events[i].elapsed_time(
                    events[i + 1]) for i in range(len(mats) - 1)])),
                host_enqueue_ms=float(np.mean(host)),
@@ -2314,7 +2536,7 @@ def time_frames(render, mats, label: str, per_frame: dict,
                device_busy_ms=prof["device_busy_ms_per_frame"],
                busy_share_profiled=prof["busy_share"],
                peak_mem_gb=peak, launches=launches,
-               frames_equal=not differ)
+               card_launches=prof["launches"], frames_equal=not differ)
     log(f"  {label}:", json.dumps(res))
     if differ:
         raise AssertionError(f"{label}: (frame, pixels, rays) that differ "
@@ -2325,15 +2547,18 @@ def time_frames(render, mats, label: str, per_frame: dict,
 def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
     """Phase 23: multi-device rendering (parallel/mesh.py) on logical
     shards of the one card. Config 4 at 1920x1080 through
-    render_frame_sharded on make_mesh() and on [card] * k, frames and ray
-    grids bit-equal to render_frame's on the same cameras; the raster
-    frame at 1600x1200, MSAA 8, sharded, bit-equal to
-    render_raster_frame_edge's; the dry run; the CLI's --shard."""
+    render_frame_sharded on make_mesh() and on [card] * k, eagerly
+    (graph=False: phase 26 runs them as graphs), frames and ray grids
+    bit-equal to render_frame's on the same cameras; the raster frame at
+    1600x1200, MSAA 8, sharded, eagerly, bit-equal to
+    render_raster_frame_edge's; the dry run and the CLI's --shard on
+    their default path (graphs). Returns the results, with the cameras
+    and the unsharded frames for phase 26."""
     cfg = sync.cfg
     mats = [(engine.upload_matrix(c.proj_inverse, dev),
              engine.upload_matrix(c.view_inverse, dev))
             for c in cams[:SHARD_FRAMES + 1]]
-    one, want = time_frames(
+    one, frames4 = time_frames(
         lambda m: engine.render_frame(sync.backend, sync.tex, *m,
                                       sync.lights, cfg),
         mats, "unsharded render_frame", CONFIG4_LAUNCHES)
@@ -2346,12 +2571,12 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
         res, _ = time_frames(
             lambda m: render_frame_sharded(sync.backend, sync.tex, *m,
                                            sync.lights, cfg, mesh,
-                                           replicas=reps),
-            mats, f"sharded, {name} ({n} shards)",
-            {key: c * n for key, c in CONFIG4_LAUNCHES.items()}, want)
+                                           replicas=reps, graph=False),
+            mats, f"sharded, eager, {name} ({n} shards)",
+            {key: c * n for key, c in CONFIG4_LAUNCHES.items()}, frames4)
         rows.append(dict(shards=n, **{key: res[key] for key in SHARD_KEYS}))
-    del want
-    log("  config 4, 1920x1080, ms per frame (" + runtime.nvidia_smi_line()
+    log("  config 4, 1920x1080, ms per frame, eager (" +
+        runtime.nvidia_smi_line()
         + "): unsharded " + json.dumps({key: one[key] for key in SHARD_KEYS})
         + f", phase 7 {event_ms:.3f}; sharded "
         + json.dumps(rows))
@@ -2374,7 +2599,7 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
         start.record()
         t0 = time.perf_counter()
         got = render_raster_frame_sharded(tree, sync.tex, view, proj, rcfg,
-                                          mesh, msaa=8)
+                                          mesh, msaa=8, graph=False)
         host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         torch.cuda.synchronize()
@@ -2386,21 +2611,29 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
             raise AssertionError(
                 f"raster, {k} shards: {int((got != want).any(dim=-1).sum())}"
                 " pixels differ from the unsharded frame")
-    del want, got
-    log("  raster 1600x1200, msaa 8, one frame (start camera):",
+    del got
+    log("  raster 1600x1200, msaa 8, one frame (start camera, eager):",
         json.dumps(raster))
 
+    mesh = make_mesh([dev] * 4)
+    with measured("raster, 4 shards, graph", {"G": 32 * 4}, 1, graph=True):
+        got = render_raster_frame_sharded(tree, sync.tex, view, proj, rcfg,
+                                          mesh, msaa=8,
+                                          replicas=replicate(sync.tex, mesh))
+    if not torch.equal(got, want):
+        raise AssertionError("raster, 4 shards, graph: the frame differs "
+                             "from the unsharded frame")
+    del want, got
     t0 = time.perf_counter()
     dryrun_multichip(4, "cuda")
-    log(f"  dry run on [card] * 4: {time.perf_counter() - t0:.1f} s")
+    log(f"  dry run on [card] * 4 (graphs but the reference backend and "
+        f"recheck): {time.perf_counter() - t0:.1f} s")
 
     png = tmp / "cli_shard.png"
     argv = ["--config", "4", "--shard", "--frames", "2", "--output",
             str(png)]
-    zero_counts()
-    rc, _, errs, wall_s = run_cli(cli.main, argv, model)
-    read_counts("CLI --shard", {k: n * 2 for k, n in
-                                CONFIG4_LAUNCHES.items()})
+    with measured("CLI --shard", CONFIG4_LAUNCHES, 2, graph=True):
+        rc, _, errs, wall_s = run_cli(cli.main, argv, model)
     want, _ = sync.render(cams[1])
     diff = int((read_png(png) != want).any(axis=-1).sum())
     log(f"  CLI {' '.join(argv[:-1])}: exit {rc}, {wall_s:.1f} s with "
@@ -2416,7 +2649,8 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
             f"ValueError: {e}")
     else:
         raise AssertionError("CLI --shard 2 did not raise on one card")
-    return dict(unsharded=one, sharded=rows, raster=raster)
+    return dict(unsharded=one, sharded=rows, raster=raster, mats=mats,
+                frames=frames4)
 
 
 # --- phase 24: the secondary-dispatch options ---------------------------
@@ -3043,6 +3277,131 @@ def item15_modes(renderer: Renderer, cam: Camera, bounds) -> dict:
     return dict(rows=rows, launches=launches, stats=stats, ref=ref)
 
 
+# --- phase 26: the frames as CUDA graphs ---------------------------------
+GRAPH_KEYS = ("device_ms", "host_enqueue_ms", "busy_share", "device_busy_ms",
+              "peak_mem_gb", "capture_ms")
+
+
+def graph_row(res: dict, prof: dict, frame_graphs=None) -> dict:
+    """One side of phase 26's table: device ms a frame (CUDA events back
+    to back), host enqueue ms a frame, the profiled busy share and busy
+    ms, peak memory and, for the graph side, the capture ms (warm-up and
+    capture of every graph held) and the memory the card holds reserved."""
+    row = dict(device_ms=res.get("frame_ms", res.get("device_ms")),
+               host_enqueue_ms=res["host_enqueue_ms"],
+               busy_share=prof.get("busy_share", prof.get("busy_share_profiled")),
+               device_busy_ms=prof.get("device_busy_ms_per_frame",
+                                       prof.get("device_busy_ms")),
+               peak_mem_gb=res["peak_mem_gb"])
+    if frame_graphs is not None:
+        row.update(capture_ms=sum(frame_graphs.capture_ms().values()),
+                   graphs=len(frame_graphs),
+                   reserved_gb=torch.cuda.memory_reserved() / 2 ** 30)
+    return row
+
+
+def same_raster(outs, want, label: str) -> None:
+    """Raster frames torch.equal, camera by camera."""
+    differ = [i for i, (a, b) in enumerate(zip(outs, want))
+              if not torch.equal(a, b)]
+    log(f"  {label}: frames that differ from the eager frames {differ}")
+    if differ or len(outs) != len(want):
+        raise AssertionError(f"{label}: frames {differ} differ")
+
+
+def graph_frames(model, sync, rast, cams, rcams, ref: dict, dev,
+                 tmp: Path) -> dict:
+    """Phase 26: the frames of phases 7, 16, 12, 23 and 19 on the default
+    path, a CUDA graph per static key replayed a frame (graphs.py), side
+    by side with the eager runs of those phases (`ref`): config 4 (1 +
+    N_FRAMES poses), config 5 in each rebuild mode under the growing
+    rotation, the raster frame (1600x1200, MSAA 8), render_frame_sharded
+    on [card] * k, then the CLI's 40-frame run eagerly beside phase 19's
+    (graphs). Every frame and ray count torch.equal to the eager one of
+    the same camera, the launches a frame as those phases gate them
+    (`drive`, `time_frames`: on the card by torch.profiler, replays
+    included; on the host the captures alone), device ms, host enqueue
+    ms, the profiled busy share (replays show no ranges), capture ms and
+    peak memory; each renderer's graphs are freed after its part. Returns
+    the table and the launches on the card of the config-4 and raster
+    runs (the default path of phases 7 and 12: the kernels' line)."""
+    rows = {}
+    cam = start_camera(sync.cfg.width, sync.cfg.height)
+    g = graphed(sync)
+    res, outs = drive(g, cams, CONFIG4_LAUNCHES, "graph: config 4")
+    launches = dict(config4=res["launches"])
+    same_frames(outs, ref["config4_outs"], "graph: config 4")
+    prof = profile_frames(lambda: g.render_async(cam), "graph: config 4")
+    rows["config 4"] = dict(eager=graph_row(ref["config4"],
+                                            ref["config4_prof"]),
+                            graph=graph_row(res, prof, g.graphs))
+    g.free_graphs()
+    del outs
+    c5cams = cams[:CONFIG5_FRAMES + 1]
+    for mode in REBUILD_MODES:
+        g = graphed(sync)
+        g.cfg, g.rebuild = C.config5_stress(), mode
+        res, outs = drive(g, c5cams, CONFIG5_LAUNCHES,
+                          f"graph: config 5, rebuild={mode}",
+                          config5_tfs(len(c5cams)))
+        same_frames(outs, ref["config5_outs"][mode],
+                    f"graph: config 5, {mode}")
+        prof = profile_frames(lambda: g.render_async(cam),
+                              f"graph: config 5, {mode}")
+        rows[f"config 5 {mode}"] = dict(
+            eager=graph_row(ref["config5"][mode], ref["config5_prof"][mode]),
+            graph=graph_row(res, prof, g.graphs))
+        g.free_graphs()
+        del outs
+    g = graphed(rast)
+    res, outs = drive_raster(g, rcams)
+    launches.update(raster=res["launches"])
+    same_raster(outs, ref["raster_outs"], "graph: raster")
+    prof = profile_frames(lambda: g.render_async(rcams[0]), "graph: raster",
+                          RASTER_RANGES)
+    rows["raster"] = dict(eager=graph_row(ref["raster"], ref["raster_prof"]),
+                          graph=graph_row(res, prof, g.graphs))
+    g.free_graphs()
+    del outs, g
+    sh = ref["sharded"]
+    shard_rows = []
+    for k, eager_row in zip((1,) + SHARDS, sh["sharded"]):
+        mesh = make_mesh([dev] * k)
+        reps = replicate((sync.backend, sync.tex, sync.lights), mesh)
+        res, _ = time_frames(
+            lambda m: render_frame_sharded(sync.backend, sync.tex, *m,
+                                           sync.lights, sync.cfg, mesh,
+                                           replicas=reps),
+            sh["mats"], f"sharded, graph, [card] * {k} ({k} shards)",
+            {key: c * k for key, c in CONFIG4_LAUNCHES.items()},
+            sh["frames"], graph=True)
+        shard_rows.append(dict(shards=k, **{key: res[key]
+                                            for key in SHARD_KEYS},
+                               capture_ms=sum(reps.graphs.capture_ms()
+                                              .values())))
+        rows[f"sharded k={k}"] = dict(eager=graph_row(eager_row, eager_row),
+                                      graph=graph_row(res, res, reps.graphs))
+        del reps
+    log("  config 4, 1920x1080, ms per frame, graphs (" +
+        runtime.nvidia_smi_line() + "): sharded " + json.dumps(shard_rows))
+    with eager_cli():
+        cli_eager = cli_steady(model, tmp / "cli_steady_eager.png",
+                               ref["config4"]["frame_ms"], "eager")
+    same = bool(np.array_equal(read_png(tmp / "cli_steady_eager.png"),
+                               ref["cli"]["frame"]))
+    rows["CLI 40 frames"] = {
+        "eager": {k: v for k, v in cli_eager.items()},
+        "graph": {k: v for k, v in ref["cli"].items() if k != "frame"},
+        "last_frames_equal": same}
+    if not same:
+        raise AssertionError("CLI: the eager run's last frame differs from "
+                             "the graph run's")
+    log(f"  graph vs eager, a frame ({runtime.nvidia_smi_line()}):")
+    for name, row in rows.items():
+        log(f"    {name}: {json.dumps(row)}")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -3069,7 +3428,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cfg = C.config4_flythrough()
     model = procedural_model("full", seed=SEED)
-    renderer = Renderer(model, cfg, dev, quantize=True)
+    # eager (graph=False), and so every copy of it: phases 7, 9, 14, 16-18,
+    # 24 and 25 record kernel inputs or time ranges; phase 26 replays the
+    # same frames as graphs (graphed() copies it onto the default path)
+    renderer = Renderer(model, cfg, dev, quantize=True, graph=False)
     torch.cuda.synchronize()
     tree = renderer.backend.tree
     log(f"  {model.num_triangles} triangles, {len(model.submeshes)} "
@@ -3098,17 +3460,19 @@ def main() -> int:
 
     cams = list(itertools.islice(camera_path(cfg.width, cfg.height),
                                  N_FRAMES + 1))
-    log("== 7. main path: config 4 at the shipped defaults")
-    res_main, outs = drive(renderer, cams, dict(A=2, B=2, C=1, D=1, E=1, F=1),
+    log("== 7. main path: config 4 at the shipped defaults (eager)")
+    res_main, outs = drive(renderer, cams, CONFIG4_LAUNCHES,
                            "main path (defaults)")
 
-    log("== 8. config 4 with the reorder flags off, same cameras")
-    off = copy.copy(renderer)
+    log("== 8. config 4 with the reorder flags off, same cameras (graphs)")
+    off = graphed(renderer)
     off.cfg = dataclasses.replace(cfg, **REORDER_OFF)
     res_off, outs_off = drive(off, cams, dict(A=2, B=2), "flags off")
     same_frames(outs_off, outs)
+    off.free_graphs()
+    off.graph = False            # the profile below reads per-range tables
     first_outs = outs[:PER_LIGHT_FRAMES + 1]
-    del outs, outs_off
+    del outs_off
     log(f"  ms/frame: defaults {res_main['frame_ms']:.3f}, flags off "
         f"{res_off['frame_ms']:.3f}")
 
@@ -3118,7 +3482,8 @@ def main() -> int:
 
     log(f"== profile: {PROFILE_FRAMES} main-path frames, then "
         f"{PROFILE_FRAMES} flags-off frames")
-    profile_frames(lambda: renderer.render_async(cam), "defaults")
+    prof_main = profile_frames(lambda: renderer.render_async(cam),
+                               "defaults")
     profile_frames(lambda: off.render_async(cam), "flags off")
 
     log("== 14. kernel A' vs plain on probes")
@@ -3126,15 +3491,17 @@ def main() -> int:
                                             sd, st)
     probe_err["A"] = max(probe_err["A"], err_a)
 
-    log("== 15. config 4 with the per-light shadow dispatch (kernel A')")
-    pl = copy.copy(renderer)
+    log("== 15. config 4 with the per-light shadow dispatch (kernel A'), "
+        "as CUDA graphs")
+    pl = graphed(renderer)
     pl.backend = renderer.backend._replace(per_light=True)
     pl_cams = cams[:PER_LIGHT_FRAMES + 1]
     res_pl, outs_pl = drive(pl, pl_cams, {"A": 2, "A'": 8, "C": 1, "D": 1,
                                           "E": 1, "F": 1},
                             "per-light main path")
     same_frames(outs_pl, first_outs, "per-light")
-    del outs_pl, first_outs
+    pl.free_graphs()
+    del outs_pl, first_outs, pl
     log(f"  ms/frame: per light {res_pl['frame_ms']:.3f}, defaults "
         f"{res_main['frame_ms']:.3f}")
     res_15 = per_light_shapes(renderer, cam)
@@ -3144,14 +3511,14 @@ def main() -> int:
         f"{sum(r['b_ms'] for r in res_15):.3f} ms in {len(res_15)}")
 
     log("== 16. config 5 at 1920x1080: refit, full (device SAH), full_morton")
-    res_16 = config5_modes(renderer, cams[:CONFIG5_FRAMES + 1])
+    res_16, frames_16 = config5_modes(renderer, cams[:CONFIG5_FRAMES + 1])
     log(f"== profile: {PROFILE_FRAMES} config-5 frames per rebuild mode")
-    r5s = {}
+    r5s, prof_16 = {}, {}
     for mode in REBUILD_MODES:
         r5s[mode] = r5 = copy.copy(renderer)
         r5.cfg, r5.rebuild = C.config5_stress(), mode
-        profile_frames(lambda: r5.render_async(cam), f"config 5, {mode}",
-                       CONFIG5_RANGES)
+        prof_16[mode] = profile_frames(lambda: r5.render_async(cam),
+                                       f"config 5, {mode}", CONFIG5_RANGES)
         event_ranges(r5, cam, f"config 5, {mode}", rot_y(0.02))
 
     log("== 17. config-5 gates")
@@ -3195,17 +3562,16 @@ def main() -> int:
     del renderer, off
     t0 = time.perf_counter()
     rcfg = C.reference_config()
-    rast = rp.Rasterizer(model, rcfg, dev, msaa=8)
+    rast = rp.Rasterizer(model, rcfg, dev, msaa=8, graph=False)
     log(f"  setup {time.perf_counter() - t0:.1f} s")
     rcams = list(itertools.islice(camera_path(rcfg.width, rcfg.height),
                                   RASTER_FRAMES + 1))
-    res_raster, first = drive_raster(rast, rcams)
-    wavefront_vs_edge(rast, rcams[0], first)
-    del first
+    res_raster, raster_outs = drive_raster(rast, rcams)
+    wavefront_vs_edge(rast, rcams[0], raster_outs[0])
     wall_pose_frame(rast)
     log(f"== profile: {PROFILE_FRAMES} raster frames")
-    profile_frames(lambda: rast.render_async(rcams[0]), "raster",
-                   RASTER_RANGES)
+    prof_raster = profile_frames(lambda: rast.render_async(rcams[0]),
+                                 "raster", RASTER_RANGES)
 
     log("== 13. kernel G at the main path's shapes")
     res_13 = raster_shapes(rast, rcams[0])
@@ -3216,10 +3582,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         log(f"== 19. CLI: config 4 fly-through, {CLI_FRAMES} frames at "
             "1920x1080, 3 in flight")
-        sync = cli_rt(model, Path(tmp), res_main["frame_ms"], dev)
+        sync, cli_graph = cli_rt(model, Path(tmp), res_main["frame_ms"],
+                                 dev)
         log("== 19b. CLI: raster, one frame at 1600x1200, msaa 8")
         cli_raster(model, rast, Path(tmp))
-    del rast
     log("== 20. golden gate: 640x480 reference frame vs the native oracle")
     golden_gate(model, sync, dev)
     log("== 21. reference backend at 320x240 vs dense")
@@ -3231,15 +3597,28 @@ def main() -> int:
         "logical shards of the card, the dry run, the CLI's --shard")
     t_new = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        sharded(model, sync, cams, res_main["frame_ms"], dev, Path(tmp))
-    del sync
+        res_23 = sharded(model, sync, cams, res_main["frame_ms"], dev,
+                         Path(tmp))
     log(f"  phase 23: {time.perf_counter() - t_new:.1f} s")
+    log("== 26. graphs: configs 4 and 5, the raster frame, sharded frames "
+        "and the CLI, each as a CUDA graph a frame, beside the eager runs")
+    t_new = time.perf_counter()
+    ref = dict(config4=res_main, config4_outs=outs, config4_prof=prof_main,
+               config5=res_16, config5_outs=frames_16, config5_prof=prof_16,
+               raster=res_raster, raster_outs=raster_outs,
+               raster_prof=prof_raster, sharded=res_23, cli=cli_graph)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        _, main_launches = graph_frames(model, sync, rast, cams, rcams, ref,
+                                        dev, Path(tmp))
+    del sync, rast, ref, outs, frames_16, raster_outs, res_23
+    log(f"  phase 26: {time.perf_counter() - t_new:.1f} s")
 
     def entry(name, k, src, replaces):
         rows = res_9[k]
         lib_ms = [r.get("library_ms") for r in rows]
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": res_main["launches"][k],
+                "replaces": replaces,
+                "launches": main_launches["config4"][k],
                 "max_abs_err": max(
                     [probe_err[k]] + [r["max_abs_err"] for r in rows]
                     + [r["max_abs_err"] for m in res_18.values()
@@ -3254,7 +3633,7 @@ def main() -> int:
     g = {"name": "raster_edge", "route": "cuda",
          "source": "vkrt_tpu_torch/csrc/raster_edge.cu",
          "replaces": "vkrt_tpu/raster/edge.py:204",
-         "launches": res_raster["launches"]["G"],
+         "launches": main_launches["raster"]["G"],
          "max_abs_err": max(probe_err["G"], res_13["max_abs_err"]),
          "ms": res_13["ms_sample0"], "plain_ms": res_13["plain_ms_sample0"],
          "bound_ms": res_13["bound_sample0"]["bound_ms"],

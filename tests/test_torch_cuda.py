@@ -16,6 +16,7 @@ exactly. Imports no JAX, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import copy
 import dataclasses
 
 import numpy as np
@@ -25,13 +26,16 @@ import torch
 from chip_smoke import (adversarial_keys, duplicate_triangle, tie_slots,
                         tie_tree)
 from vkrt_tpu_torch import config as C
+from vkrt_tpu_torch import graphs
+from vkrt_tpu_torch.accel import clusters
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.app import cli
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.app.flythrough import camera_path
 from vkrt_tpu_torch.app.framebuffer import rmse
 from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
-                                          render_raster_frame_sharded)
+                                          render_raster_frame_sharded,
+                                          replicate)
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster.pipeline import (MSAA8, Rasterizer,
                                             render_raster_frame_edge,
@@ -85,6 +89,37 @@ def start_camera():
     cam.set_position(C.CAMERA_START_POSITION)
     cam.set_rotation(C.CAMERA_START_ROTATION)
     return cam
+
+
+WRAPPERS = {"trace_closest": dense.trace_dense,
+            "trace_occluded": dense.trace_occluded,
+            "occl_multi": occluded_multi, "consolidate": pack.consolidate,
+            "scatter_back": pack.scatter_back,
+            "lane_sort": lanesort.lane_sort,
+            "lane_unsort": lanesort.lane_unsort,
+            "raster_edge": edge.raster_edge}
+
+
+def counted(fn):
+    """(fn(), what ran on the card: {kernel: launches} from the profiler's
+    device events, what the wrappers counted on the host: {kernel:
+    launches}), the kernels that launched nothing left out of both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = {k: f.launches for k, f in WRAPPERS.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    card = {k: n for k, n in graphs.kernel_launches(prof.key_averages())
+            .items() if n}
+    host = {k: f.launches - before[k] for k, f in WRAPPERS.items()
+            if f.launches != before[k]}
+    return out, card, host
+
+
+def twice(counts: dict) -> dict:
+    return {k: 2 * n for k, n in counts.items()}
 
 
 def random_rays(card, n=4096, seed=1):
@@ -323,16 +358,17 @@ def test_kernel_f_channels_match_plain(card, block, channels):
 
 def test_shipped_defaults_frame_equals_flags_off_on_card(renderer):
     """The depth>=1 reorder (C-F + group partition) on the card renders
-    the flags-off frame bit for bit, with the same ray count."""
+    the flags-off frame bit for bit, with the same ray count; a frame
+    (a replay, after the capture) runs C, D, E and F once each on the
+    card."""
     cam = start_camera()
     want, want_rays = renderer.render(cam)
     on = Renderer(renderer.model, small_config(), renderer.device)
-    counts = [f.launches for f in (pack.consolidate, pack.scatter_back,
-                                   lanesort.lane_sort, lanesort.lane_unsort)]
-    fb, rays = on.render(cam)
-    after = [f.launches for f in (pack.consolidate, pack.scatter_back,
-                                  lanesort.lane_sort, lanesort.lane_unsort)]
-    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1, 1]
+    on.render(cam)                                   # the capture
+    (fb, rays), card, host = counted(lambda: on.render(cam))
+    assert [card.get(k) for k in ("consolidate", "scatter_back", "lane_sort",
+                                  "lane_unsort")] == [1, 1, 1, 1]
+    assert host == {}
     np.testing.assert_array_equal(fb, want)
     assert rays == want_rays
 
@@ -426,29 +462,76 @@ def test_kernel_g_single_live_pixel(renderer, card):
                        first[1].reshape(-1)[picks[:2]])
 
 
-def test_kernel_g_refuses_a_tree_beyond_its_work_list(card):
-    """More superclusters than the kernel's shared-memory work list
-    holds: the wrapper raises, and no launch is counted."""
-    n_sc = edge.MAX_SUPERCLUSTERS + 1
-    setup = torch.zeros((n_sc * 64, 128, edge.SETUP_W), device=card)
-    scb = torch.zeros((8, n_sc), device=card)
-    clb = torch.zeros((n_sc, 8, 64), device=card)
+@pytest.mark.parametrize("chunk", [0, edge.SC_CHUNK + 1])
+def test_kernel_g_refuses_a_chunk_it_does_not_take(card, chunk):
+    """A work-list chunk outside 1 to SC_CHUNK superclusters: the wrapper
+    raises, and no launch is counted."""
+    setup = torch.zeros((64, 128, edge.SETUP_W), device=card)
+    scb = torch.zeros((8, 128), device=card)
+    clb = torch.zeros((1, 8, 64), device=card)
     px = torch.zeros((2, 128), device=card)
     before = edge.raster_edge.launches
-    with pytest.raises(ValueError, match="superclusters"):
-        edge.raster_edge(setup, scb, clb, px, px, px)
+    with pytest.raises(ValueError, match="chunk"):
+        edge.raster_edge(setup, scb, clb, px, px, px, chunk=chunk)
     assert edge.raster_edge.launches == before
 
 
+@pytest.fixture(scope="module")
+def soup(card):
+    """A tree of 5 superclusters (40,960 random triangles, 0.2-0.6 across,
+    scattered 3-20 units in front of the start camera, so surfaces of
+    every supercluster overlap in depth), Morton-ordered on the card, and
+    the 160x120 sample lanes at the pixel centres."""
+    rng = np.random.default_rng(7)
+    n = 5 * 64 * 128
+    cam = Camera(160, 120)
+    cam.set_position(C.CAMERA_START_POSITION)
+    cam.set_rotation(C.CAMERA_START_ROTATION)
+    p = np.stack([rng.uniform(-8, 8, n), rng.uniform(-6, 6, n),
+                  rng.uniform(-20, -3, n), np.ones(n)], axis=1)
+    v0 = (p @ np.asarray(cam.view_inverse, np.float64).T)[:, :3]
+    e1, e2 = (rng.uniform(-0.6, 0.6, (n, 3)) for _ in range(2))
+    tree = clusters.build_clusters(
+        *(torch.as_tensor(x, dtype=torch.float32, device=card)
+          for x in (v0, e1, e2)), method="morton")
+    assert tree.num_superclusters == 5
+    setup = edge.build_raster_setup(
+        tree, torch.as_tensor(cam.view_matrix, device=card),
+        torch.as_tensor(cam.projection_matrix, device=card), 160, 120)
+    cfg = dataclasses.replace(C.reference_config(), width=160, height=120)
+    px, py, inside = sample_pixel_lanes(cfg, (0.5, 0.5), card)
+    return setup, px, py, torch.where(inside, 0.0, edge.ZFAR_PARK)
+
+
+@pytest.mark.parametrize("chunk", [2, 3, 4])
+def test_kernel_g_chunks_equal_plain_and_one_list(soup, chunk):
+    """Kernel G on a tree beyond one chunk: 5 superclusters walked 2, 3 or
+    4 at a time, carrying each pixel's depth and slot, equal the plain
+    version and the kernel in one chunk on every output, in the first
+    round and behind every hit."""
+    setup, px, py, zf = soup
+    for _ in range(2):
+        before = edge.raster_edge.launches
+        got = edge.raster_edge(*setup, px, py, zf, chunk=chunk)
+        assert edge.raster_edge.launches == before + 1
+        one = edge.raster_edge(*setup, px, py, zf)
+        want = edge.raster_edge_plain(*setup, px, py, zf)
+        for g, o, w in zip(got, one, want):
+            assert torch.equal(g, o) and torch.equal(g, w)
+        assert (got[1] >= 0).float().mean().item() > 0.3
+        zf = torch.where(got[1] >= 0, got[0], edge.ZFAR_PARK)
+
+
 def test_raster_frame_on_card_matches_cpu(renderer):
-    """The msaa-8 edge frame on the card (32 launches of G) against the
-    same frame on the CPU (plain version)."""
+    """The msaa-8 edge frame on the card (32 launches of G a replayed
+    frame, after the capture) against the same frame on the CPU (plain
+    version)."""
     cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
     cam = start_camera()
-    before = edge.raster_edge.launches
-    fb = Rasterizer(renderer.model, cfg, renderer.device).render(
-        cam, show_fps=False)
-    assert edge.raster_edge.launches == before + 32
+    rast = Rasterizer(renderer.model, cfg, renderer.device)
+    rast.render(cam, show_fps=False)                 # the capture
+    fb, card, host = counted(lambda: rast.render(cam, show_fps=False))
+    assert card == {"raster_edge": 32} and host == {}
     want = Rasterizer(renderer.model, cfg, "cpu").render(cam, show_fps=False)
     assert (np.abs(fb - want).max(-1) > 0.02).mean() <= 0.001
 
@@ -588,15 +671,16 @@ def test_backend_occluded_entry_points_on_card(renderer, card):
 
 def test_per_light_frame_equals_kernel_b_frame_on_card(renderer):
     """DenseBackend.per_light: 4 lights x 2 depths = 8 launches of A' and
-    none of B; the frame and its ray count equal the kernel-B frame."""
+    none of B a frame (a replay, after the capture); the frame and its
+    ray count equal the kernel-B frame."""
     cam = start_camera()
     want, want_rays = renderer.render(cam)
     pl = Renderer(renderer.model, small_config(), renderer.device)
     pl.backend = pl.backend._replace(per_light=True)
-    a0, b0 = trace_occluded.launches, occluded_multi.launches
-    fb, rays = pl.render(cam)
-    assert trace_occluded.launches == a0 + 8
-    assert occluded_multi.launches == b0
+    pl.render(cam)                                   # the capture
+    (fb, rays), card, host = counted(lambda: pl.render(cam))
+    assert card.get("trace_occluded") == 8 and "occl_multi" not in card
+    assert host == {}
     np.testing.assert_array_equal(fb, want)
     assert rays == want_rays
 
@@ -1029,3 +1113,153 @@ def test_kernels_build_under_the_cache_variable(renderer, card, tmp_path,
         kernels.library.cache_clear()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --- frames as CUDA graphs (graphs.py) ------------------------------------
+def graph_twin(r):
+    """Copies of renderer `r`: eager (graph=False) and on the default
+    path (a CUDA graph per static key), the latter with graphs of its
+    own."""
+    e, g = copy.copy(r), copy.copy(r)
+    e.graph = False
+    g.graph, g.graphs = None, graphs.FrameGraph()
+    return e, g
+
+
+def two_cameras():
+    return [start_camera(), list(camera_path(64, 48))[3]]
+
+
+CASES = {"config1": (C.config1_primary, "refit"),
+         "config2": (C.config2_shadows, "refit"),
+         "config3": (C.config3_reflections, "refit"),
+         "config4": (C.config4_flythrough, "refit"),
+         **{f"config5_{m}": (C.config5_stress, m) for m in REBUILD_MODES}}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_graph_frames_equal_eager_frames(renderer, case):
+    """Configs 1-5 (config 5 in each rebuild mode, under two transforms)
+    at 64x48: the replayed frames and ray counts equal the eager ones of
+    the same camera bit for bit, two cameras give two frames. Launches:
+    an eager frame's run on the card as its wrappers count them; the
+    first graph frame runs them twice on the card (warm-up and replay)
+    and counts them twice on the host (warm-up and capture); a replay
+    runs them once on the card and counts nothing."""
+    make, mode = CASES[case]
+    cfg = dataclasses.replace(make(), width=64, height=48)
+    r = Renderer(renderer.model, cfg, renderer.device, quantize=True,
+                 rebuild=mode)
+    eager, graph = graph_twin(r)
+    assert graph.captured() and not eager.captured()
+    tfs = [None, None]
+    if cfg.rebuild_per_frame:
+        tfs = [rot_y(0.05), rot_y(0.15)]
+    frames = []
+    for k, (cam, tf) in enumerate(zip(two_cameras(), tfs)):
+        want, card, host = counted(lambda: eager.render_async(cam, tf))
+        assert card == host and card["trace_closest"] > 0
+        got, g_card, g_host = counted(lambda: graph.render_async(cam, tf))
+        assert g_card == (twice(card) if k == 0 else card)
+        assert g_host == (twice(card) if k == 0 else {})
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        frames.append(got[0])
+    assert len(graph.graphs) == 1 and graph.graphs.capture_ms()
+    assert not torch.equal(frames[0], frames[1])
+
+
+@pytest.mark.parametrize("msaa", [1, 8])
+def test_graph_raster_frames_equal_eager_frames(renderer, msaa):
+    """The edge raster frame at msaa 1 and 8 (4 x msaa launches of G):
+    replayed frames equal the eager ones on two cameras."""
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    eager, graph = graph_twin(Rasterizer(renderer.model, cfg,
+                                         renderer.device, msaa=msaa))
+    frames = []
+    for k, cam in enumerate(two_cameras()):
+        want, card, host = counted(lambda: eager.render_async(cam))
+        assert card == host == {"raster_edge": 4 * msaa}
+        got, g_card, g_host = counted(lambda: graph.render_async(cam))
+        assert g_card == (twice(card) if k == 0 else card)
+        assert g_host == (twice(card) if k == 0 else {})
+        assert torch.equal(got, want)
+        frames.append(got)
+    assert not torch.equal(frames[0], frames[1])
+
+
+def test_graph_sharded_frames_equal_eager_frames(renderer, card):
+    """render_frame_sharded and render_raster_frame_sharded on
+    ["cuda:0"] * 2 with their replicas: one graph per shard (and the
+    raster setup's), frames equal the eager sharded and unsharded ones
+    on two cameras; a replayed frame runs twice the unsharded frame's
+    launches on the card and counts none on the host. Without replicas
+    the default is eager."""
+    r = Renderer(renderer.model, small_config(), card)
+    mesh = make_mesh(["cuda:0"] * 2)
+    reps = replicate((r.backend, r.tex, r.lights), mesh)
+    rreps = replicate(r.tex, mesh)
+    for k, cam in enumerate(two_cameras()):
+        mats = [upload_matrix(m, card) for m in (cam.proj_inverse,
+                                                 cam.view_inverse)]
+        want, n_one, _ = counted(lambda: render_frame(
+            r.backend, r.tex, *mats, r.lights, r.cfg))
+        got, n_two, host = counted(lambda: render_frame_sharded(
+            r.backend, r.tex, *mats, r.lights, r.cfg, mesh, replicas=reps))
+        eager = render_frame_sharded(r.backend, r.tex, *mats, r.lights,
+                                     r.cfg, mesh, replicas=reps, graph=False)
+        assert n_two == twice(twice(n_one) if k == 0 else n_one)
+        assert host == (twice(twice(n_one)) if k == 0 else {})
+        _, card_once, host_once = counted(lambda: render_frame_sharded(
+            r.backend, r.tex, *mats, r.lights, r.cfg, mesh))
+        assert card_once == host_once == twice(n_one)   # no replicas: eager
+        for x in (want, eager):
+            assert torch.equal(got[0], x[0]) and torch.equal(got[1], x[1])
+        view, proj = (upload_matrix(m, card) for m in (cam.view_matrix,
+                                                       cam.projection_matrix))
+        want = render_raster_frame_edge(r.backend.tree, r.tex, view, proj,
+                                        r.cfg)
+        got = render_raster_frame_sharded(r.backend.tree, r.tex, view, proj,
+                                          r.cfg, mesh, msaa=8,
+                                          replicas=rreps)
+        assert torch.equal(got, want)
+    assert len(reps.graphs) == 2 and len(rreps.graphs) == 3
+
+
+def test_graph_calls_return_their_own_tensors(renderer):
+    """Three render_async calls in a row: three distinct frames, each
+    equal to its eager frame (callers hold several frames at once)."""
+    eager, graph = graph_twin(renderer)
+    cams = list(camera_path(64, 48))[:3]
+    outs = [graph.render_async(cam) for cam in cams]
+    assert len({o[0].data_ptr() for o in outs}) == 3
+    for cam, (fb, rays) in zip(cams, outs):
+        want = eager.render_async(cam)
+        assert torch.equal(fb, want[0]) and torch.equal(rays, want[1])
+
+
+def test_graph_memory_stays_flat_over_replays(renderer):
+    """20 replays allocate nothing that outlives them."""
+    _, graph = graph_twin(renderer)
+    cam = start_camera()
+    graph.render_async(cam)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(20):
+        graph.render_async(cam)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    graph.free_graphs()
+    assert len(graph.graphs) == 0
+
+
+def test_graph_true_raises_where_frames_wait_on_the_host(renderer, card):
+    """The reference backend and recheck_secondary stay eager under
+    graph=None and raise under graph=True."""
+    with pytest.raises(ValueError, match="reference backend"):
+        Renderer(renderer.model, small_config(), card, backend="reference",
+                 graph=True)
+    r = Renderer(renderer.model, small_config(recheck_secondary=True), card)
+    assert not r.captured()
+    r.graph = True
+    with pytest.raises(ValueError, match="recheck_secondary"):
+        r.render_async(start_camera())

@@ -11,7 +11,9 @@ procedural scene at 1920x1080 and config 4's shipped defaults:
     `torch.cuda.set_sync_debug_mode("warn")`; the synchronizing calls
     PyTorch reports (a prototype detector: it does not see every kind);
   * per shard count (0 = `engine.render_frame`, unsharded; k =
-    `parallel.mesh.render_frame_sharded` on [card] * k): `--frames`
+    `parallel.mesh.render_frame_sharded` on [card] * k, eagerly: the
+    ranges are Python scopes, which a replayed graph runs none of;
+    chip_smoke.py phase 26 times the graphs): `--frames`
     frames enqueued back to back, the host's ms a frame (perf_counter,
     no wait) and its share inside each engine range (the
     `record_function` scopes of wavefront/engine.py, timed on the host),
@@ -94,7 +96,7 @@ def main() -> int:
         if k == 0:
             return engine.render_frame(r.backend, r.tex, *m, r.lights, cfg)
         return render_frame_sharded(r.backend, r.tex, *m, r.lights, cfg,
-                                    make_mesh([dev] * k))
+                                    make_mesh([dev] * k), graph=False)
 
     frame(2, mats[0])
     torch.cuda.synchronize()

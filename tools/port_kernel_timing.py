@@ -156,7 +156,9 @@ def time_raster(dev, frames: int) -> dict:
 
     rp.raster_edge = record
     try:
-        rast.render_async(cams[0])
+        eager = copy.copy(rast)         # a replayed graph runs no Python
+        eager.graph = False
+        eager.render_async(cams[0])
         torch.cuda.synchronize()
     finally:
         rp.raster_edge = inner

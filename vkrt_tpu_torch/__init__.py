@@ -28,6 +28,9 @@ names mirror `vkrt_tpu/` so each counterpart is easy to find:
   native/           the C++ oracle tracer (g++, ctypes)
   runtime           float32 policy, device report, kernel build,
                     FrameScheduler (frames in flight)
+  graphs            frames captured as CUDA graphs and replayed (the
+                    counterpart of jax.jit's cache), a replay's
+                    launches read from torch.profiler
   kernels           nvcc build + ctypes binding of csrc/*.cu
   version           __version__
 

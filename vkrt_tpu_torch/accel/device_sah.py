@@ -407,8 +407,9 @@ def device_sah_order(v0, e1, e2, max_levels: int = 14,
         raise ValueError(f"device_sah_order: {T} triangles exceed 2^24")
     S = torch.cat([S, torch.arange(tp, dtype=torch.float32,
                                    device=dev)[:, None]], dim=1)  # [Tp,11]
-    cb = torch.zeros(tp // K1, dtype=torch.bool, device=dev)
-    cb[0] = True
+    # one segment: the first chunk starts it (a comparison, not an item
+    # store, whose host-side scalar a CUDA graph capture refuses)
+    cb = torch.arange(tp // K1, device=dev) == 0
     if axis_mode.startswith("hybrid"):
         n_tri = min(int(axis_mode.split(":")[1]), max_levels)
         plan = [dict(tri_bins=k < n_tri) for k in range(max_levels)]

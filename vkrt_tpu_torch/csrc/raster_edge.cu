@@ -41,10 +41,14 @@
 //     outside the first edge skips the other two, and the depth is
 //     computed only where all three pass.
 //
-// The list holds the whole tree (C1p keys, 8 bytes each), so a tree of
-// more than MAX_LIST_SC superclusters (16,384 clusters, about 2M
-// triangles; the list would no longer fit beside the staging buffers) is
-// refused with cudaErrorInvalidValue.
+// The list lives in shared memory, 8 bytes a cluster, so the block takes
+// the tree in chunks of at most `chunk` superclusters by id (MAX_LIST_SC,
+// 256 = 16,384 clusters, about 2M triangles, by default): it gates,
+// sorts and walks one chunk, then the next, carrying each pixel's
+// committed depth and slot across them. By the tie rule below the answer
+// does not depend on the order in which clusters are visited, so the
+// chunks give the same answer as one list; a chunk's walk ends where
+// nobody needs its next cluster, and the next chunk starts its own.
 //
 // Semantics (same as raster_edge_plain in vkrt_tpu_torch/raster/edge.py):
 //   a fragment counts where beta_0,1,2 >= 0, sum beta > 0, 0 <= z <= 1
@@ -79,7 +83,7 @@ constexpr int SETUP_W = 20;          // floats per setup row (19 used)
 constexpr int SWEEP_Q = 3;           // float4 of a row the sweep reads (0-11)
 constexpr int THREADS = 128;         // one lane group
 constexpr int PPT = 2;               // pixels (lane groups) per thread
-constexpr int MAX_LIST_SC = 256;     // superclusters the work list can hold
+constexpr int MAX_LIST_SC = 256;     // superclusters a chunk may hold
 constexpr float ZFAR_PARK = 1.0e9f;
 constexpr float BOX_PAD = 0.015625f;
 constexpr float BIG = 3.0e38f;
@@ -158,19 +162,22 @@ __device__ __forceinline__ void sweep_rows(
 __global__ void __launch_bounds__(THREADS)
 raster_edge_kernel(const float* __restrict__ setup,   // [C1p, 128, 20]
                    const float* __restrict__ scb, int c2p, int n_sc,
+                   int chunk,                          // superclusters a pass
                    const float* __restrict__ clb,     // [n_sc, 8, 64]
                    const float* __restrict__ px, const float* __restrict__ py,
                    const float* __restrict__ zfloor, int n,
                    float* __restrict__ z_out, int* __restrict__ slot_out,
                    float* __restrict__ u_out, float* __restrict__ v_out,
                    int* __restrict__ mat_out) {
-  // dynamic shared memory: the work list, two staging buffers, their
-  // clusters' boxes (lo x, lo y, hi x, hi y), the gated superclusters
+  // dynamic shared memory: a chunk's work list, two staging buffers,
+  // their clusters' boxes (lo x, lo y, hi x, hi y), the chunk's gated
+  // superclusters
   extern __shared__ __align__(16) unsigned char smem[];
-  u64* list = reinterpret_cast<u64*>(smem);                    // [n_sc*64]
-  float4* stage = reinterpret_cast<float4*>(list + n_sc * RK2);
+  const int lc = min(n_sc, chunk);                             // list length
+  u64* list = reinterpret_cast<u64*>(smem);                    // [lc*64]
+  float4* stage = reinterpret_cast<float4*>(list + lc * RK2);
   float* sbox = reinterpret_cast<float*>(stage + 2 * RK1 * SWEEP_Q);  // [2][4]
-  int* sc_hit = reinterpret_cast<int*>(sbox + 8);              // [n_sc]
+  int* sc_hit = reinterpret_cast<int*>(sbox + 8);              // [lc]
   __shared__ float red[4][THREADS / 32];
   __shared__ int counts[2];
 
@@ -216,15 +223,17 @@ raster_edge_kernel(const float* __restrict__ setup,   // [C1p, 128, 20]
   ylo = fminf(fminf(red[2][0], red[2][1]), fminf(red[2][2], red[2][3]));
   yhi = fmaxf(fmaxf(red[3][0], red[3][1]), fmaxf(red[3][2], red[3][3]));
 
-  // (the whole block takes this branch or none of it does)
-  if (xlo <= xhi) {
+  // (the whole block takes this branch or none of it does, and every
+  // thread runs the same chunks)
+  for (int c0 = 0; xlo <= xhi && c0 < n_sc; c0 += chunk) {
+    const int c1 = min(n_sc, c0 + chunk);
+    __syncthreads();      // the last chunk's walk is done with the list
     if (t == 0) counts[0] = counts[1] = 0;
     __syncthreads();
-    // gate the superclusters, a thread each
-    for (int s0 = 0; s0 < n_sc; s0 += THREADS) {
+    // gate the chunk's superclusters, a thread each
+    for (int s0 = c0; s0 < c1; s0 += THREADS) {
       const int s = s0 + t;
-      const bool hit = s < n_sc &&
-                       box_meets(scb + s, c2p, xlo, xhi, ylo, yhi);
+      const bool hit = s < c1 && box_meets(scb + s, c2p, xlo, xhi, ylo, yhi);
       push_hits(hit, s, sc_hit, &counts[0], lane);
     }
     __syncthreads();
@@ -274,7 +283,7 @@ raster_edge_kernel(const float* __restrict__ setup,   // [C1p, 128, 20]
 #pragma unroll
       for (int p = 0; p < PPT; ++p) wanted |= zmin <= z_cur[p];
       // barrier: cluster e is staged, cluster e-1 is swept; and the
-      // list is sorted, so a cluster nobody wants ends the walk
+      // list is sorted, so a cluster nobody wants ends the chunk's walk
       if (!__syncthreads_or(wanted)) break;
       if (e + 1 < nl) stage_cluster(e + 1, (e + 1) & 1);
       const float* bx = sbox + (e & 1) * 4;
@@ -333,17 +342,19 @@ raster_edge_kernel(const float* __restrict__ setup,   // [C1p, 128, 20]
 // Plain C entry point (bound with ctypes). Returns cudaGetLastError()
 // after the launch; the launch does not synchronise.
 extern "C" int vkrt_raster_edge(const float* setup, const float* scb, int c2p,
-                                int n_sc, const float* clb, const float* px,
+                                int n_sc, int chunk, const float* clb,
+                                const float* px,
                                 const float* py, const float* zfloor, int n,
                                 float* z_out, int* slot_out, float* u_out,
                                 float* v_out, int* mat_out, void* stream) {
   using namespace vkrt;
   if (n > 0) {
-    if (n_sc < 0 || n_sc > MAX_LIST_SC)
+    if (n_sc < 0 || chunk < 1 || chunk > MAX_LIST_SC)
       return static_cast<int>(cudaErrorInvalidValue);
-    const size_t shared = (size_t)n_sc * RK2 * sizeof(u64) +
+    const int lc = n_sc < chunk ? n_sc : chunk;
+    const size_t shared = (size_t)lc * RK2 * sizeof(u64) +
                           2 * RK1 * SWEEP_Q * sizeof(float4) +
-                          8 * sizeof(float) + n_sc * sizeof(int);
+                          8 * sizeof(float) + lc * sizeof(int);
     if (shared > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           raster_edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -354,7 +365,7 @@ extern "C" int vkrt_raster_edge(const float* setup, const float* scb, int c2p,
     const int blocks = (n + per_block - 1) / per_block;
     raster_edge_kernel<<<blocks, THREADS, shared,
                          static_cast<cudaStream_t>(stream)>>>(
-        setup, scb, c2p, n_sc, clb, px, py, zfloor, n, z_out,
+        setup, scb, c2p, n_sc, chunk, clb, px, py, zfloor, n, z_out,
         slot_out, u_out, v_out, mat_out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -134,8 +134,8 @@ def library() -> ctypes.CDLL:
     lib.vkrt_scatter_back.argtypes = [_P, _P, _I, _I, _P, _P]
     lib.vkrt_lane_sort.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P]
     lib.vkrt_lane_unsort.argtypes = [_P, _P, _I, _I, _I, _P, _P]
-    lib.vkrt_raster_edge.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I,
-                                     _P, _P, _P, _P, _P, _P]
+    lib.vkrt_raster_edge.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P,
+                                     _I, _P, _P, _P, _P, _P, _P]
     for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
                lib.vkrt_lane_sort, lib.vkrt_lane_unsort,
                lib.vkrt_raster_edge):

@@ -13,6 +13,11 @@ is equality):
   * dense, on a refit tree and on a full device-SAH rebuild;
   * the edge rasterizer (kernel G), sharded against unsharded.
 
+On CUDA devices the sharded frames are CUDA graphs: each check passes
+its own replicas, so the sharded renderers capture every shard and
+replay it (their default with replicas; the reference backend and
+recheck_secondary run eagerly), held against the eager unsharded frames.
+
     python -c "from vkrt_tpu_torch.parallel.dryrun import dryrun_multichip; \\
                dryrun_multichip(8, 'cpu')"
 """
@@ -29,7 +34,8 @@ from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.parallel.mesh import (make_mesh,
                                           render_frame_sharded,
-                                          render_raster_frame_sharded)
+                                          render_raster_frame_sharded,
+                                          replicate)
 from vkrt_tpu_torch.raster.pipeline import render_raster_frame_edge
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine
@@ -64,8 +70,9 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     def check(label, backend, cfg_=cfg, want=None):
         if want is None:
             want = engine.render_frame(backend, r.tex, pi, vi, r.lights, cfg_)
-        fb, rays = render_frame_sharded(backend, r.tex, pi, vi, r.lights,
-                                        cfg_, mesh)
+        fb, rays = render_frame_sharded(
+            backend, r.tex, pi, vi, r.lights, cfg_, mesh,
+            replicas=replicate((backend, r.tex, r.lights), mesh))
         n = int(rays.sum())
         same = torch.equal(fb, want[0]) and torch.equal(rays, want[1])
         print(f"dryrun_multichip({n_devices}, {dev}): {label}: sharded "
@@ -95,7 +102,8 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
     pm = engine.upload_matrix(cam.projection_matrix, dev)
     want = render_raster_frame_edge(r.backend.tree, r.tex, vm, pm, cfg, 1)
     got = render_raster_frame_sharded(r.backend.tree, r.tex, vm, pm, cfg,
-                                      mesh, msaa=1)
+                                      mesh, msaa=1,
+                                      replicas=replicate(r.tex, mesh))
     same = torch.equal(got, want)
     print(f"dryrun_multichip({n_devices}, {dev}): edge raster: sharded "
           f"{'==' if same else '!='} unsharded", flush=True)

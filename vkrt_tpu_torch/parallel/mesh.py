@@ -10,7 +10,11 @@ the first device of the mesh.
 The JAX package writes this as one `shard_map` program. Here one host
 thread enqueues each shard's work on its device in turn: the same
 program written out. No shard reads another's rays, so no collective
-exists beyond the gather, which is a plain `.to()` per shard.
+exists beyond the gather, which is a plain `.to()` per shard. On CUDA
+devices each shard's work is one captured CUDA graph (graphs.py), kept in
+the `Replicas` that `replicate` returns: a frame copies the camera into
+every shard's inputs and replays the k graphs from the one thread, so a
+shard costs one graph launch and not its whole launch list.
 
 Every shard holds whole 512-ray trace blocks (4 groups of 128 lanes), so
 each 128-lane group a kernel walks holds the same rays as in the frame
@@ -25,13 +29,14 @@ of the scene. Nothing here waits for the card: frames stay in flight.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
-from torch.nn import functional as F
 from torch.profiler import record_function
 
 from vkrt_tpu_torch import config as C
+from vkrt_tpu_torch import graphs
 from vkrt_tpu_torch.raster.edge import build_raster_setup
 from vkrt_tpu_torch.raster.pipeline import (_to_image, edge_color_lanes,
                                             sample_offsets,
@@ -78,14 +83,25 @@ def make_mesh(devices=None, axis: str = "rays") -> Mesh:
     return Mesh(devices, axis)
 
 
-def replicate(tree, mesh: Mesh) -> dict:
+class Replicas(dict):
+    """`replicate`'s result: {device: the tree there}, and `graphs`, the
+    FrameGraph in which the sharded renderers keep each shard's captured
+    graph for the frames that pass these replicas."""
+
+    def __init__(self, items):
+        super().__init__(items)
+        self.graphs = graphs.FrameGraph()
+
+
+def replicate(tree, mesh: Mesh) -> Replicas:
     """`tree` (tensors inside nested tuples and NamedTuples, such as
     (backend, tex, lights)) placed on each distinct device of `mesh`:
     {device: tree there}. Each tensor is copied once per device with
     `.to`, which returns it unchanged on its own device; a device listed
     k times holds one copy."""
-    return {dev: map_tensors(lambda t: t.to(dev, non_blocking=True), tree)
-            for dev in dict.fromkeys(mesh.devices)}
+    return Replicas((dev, map_tensors(lambda t: t.to(dev, non_blocking=True),
+                                      tree))
+                    for dev in dict.fromkeys(mesh.devices))
 
 
 def shard_blocks(nb: int, n: int) -> tuple:
@@ -96,43 +112,52 @@ def shard_blocks(nb: int, n: int) -> tuple:
     return per, per * n - nb
 
 
-def _part(x, rows: slice, dev):
-    """Rows `rows` of x (along axis -2) contiguous on `dev`: kernels C-F
-    refuse strided views and every wrapper passes data_ptr()."""
-    return x[..., rows, :].to(dev, non_blocking=True).contiguous()
-
-
-def _pad_rows(x, pad: int, value):
-    return F.pad(x, (0, 0, 0, pad), value=value)
+def _ray_shard(backend, tex, lights, cfg: C.RenderConfig, rows: range,
+               proj_inverse, view_inverse):
+    """One shard of render_frame_sharded, on its device: the camera rays
+    of its lane `rows` (those past the frame's are padding, which never
+    trace), made there alone, and the rounds. Returns (accum
+    f32[3,per,128], ray counts i32[per,128])."""
+    origin_pt, dirs, valid = engine.camera_ray_blocks(proj_inverse,
+                                                      view_inverse, cfg, rows)
+    return engine.wavefront_rounds(backend, tex, origin_pt, dirs, lights,
+                                   cfg, valid)
 
 
 def render_frame_sharded(backend, tex, proj_inverse, view_inverse, lights,
-                         cfg: C.RenderConfig, mesh: Mesh, replicas=None):
+                         cfg: C.RenderConfig, mesh: Mesh, replicas=None,
+                         graph: bool | None = None):
     """engine.render_frame with the rays split over `mesh`: the same
     (framebuffer f32[H,W,3], rays i32[Nb,128]), on mesh.devices[0].
 
     `replicas` is replicate((backend, tex, lights), mesh), for a caller
     that renders many frames; made here when None (no copy on the
-    devices where the scene already lies)."""
+    devices where the scene already lies). `graph` is the renderers'
+    (graphs.resolve, per device, with engine.host_wait), with `replicas`
+    to keep the graphs in: captured, each shard's camera rays and rounds
+    are one CUDA graph per (shard, device, rows, cfg, scene) in
+    `replicas.graphs`, replayed after the camera is copied into its
+    inputs; the gather stays eager. Without `replicas`, None is eager: a
+    graph captured for one call would be replayed once."""
     home = mesh.devices[0]
     wp, hp = engine._pad_dims(cfg.width, cfg.height)
-    origin_pt, dirs, valid = engine.camera_ray_blocks(
-        proj_inverse.to(home), view_inverse.to(home), cfg)
-    nb = dirs.shape[1]
-    per, pad = shard_blocks(nb, mesh.size)
-    # padding rays: direction (1,1,1) normalised, never valid; the real
-    # rays are not normalised again, which could move their last bit
-    fill = L.normalize3(torch.ones((3, pad, L.LANES), device=home))
-    dirs = torch.cat([dirs, fill], dim=1)
-    valid = _pad_rows(valid, pad, False)
+    nb = wp * hp // L.LANES
+    per, _ = shard_blocks(nb, mesh.size)
     if replicas is None:
+        graph = graph or False
         replicas = replicate((backend, tex, lights), mesh)
+    wait = engine.host_wait(backend, cfg)
     accum, counts = [], []
     for k, dev in enumerate(mesh.devices):
         be, tx, li = replicas[dev]
-        rows = slice(k * per, (k + 1) * per)
-        a, c = engine.wavefront_rounds(be, tx, origin_pt.to(dev), _part(
-            dirs, rows, dev), li, cfg, _part(valid, rows, dev))
+        body = functools.partial(_ray_shard, be, tx, li, cfg,
+                                 range(k * per, (k + 1) * per))
+        if graphs.resolve(graph, dev, wait):
+            key = ("rays", k, str(dev), per, cfg, id(be), id(tx), id(li))
+            a, c = replicas.graphs.run(key, body, (proj_inverse, view_inverse),
+                                       dev, holds=(be, tx, li), copy=False)
+        else:
+            a, c = body(proj_inverse.to(dev), view_inverse.to(dev))
         accum.append(a.to(home, non_blocking=True))
         counts.append(c.to(home, non_blocking=True))
     accum = torch.cat(accum, dim=1)[:, :nb]
@@ -142,35 +167,66 @@ def render_frame_sharded(backend, tex, proj_inverse, view_inverse, lights,
     return fb, torch.cat(counts)[:nb]
 
 
+def _setup(tree, cfg: C.RenderConfig, view, proj):
+    with record_function("raster_setup"):
+        return build_raster_setup(tree, view, proj, cfg.width, cfg.height)
+
+
+def _raster_shard(tex, cfg: C.RenderConfig, offsets, rows: range, setup,
+                  scb, clb):
+    """One shard of render_raster_frame_sharded, on its device: per MSAA
+    sample, the pixel lanes of its lane `rows` (those past the frame's
+    are padding, which never covers), made there alone, through
+    edge_color_lanes. Returns f32[S,3,per,128]."""
+    colors = []
+    for s, off in enumerate(offsets):
+        px, py, inside = sample_pixel_lanes(cfg, off, setup.device, rows)
+        colors.append(edge_color_lanes(tex, setup, scb, clb, px, py, inside,
+                                       f"s{s}"))
+    return torch.stack(colors)
+
+
 def render_raster_frame_sharded(tree, tex, view, proj, cfg: C.RenderConfig,
-                                mesh: Mesh, msaa: int = 1, replicas=None):
+                                mesh: Mesh, msaa: int = 1, replicas=None,
+                                graph: bool | None = None):
     """raster.pipeline.render_raster_frame_edge with the pixel blocks of
     every MSAA sample split over `mesh`: the same f32[H,W,3] frame, on
     mesh.devices[0]. The setup stage runs once, on the first device, and
-    its rows are replicated like the scene. `tree` lies on the first
-    device; `replicas` is replicate(tex, mesh), made here when None."""
+    each shard's inputs get a copy of its rows. `tree` lies on the first
+    device; `replicas` is replicate(tex, mesh), made here when None.
+    `graph` as render_frame_sharded's (None without `replicas` is eager):
+    captured, the setup is one CUDA graph on the first device and each
+    shard's samples one on its device."""
     home = mesh.devices[0]
-    with record_function("raster_setup"):
-        setup = build_raster_setup(tree, view.to(home), proj.to(home),
-                                   cfg.width, cfg.height)
-    parts = replicate(setup, mesh)
-    if replicas is None:
-        replicas = replicate(tex, mesh)
+    wp, hp = engine._pad_dims(cfg.width, cfg.height)
+    nb = wp * hp // L.LANES
+    per, _ = shard_blocks(nb, mesh.size)
     offsets = sample_offsets(msaa)
+    if replicas is None:
+        graph = graph or False
+        replicas = replicate(tex, mesh)
+    if graphs.resolve(graph, home):
+        setup = replicas.graphs.run(
+            ("setup", str(home), id(tree), cfg.width, cfg.height),
+            functools.partial(_setup, tree, cfg), (view, proj), home,
+            holds=(tree,), copy=False)
+    else:
+        setup = _setup(tree, cfg, view.to(home), proj.to(home))
+    colors = []
+    for k, dev in enumerate(mesh.devices):
+        tx = replicas[dev]
+        body = functools.partial(_raster_shard, tx, cfg, offsets,
+                                 range(k * per, (k + 1) * per))
+        if graphs.resolve(graph, dev):
+            key = ("raster", k, str(dev), per, cfg, msaa, id(tx))
+            c = replicas.graphs.run(key, body, setup, dev, holds=(tx,),
+                                    copy=False)
+        else:
+            c = body(*(x.to(dev, non_blocking=True) for x in setup))
+        colors.append(c.to(home, non_blocking=True))
     acc = None
-    for s, off in enumerate(offsets):
-        px, py, inside = sample_pixel_lanes(cfg, off, home)
-        nb = px.shape[0]
-        per, pad = shard_blocks(nb, mesh.size)
-        px, py = _pad_rows(px, pad, 0.0), _pad_rows(py, pad, 0.0)
-        inside = _pad_rows(inside, pad, False)
-        colors = []
-        for k, dev in enumerate(mesh.devices):
-            rows = slice(k * per, (k + 1) * per)
-            color = edge_color_lanes(
-                replicas[dev], *parts[dev], _part(px, rows, dev),
-                _part(py, rows, dev), _part(inside, rows, dev), f"s{s}")
-            colors.append(color.to(home, non_blocking=True))
-        img = _to_image(torch.cat(colors, dim=1)[:, :nb], cfg)
+    for s in range(len(offsets)):
+        img = _to_image(torch.cat([c[s] for c in colors], dim=1)[:, :nb],
+                        cfg)
         acc = img if acc is None else acc + img
     return acc / float(len(offsets))

@@ -55,7 +55,9 @@ DEPTH_ULPS = 2.0 ** -20  # 16 float32 ulps: zmin's pad per unit of error
 PIX_CHUNK = 8192      # plain version: pixels gated at a time
 PAIR_CHUNK = 16384    # plain version: (pixel, cluster) pairs at a time
                       # (~15 KB each: the cluster's rows and temporaries)
-MAX_SUPERCLUSTERS = 256   # kernel G's shared-memory work list (MAX_LIST_SC)
+SC_CHUNK = 256        # superclusters kernel G's shared-memory work list
+                      # holds at once (MAX_LIST_SC): larger trees go in
+                      # chunks
 
 
 def _wvp(view, proj):
@@ -335,7 +337,7 @@ def raster_edge_plain(setup, scb, clb, px, py, zfloor):
             v.reshape(shape), mat.reshape(shape))
 
 
-def raster_edge(setup, scb, clb, px, py, zfloor):
+def raster_edge(setup, scb, clb, px, py, zfloor, chunk: int = SC_CHUNK):
     """Rasterize the setup rows over lane-major pixels.
 
     px, py: f32[Nb,128] sample positions in pixels (the engine's tiled
@@ -347,16 +349,17 @@ def raster_edge(setup, scb, clb, px, py, zfloor):
     (cluster id * 128 + triangle; tree.leaf_tri maps it to the original
     triangle), its perspective-correct uv and its material slot. A CUDA
     tensor launches kernel G and counts it in `raster_edge.launches`; a
-    CPU tensor runs `raster_edge_plain`."""
+    CPU tensor runs `raster_edge_plain`. The kernel takes a tree of any
+    size, `chunk` (1 to SC_CHUNK) superclusters at a time; the answer
+    does not depend on it."""
     dev = px.device
+    if not 1 <= chunk <= SC_CHUNK:
+        raise ValueError(f"raster_edge: chunk {chunk}, want 1 to {SC_CHUNK}")
     if dev.type == "cpu":
         return raster_edge_plain(setup, scb, clb, px, py, zfloor)
     if dev.type != "cuda":
         raise ValueError(f"raster_edge: unsupported device {dev}")
     _check(setup, scb, clb, px, py, zfloor)
-    if clb.shape[0] > MAX_SUPERCLUSTERS:
-        raise ValueError(f"raster_edge: {clb.shape[0]} superclusters, the "
-                         f"kernel's work list holds {MAX_SUPERCLUSTERS}")
     setup, scb, clb, px, py, zfloor = (
         t.contiguous() for t in (setup, scb, clb, px, py, zfloor))
     nb = px.shape[0]
@@ -371,7 +374,7 @@ def raster_edge(setup, scb, clb, px, py, zfloor):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.vkrt_raster_edge(
             setup.data_ptr(), scb.data_ptr(), scb.shape[1], clb.shape[0],
-            clb.data_ptr(), px.data_ptr(), py.data_ptr(), zfloor.data_ptr(),
+            chunk, clb.data_ptr(), px.data_ptr(), py.data_ptr(), zfloor.data_ptr(),
             nb * LANES, z.data_ptr(), slot.data_ptr(), u.data_ptr(),
             v.data_ptr(), mat.data_ptr(), stream)
     kernels.check(err, "raster_edge")

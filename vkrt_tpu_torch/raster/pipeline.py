@@ -124,15 +124,18 @@ def render_raster_frame(backend, tex, proj_inverse, view_inverse,
     return acc / float(len(offsets))
 
 
-def sample_pixel_lanes(cfg: C.RenderConfig, off, device):
+def sample_pixel_lanes(cfg: C.RenderConfig, off, device,
+                       rows: range | None = None):
     """Tiled lane-major sample positions px, py f32[Nb,128] (pixel index
-    + offset) and the inside mask bool[Nb,128] for one MSAA offset."""
-    wp, hp = engine._pad_dims(cfg.width, cfg.height)
-    gx = torch.arange(wp, dtype=torch.float32, device=device) + float(off[0])
-    gy = torch.arange(hp, dtype=torch.float32, device=device) + float(off[1])
-    px = engine.tile(gx[None, :].expand(hp, wp))
-    py = engine.tile(gy[:, None].expand(hp, wp))
-    return px, py, _inside(cfg, device)
+    + offset) and the inside mask bool[Nb,128] for one MSAA offset, lane
+    by lane (engine.lane_pixels). With `rows`, only those lane rows (rows
+    past Nb are padding, never inside): the whole frame's values there."""
+    if rows is None:
+        wp, hp = engine._pad_dims(cfg.width, cfg.height)
+        rows = range(wp * hp // L.LANES)
+    x, y, inside = engine.lane_pixels(cfg, rows, device)
+    return (x.to(torch.float32) + float(off[0]),
+            y.to(torch.float32) + float(off[1]), inside)
 
 
 def edge_color_lanes(tex, setup, scb, clb, px, py, inside,
@@ -195,11 +198,15 @@ class Rasterizer(engine.SceneOnDevice):
     method "edge" (what "auto" picks on the dense backend) runs the
     edge-function rasterizer (kernel G); "wavefront" (what "auto" picks
     on the reference backend) the ray-cast equivalent through the
-    backend's closest-hit trace."""
+    backend's closest-hit trace.
+
+    `graph`: as Renderer's. On a CUDA device render_async replays one
+    captured CUDA graph per (method, msaa, cfg, scene); the ray-cast
+    method on the reference backend stays eager (`captured`)."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
                  msaa: int = 8, method: str = "auto", backend: str = "dense",
-                 max_texture_dim: int = 0):
+                 max_texture_dim: int = 0, graph: bool | None = None):
         sample_offsets(msaa)                       # raises on a bad msaa
         if method == "auto":
             method = "edge" if backend == "dense" else "wavefront"
@@ -209,24 +216,35 @@ class Rasterizer(engine.SceneOnDevice):
         if method == "edge" and backend != "dense":
             raise ValueError("the edge rasterizer needs the dense backend's "
                              "cluster tree")
-        super().__init__(scene, cfg, device, backend, max_texture_dim)
+        super().__init__(scene, cfg, device, backend, max_texture_dim, graph)
         self.msaa = msaa
         self.method = method
 
     def render_async(self, camera):
         """Enqueue a frame; returns the device f32[H,W,3] frame without
-        waiting for the card."""
+        waiting for the card, a new one each call."""
+        mats = ((camera.view_matrix, camera.projection_matrix)
+                if self.method == "edge"
+                else (camera.proj_inverse, camera.view_inverse))
+        x = np.concatenate([np.asarray(m, np.float32).reshape(-1)
+                            for m in mats])
+        if not self.captured():
+            return self.frame_body(engine.upload_matrix(x, self.device))
+        key = ("raster", str(self.device), self.cfg, self.method, self.msaa,
+               id(self.backend), id(self.tex))
+        return self.graphs.run(key, self.frame_body, (x,), self.device,
+                               holds=(self.backend, self.tex))
+
+    def frame_body(self, x):
+        """The frame as the graph captures it, reading only `x` on the
+        device: the view and projection matrices (edge) or their inverses
+        (wavefront), 16 floats each."""
+        a, b = x[0:16].reshape(4, 4), x[16:32].reshape(4, 4)
         if self.method == "edge":
-            return render_raster_frame_edge(
-                self.backend.tree, self.tex,
-                engine.upload_matrix(camera.view_matrix, self.device),
-                engine.upload_matrix(camera.projection_matrix, self.device),
-                self.cfg, self.msaa)
-        return render_raster_frame(
-            self.backend, self.tex,
-            engine.upload_matrix(camera.proj_inverse, self.device),
-            engine.upload_matrix(camera.view_inverse, self.device),
-            self.cfg, self.msaa)
+            return render_raster_frame_edge(self.backend.tree, self.tex, a,
+                                            b, self.cfg, self.msaa)
+        return render_raster_frame(self.backend, self.tex, a, b, self.cfg,
+                                   self.msaa)
 
     def render(self, camera, show_fps: bool = True):
         """Synchronous frame as numpy f32[H,W,3], with the FPS of this

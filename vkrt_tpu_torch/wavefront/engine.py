@@ -40,6 +40,12 @@ traversal, rt/traverse.py: slow, independent of the kernels; it takes
 `resort_secondary` and ignores the kernel modes, as in the JAX package).
 With `mip_lod` the depth-0 samples are trilinear at a per-ray level from
 lane-neighbour differentials.
+
+On a CUDA device `Renderer.render_async` replays one captured CUDA graph
+per static key (graphs.py; the JAX engine's jitted frame): the accel
+update and the frame, reading only the frame's inputs (`frame_inputs`:
+the camera matrices, the transform, the Morton AABB). `host_wait` names
+the frames that stay eager.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ import torch
 from torch.profiler import record_function
 
 from vkrt_tpu_torch import config as C
-from vkrt_tpu_torch import runtime
+from vkrt_tpu_torch import graphs, runtime
 from vkrt_tpu_torch.accel.clusters import build_clusters, scene_attrs
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.accel.refit import refit_clusters
@@ -115,16 +121,22 @@ def generate_rays(proj_inverse, view_inverse, width: int, height: int,
     ys = (torch.arange(height, dtype=torch.float32, device=dev) + oy) \
         / height * 2.0 - 1.0
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-    pi, vi = proj_inverse, view_inverse
+    d = _ray_dirs(proj_inverse, view_inverse, gx, gy)
+    o = [view_inverse[k, 3].expand(d[0].shape) for k in range(3)]
+    return o, d
+
+
+def _ray_dirs(pi, vi, gx, gy):
+    """World-space directions (dx, dy, dz) of the rays through the NDC
+    points (gx, gy), elementwise: any grid of them gives the same bits at
+    the same point."""
     tgt = [pi[k, 0] * gx + pi[k, 1] * gy + pi[k, 2] + pi[k, 3]
            for k in range(3)]
     n = torch.sqrt(torch.clamp(tgt[0] * tgt[0] + tgt[1] * tgt[1]
                                + tgt[2] * tgt[2], min=1e-24))
     dv = [t / n for t in tgt]
-    d = [vi[k, 0] * dv[0] + vi[k, 1] * dv[1] + vi[k, 2] * dv[2]
-         for k in range(3)]
-    o = [vi[k, 3].expand(d[0].shape) for k in range(3)]
-    return o, d
+    return [vi[k, 0] * dv[0] + vi[k, 1] * dv[1] + vi[k, 2] * dv[2]
+            for k in range(3)]
 
 
 def tile(img):
@@ -298,18 +310,43 @@ def render_frame_u8(backend, tex: TextureArrays, proj_inverse, view_inverse,
     return fb8, ray_count.sum()
 
 
-def camera_ray_blocks(proj_inverse, view_inverse, cfg: C.RenderConfig):
-    """Camera rays padded to tile multiples, lane-major coherent blocks.
-    Returns (origin_pt f32[3], dirs f32[3,Nb,128], valid bool[Nb,128] —
-    False on tile-padding rays, which neither trace nor count)."""
+def lane_pixels(cfg: C.RenderConfig, rows: range, device):
+    """The pixel of each lane of the lane rows `rows` in `tile`'s order,
+    of a frame padded to tile multiples (Nb rows of 128 lanes; a row at
+    or past Nb is padding): x, y i64[len(rows),128] and inside
+    bool[len(rows),128], False on the tile padding and the padding rows.
+    Row ((ty * (Wp / TILE_X) + tx) * 2 + a) * 2 + b holds the 8x16
+    subtile (a, b) of tile (ty, tx)."""
     wp, hp = _pad_dims(cfg.width, cfg.height)
-    _, d = generate_rays(proj_inverse, view_inverse, cfg.width, cfg.height)
-    origin_pt = view_inverse[:3, 3]
-    d = torch.stack([tile(_pad_grid(c, wp, hp, 1.0)) for c in d])
-    ones = torch.ones((cfg.height, cfg.width), dtype=torch.bool,
-                      device=d.device)
-    valid = tile(_pad_grid(ones, wp, hp, False))
-    return origin_pt, L.normalize3(d), valid
+    r = torch.arange(rows.start, rows.stop, device=device)[:, None]
+    lane = torch.arange(L.LANES, device=device)[None, :]
+    t, a, b = r // 4, (r // 2) % 2, r % 2
+    sy, sx = TILE_Y // 2, TILE_X // 2
+    y = (t // (wp // TILE_X)) * TILE_Y + a * sy + lane // sx
+    x = (t % (wp // TILE_X)) * TILE_X + b * sx + lane % sx
+    inside = (x < cfg.width) & (y < cfg.height) & (r < wp * hp // L.LANES)
+    return x, y, inside
+
+
+def camera_ray_blocks(proj_inverse, view_inverse, cfg: C.RenderConfig,
+                      rows: range | None = None):
+    """Camera rays padded to tile multiples, lane-major coherent blocks,
+    made lane by lane (`lane_pixels`). Returns (origin_pt f32[3], dirs
+    f32[3,Nb,128], valid bool[Nb,128] — False on tile-padding rays,
+    which neither trace nor count, with direction (1,1,1) normalised).
+    With `rows`, only those lane rows (rows past Nb are padding): the
+    same bits as those rows of the whole frame's, so a shard makes only
+    its own."""
+    if rows is None:
+        wp, hp = _pad_dims(cfg.width, cfg.height)
+        rows = range(wp * hp // L.LANES)
+    x, y, valid = lane_pixels(cfg, rows, proj_inverse.device)
+    ox, oy = PIXEL_CENTER
+    gx = (x.to(torch.float32) + ox) / cfg.width * 2.0 - 1.0
+    gy = (y.to(torch.float32) + oy) / cfg.height * 2.0 - 1.0
+    d = _ray_dirs(proj_inverse, view_inverse, gx, gy)
+    d = torch.stack([torch.where(valid, c, 1.0) for c in d])
+    return view_inverse[:3, 3], L.normalize3(d), valid
 
 
 def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
@@ -698,6 +735,22 @@ def cached_backend(model_path, max_texture_dim: int, kind: str,
     return flat, tex, backends[kind]
 
 
+def host_wait(backend, cfg: C.RenderConfig) -> str:
+    """Why a frame of `backend` at `cfg` waits on the host, so that no
+    CUDA graph can hold it ('' if it does not): the reference backend's
+    traversal asks the card once a step whether a ray is live (JAX
+    compiles that as a while_loop), and recheck_secondary's plain-torch
+    prologue reads tensor values on the host."""
+    if isinstance(backend, ReferenceBackend):
+        return ("the reference backend asks the card once a traversal step "
+                "whether a ray is live (rt/traverse.py)")
+    if cfg.recheck_secondary:
+        return ("recheck_secondary's prologue reads tensor values on the "
+                "host (rt/dense.py::closest_worklists, "
+                "rt/occl_multi.py::multi_worklists)")
+    return ""
+
+
 class SceneOnDevice:
     """What both renderers build from a scene: the flattened scene, the
     material heap and the trace backend ("dense" or "reference") on
@@ -706,25 +759,48 @@ class SceneOnDevice:
     `scene` is a `vkrt_tpu_torch.scene.Model` or the path of a glTF file
     (loaded with its textures cut to `max_texture_dim`, 0 = full size,
     through `cached_backend`: once a process, shared by every instance
-    on the device); `cfg` must be this package's RenderConfig."""
+    on the device); `cfg` must be this package's RenderConfig.
+
+    `graph` (True, False or None) says whether the renderers' frames are
+    captured and replayed as CUDA graphs (`captured`; graphs.resolve);
+    `graphs` holds them, and a copy made with copy.copy shares it."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device,
-                 backend: str = "dense", max_texture_dim: int = 0):
+                 backend: str = "dense", max_texture_dim: int = 0,
+                 graph: bool | None = None):
         if not isinstance(cfg, C.RenderConfig):
             raise TypeError(f"cfg must be vkrt_tpu_torch.config.RenderConfig,"
                             f" got {type(cfg).__module__}.{type(cfg).__name__}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.graph = graph
+        self.graphs = graphs.FrameGraph()
         runtime.exact_f32()
         if isinstance(scene, (str, os.PathLike)):
             self.model = cached_model(scene, max_texture_dim)
             self.flat, self.tex, self.backend = cached_backend(
                 scene, max_texture_dim, backend, self.device)
-            return
-        self.model = scene
-        self.flat = flatten_model(scene)
-        self.tex = texture_arrays(scene.images, self.flat, self.device)
-        self.backend = make_backend(self.flat, backend, self.device)
+        else:
+            self.model = scene
+            self.flat = flatten_model(scene)
+            self.tex = texture_arrays(scene.images, self.flat, self.device)
+            self.backend = make_backend(self.flat, backend, self.device)
+        self.captured()                # graph=True raises here if it cannot
+
+    def captured(self) -> bool:
+        """Whether render_async replays a CUDA graph: `graph` resolved
+        (graphs.resolve) on this device, backend and cfg. None captures
+        on a CUDA device, except a frame that waits on the host
+        (`host_wait`: the reference backend, recheck_secondary), which
+        runs eagerly, as every frame on the CPU does; True raises
+        ValueError where the frame cannot be captured; False is eager."""
+        return graphs.resolve(self.graph, self.device,
+                              host_wait(self.backend, self.cfg))
+
+    def free_graphs(self) -> None:
+        """Drop the captured graphs and their memory pools (those of the
+        copies that share them too)."""
+        self.graphs.free()
 
 
 REBUILD_MODES = ("refit", "full", "full_morton")
@@ -744,15 +820,22 @@ class Renderer(SceneOnDevice):
     with a Morton sort (accel/clusters.build_clusters on device
     tensors); `sah_opts` forwards to device_sah_order. The reference
     backend has no accel update (as in the JAX package): an identity
-    update is skipped, any other transform raises ValueError."""
+    update is skipped, any other transform raises ValueError.
+
+    `graph` (the counterpart of jax.jit against jax.disable_jit): on a
+    CUDA device render_async captures the accel update and the frame as
+    one CUDA graph per static key (cfg, quantize, rebuild, whether the
+    frame updates the tree, the scene's tensors) and replays it (see
+    `captured` for which frames stay eager; graph=False runs every op
+    from Python, as profiling by ranges needs)."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
                  quantize: bool = False, rebuild: str = "refit",
                  sah_opts: dict | None = None, backend: str = "dense",
-                 max_texture_dim: int = 0):
+                 max_texture_dim: int = 0, graph: bool | None = None):
         if rebuild not in REBUILD_MODES:
             raise ValueError(f"rebuild {rebuild!r} not in {REBUILD_MODES}")
-        super().__init__(scene, cfg, device, backend, max_texture_dim)
+        super().__init__(scene, cfg, device, backend, max_texture_dim, graph)
         self.quantize = quantize    # u8 fb + scalar ray count on device
         self.rebuild = rebuild
         self.sah_opts = sah_opts
@@ -786,29 +869,71 @@ class Renderer(SceneOnDevice):
 
     def render_async(self, camera, transform=None):
         """Enqueue a frame; returns device tensors (fb, ray_count) without
-        waiting for the card.
+        waiting for the card, new ones each call.
 
         `transform` (4x4 affine, the instance-transform analogue) — or
         cfg.rebuild_per_frame, with the identity — triggers the per-frame
         accel update chosen by `rebuild` before the frame is traced."""
-        backend = self.backend
-        if self.cfg.rebuild_per_frame or transform is not None:
+        update = self.cfg.rebuild_per_frame or transform is not None
+        m = None
+        if update:
             m = np.eye(4, dtype=np.float32) if transform is None \
                 else np.asarray(transform, np.float32)
-            if isinstance(backend, ReferenceBackend):
+            if isinstance(self.backend, ReferenceBackend):
                 if not np.array_equal(m, np.eye(4, dtype=np.float32)):
                     raise ValueError(
                         "the reference backend has no accel update: a "
                         "non-identity transform would render the unmoved "
                         "scene")
-            else:
-                with record_function("accel_update"):
-                    backend = backend._replace(tree=self.update_tree(m))
+                m = None
+        x = self.frame_inputs(camera, m)
+        update = m is not None
+        if not self.captured():
+            return self.frame_body(upload_matrix(x, self.device), update)
+        key = ("frame", str(self.device), self.cfg, self.quantize, update,
+               self.rebuild, repr(self.sah_opts), id(self.backend),
+               id(self.tex), id(self.lights))
+        return self.graphs.run(
+            key, lambda xs: self.frame_body(xs, update), (x,), self.device,
+            holds=(self.backend, self.tex, self.lights,
+                   self._rebuild_inputs))
+
+    def frame_inputs(self, camera, m=None) -> np.ndarray:
+        """All that a frame reads that may change from frame to frame, as
+        one f32 vector: the camera's proj_inverse and view_inverse (16
+        each), then, with an accel update by the 4x4 affine `m`,
+        `update_inputs(m)`."""
+        parts = [np.asarray(camera.proj_inverse, np.float32).reshape(-1),
+                 np.asarray(camera.view_inverse, np.float32).reshape(-1)]
+        if m is not None:
+            parts.append(self.update_inputs(m))
+        return np.concatenate(parts)
+
+    def update_inputs(self, m) -> np.ndarray:
+        """The accel update's inputs, f32[22]: the 4x4 affine `m` (numpy),
+        then the Morton range of "full_morton" (lo, hi: the scene's
+        centroid AABB, its corners transformed on the host; zeros in the
+        other modes)."""
+        m = np.asarray(m, np.float32)
+        lo = hi = np.zeros(3, np.float32)
+        if self.rebuild != "refit":
+            corners = self.rebuild_inputs()[2]
+            if self.rebuild == "full_morton":
+                corners = L.mat_rows3(corners, m[:3, :3]) + m[:3, 3]
+                lo, hi = corners.min(axis=0), corners.max(axis=0)
+        return np.concatenate([m.reshape(-1), lo, hi]).astype(np.float32)
+
+    def frame_body(self, x, update: bool):
+        """The frame as the graph captures it, reading only `x`
+        (`frame_inputs` on the device) beside the scene: the accel update
+        when `update`, then render_frame_u8 (quantize) or render_frame."""
+        backend = self.backend
+        if update:
+            with record_function("accel_update"):
+                backend = backend._replace(tree=self._update_tree(x[32:]))
         frame = render_frame_u8 if self.quantize else render_frame
-        return frame(backend, self.tex,
-                     upload_matrix(camera.proj_inverse, self.device),
-                     upload_matrix(camera.view_inverse, self.device),
-                     self.lights, self.cfg)
+        return frame(backend, self.tex, x[0:16].reshape(4, 4),
+                     x[16:32].reshape(4, 4), self.lights, self.cfg)
 
     def render(self, camera, transform=None):
         """Synchronous render: enqueue + materialize on host."""
@@ -818,27 +943,24 @@ class Renderer(SceneOnDevice):
     def update_tree(self, m):
         """The cluster tree of the scene under the 4x4 affine `m` (numpy),
         by this renderer's `rebuild` mode; enqueued, no host wait."""
-        if self.rebuild == "refit":
-            return refit_clusters(self.backend.tree,
-                                  upload_matrix(m, self.device))
-        return self._full_rebuild(m)
+        return self._update_tree(upload_matrix(self.update_inputs(m),
+                                               self.device))
 
-    def _full_rebuild(self, m):
-        """Full rebuild: transform geometry and attribute directions on
-        the device, re-order, assemble. The Morton range is the scene's
-        centroid AABB, its corners transformed on the host."""
-        geometry, attrs, corners = self.rebuild_inputs()
-        v0, e1, e2, attrs = _transform_geometry(
-            *geometry, attrs, upload_matrix(m, self.device))
+    def _update_tree(self, u):
+        """update_tree on `update_inputs` on the device: a refit, or a
+        full rebuild (transform geometry and attribute directions on the
+        device, re-order, assemble)."""
+        m = u[0:16].reshape(4, 4)
+        if self.rebuild == "refit":
+            return refit_clusters(self.backend.tree, m)
+        geometry, attrs, _ = self.rebuild_inputs()
+        v0, e1, e2, attrs = _transform_geometry(*geometry, attrs, m)
         if self.rebuild == "full":
             return build_clusters(v0, e1, e2, attrs=attrs,
                                   with_attributes=True, method="sah",
                                   sah_opts=self.sah_opts)
-        corners = L.mat_rows3(corners, m[:3, :3]) + m[:3, 3]
-        aabb = (upload_matrix(corners.min(axis=0), self.device),
-                upload_matrix(corners.max(axis=0), self.device))
         return build_clusters(v0, e1, e2, attrs=attrs, with_attributes=True,
-                              method="morton", aabb=aabb)
+                              method="morton", aabb=(u[16:19], u[19:22]))
 
 
 def _transform_geometry(v0, e1, e2, attrs, m):
