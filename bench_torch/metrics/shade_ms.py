@@ -1,0 +1,12 @@
+"""shade_ms: device ms a frame of the kernels inside the frame's
+`shade_d*` spans (the miss shader, interpolation, perturbed normal and
+light geometry, the combine and reflection carry; wavefront/engine.py),
+read from the span marks of the traced window's replayed frames
+(spans_window.py); torch.profiler. None where the program leaves no
+marks."""
+
+import spans_window
+
+
+def read(run):
+    return spans_window.span_ms(spans_window.window(run), "shade_d")

@@ -245,7 +245,7 @@ import numpy as np
 import torch
 
 from vkrt_tpu_torch import config as C
-from vkrt_tpu_torch import graphs, kernels, runtime
+from vkrt_tpu_torch import graphs, kernels, runtime, tracing
 from vkrt_tpu_torch.accel import clusters
 from vkrt_tpu_torch.accel.clusters import K1, K2, SUB_COL, SUBRUNS
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
@@ -413,8 +413,8 @@ def eager(r):
     """A copy of renderer `r` (a Renderer or a Rasterizer) that runs every
     op from Python (graph=False): for the phases whose frames are the
     eager references, record a frame's kernel inputs, time engine ranges
-    by CUDA events or profile per range (no record_function range shows
-    inside a graph's replay)."""
+    by CUDA events or profile per range (no host range shows inside a
+    graph's replay; tracing.on()'s marks do)."""
     e = copy.copy(r)
     e.graph = False
     return e
@@ -1274,37 +1274,41 @@ def same_frames(outs, want, label: str = "flags-off") -> None:
 
 
 class EventRanges:
-    """While active, every `record_function(name)` scope of the engine
-    records a CUDA event where it opens and where it closes, so that the
-    ranges partition the stream's timeline: on one stream a range's time
-    runs from the end of the work queued before it to the end of its own,
-    any wait for the host included, and the ranges never overlap."""
+    """While active, every span of the engine (tracing.span, through
+    tracing.listen) records a CUDA event where it opens and where it
+    closes; the time between two consecutive events goes to the innermost
+    span open between them (`spans`), so that the spans partition the
+    stream's timeline: on one stream a span's time runs from the end of
+    the work queued before it to the end of its own, any wait for the
+    host included, and no two spans share time."""
 
     def __init__(self):
-        self.spans = []           # (name, opening event, closing event)
+        self.events = []          # (innermost span after it or None, event)
+        self._open = []
 
     def __enter__(self):
-        self.saved = engine.record_function
-        engine.record_function = self._scope
+        self._hook = tracing.listen(self._on_span)
+        self._hook.__enter__()
         return self
 
     def __exit__(self, *exc):
-        engine.record_function = self.saved
+        self._hook.__exit__(*exc)
 
-    def _scope(self, name):
-        outer = self
+    def _on_span(self, name, opening):
+        if opening:
+            self._open.append(name)
+        else:
+            self._open.pop()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append((self._open[-1] if self._open else None, ev))
 
-        class Scope:
-            def __enter__(self):
-                self.start = torch.cuda.Event(enable_timing=True)
-                self.start.record()
-
-            def __exit__(self, *exc):
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                outer.spans.append((name, self.start, end))
-
-        return Scope()
+    @property
+    def spans(self):
+        """(span, start event, end event) of each interval between two
+        consecutive events that a span holds."""
+        return [(name, a, b) for (name, a), (_, b)
+                in zip(self.events, self.events[1:]) if name is not None]
 
 
 def event_ranges(renderer: Renderer, cam: Camera, label: str,
@@ -1356,12 +1360,14 @@ def profiled(calls, label: str, names=ENGINE_RANGES,
              per_frame: dict | None = None) -> dict:
     """The frames of `calls` enqueued back to back under torch.profiler:
     device time per range whose name starts with one of `names`
-    (record_function in wavefront/engine.py and raster/pipeline.py; a
-    graph's replay shows none) and outside them, per frame; the device's
-    busy share of the wall clock from the first enqueue to the last
-    result; the top device kernels; each counted kernel's launches on
-    the card (`launches`: graphs.kernel_launches, replays included),
-    which with `per_frame` must be per_frame[k] a frame."""
+    (tracing.span's host ranges in wavefront/engine.py and
+    raster/pipeline.py; a graph's replay shows none: tracing's marks
+    time a replay's spans, which bench_torch reads) and outside them,
+    per frame; the device's busy share of the wall clock from the first
+    enqueue to the last result; the top device kernels; each counted
+    kernel's launches on the card (`launches`: graphs.kernel_launches,
+    replays included), which with `per_frame` must be per_frame[k] a
+    frame."""
     from torch.profiler import ProfilerActivity, profile
 
     n = len(calls)

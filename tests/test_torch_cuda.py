@@ -26,7 +26,7 @@ import torch
 from chip_smoke import (adversarial_keys, duplicate_triangle, tie_slots,
                         tie_tree)
 from vkrt_tpu_torch import config as C
-from vkrt_tpu_torch import graphs
+from vkrt_tpu_torch import graphs, tracing
 from vkrt_tpu_torch.accel import clusters
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.app import cli
@@ -1263,3 +1263,63 @@ def test_graph_true_raises_where_frames_wait_on_the_host(renderer, card):
     r.graph = True
     with pytest.raises(ValueError, match="recheck_secondary"):
         r.render_async(start_camera())
+
+
+@pytest.mark.parametrize("case", ["config4", "config5_full"])
+def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
+                                                        case):
+    """A frame captured with tracing on (tracing.py), replayed 3 times
+    under torch.profiler: the marks split the device ops into whole
+    frames of the graph's span table (tracing.device_spans), each the
+    ops of one of the 3 graph launches, every kernel of a replay falls
+    inside a leaf span (none in `frame` itself), each leaf runs some;
+    the counters of the 3 replays are 3 times those of the same frame
+    traced eagerly, which add up to its ray count; the frames are the
+    untraced graph's bits. The profiler can drop a replay's records
+    (on an H100, 1 of 3 replays in both cases in one process of seven),
+    and device_spans then leaves that replay out: at least one of the
+    3 is whole."""
+    from torch.profiler import ProfilerActivity, profile
+
+    make, mode = CASES[case]
+    cfg = dataclasses.replace(make(), width=64, height=48)
+    r = Renderer(renderer.model, cfg, card, quantize=True, rebuild=mode)
+    eager, graph = graph_twin(r)
+    cam, tf = start_camera(), (rot_y(0.05) if cfg.rebuild_per_frame
+                               else None)
+    plain = graph.render_async(cam, tf)
+    tracing.reset()
+    with tracing.on():
+        want_fb, want_rays = eager.render_async(cam, tf)
+        want = {k: v for k, v in tracing.counters(card).items() if v}
+        graph.render_async(cam, tf)                   # captured, marked
+        torch.cuda.synchronize()
+        tracing.reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            outs = [graph.render_async(cam, tf) for _ in range(3)]
+            torch.cuda.synchronize()
+        got = tracing.counters(card)
+    assert len(graph.graphs) == 2                     # traced: its own key
+    (table,) = graph.graphs.tables().values()
+    assert sum(want.values()) == int(want_rays)
+    assert {k: v for k, v in got.items() if v} == {k: 3 * v
+                                                  for k, v in want.items()}
+    ops, host = tracing.profile_ops(prof)
+    frames = tracing.device_spans(ops, table)
+    launches = [h[3] for h in host if "GraphLaunch" in h[0]]
+    assert len(launches) == 3 and 1 <= len(frames) <= 3
+    assert len({f[0].group for f in frames}) == len(frames)
+    assert {f[0].group for f in frames} <= set(launches)
+    for spans in frames:
+        parents = {s.parent for s in spans}
+        assert [s.name for s in spans if s.name in parents] == ["frame"]
+        assert spans[0].ops == 0 and spans[0].self_ms == 0.0
+        leaf = {}
+        for s in spans[1:]:
+            leaf[s.name] = leaf.get(s.name, 0) + s.ops
+        assert all(n > 0 for n in leaf.values()), leaf
+        assert ("accel_update" in leaf) == cfg.rebuild_per_frame
+    for fb, rays in outs + [(want_fb, want_rays)]:
+        assert torch.equal(fb, plain[0]) and torch.equal(rays, plain[1])
+    graph.free_graphs()

@@ -15,10 +15,10 @@ procedural scene at 1920x1080 and config 4's shipped defaults:
     ranges are Python scopes, which a replayed graph runs none of;
     chip_smoke.py phase 26 times the graphs): `--frames`
     frames enqueued back to back, the host's ms a frame (perf_counter,
-    no wait) and its share inside each engine range (the
-    `record_function` scopes of wavefront/engine.py, timed on the host),
-    the rest outside them; then the same frames each from an idle stream
-    (a synchronize before each).
+    no wait) and its share inside each engine span (the `tracing.span`
+    scopes of wavefront/engine.py, timed on the host through
+    `tracing.listen`), the rest outside them; then the same frames
+    each from an idle stream (a synchronize before each).
 
 Prints the card's nvidia-smi name and power limit, then one JSON object.
 """
@@ -38,7 +38,7 @@ import torch
 sys.path.insert(0, os.getcwd())
 
 from vkrt_tpu_torch import config as C  # noqa: E402
-from vkrt_tpu_torch import runtime  # noqa: E402
+from vkrt_tpu_torch import runtime, tracing  # noqa: E402
 from vkrt_tpu_torch.app.flythrough import camera_path  # noqa: E402
 from vkrt_tpu_torch.parallel.mesh import (make_mesh,  # noqa: E402
                                           render_frame_sharded)
@@ -47,32 +47,34 @@ from vkrt_tpu_torch.wavefront import engine  # noqa: E402
 
 
 class HostRanges:
-    """While active, every engine `record_function(name)` scope adds its
-    host time (ms) to `ms[name]`."""
+    """While active, every engine span (tracing.span, through
+    tracing.listen) adds its host time (ms) to `ms[name]`: the time
+    between two consecutive span entries or exits goes to the innermost
+    span open between them, so nested spans do not count twice."""
 
     def __init__(self):
         self.ms = {}
+        self._open = []
 
     def __enter__(self):
-        self.saved = engine.record_function
-        engine.record_function = self._scope
+        self._hook = tracing.listen(self._on_span)
+        self._hook.__enter__()
+        self._t = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        engine.record_function = self.saved
+        self._hook.__exit__(*exc)
 
-    def _scope(self, name):
-        outer = self
-
-        class Scope:
-            def __enter__(self):
-                self.t = time.perf_counter()
-
-            def __exit__(self, *exc):
-                outer.ms[name] = outer.ms.get(name, 0.0) + (
-                    time.perf_counter() - self.t) * 1e3
-
-        return Scope()
+    def _on_span(self, name, opening):
+        t = time.perf_counter()
+        if self._open:
+            inner = self._open[-1]
+            self.ms[inner] = self.ms.get(inner, 0.0) + (t - self._t) * 1e3
+        if opening:
+            self._open.append(name)
+        else:
+            self._open.pop()
+        self._t = t
 
 
 def main() -> int:

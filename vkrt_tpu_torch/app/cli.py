@@ -52,7 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="downsample textures at load (0 = full res)")
     p.add_argument("--metrics", action="store_true", help="print metrics JSON")
     p.add_argument("--profile-dir",
-                   help="write a torch.profiler Chrome trace here")
+                   help="turn tracing on and write a torch.profiler "
+                        "Chrome trace (trace.json) and the frames' span "
+                        "times and counters (spans.json) here")
     p.add_argument("--check-finite", action="store_true",
                    help="NaN/Inf sentinel on every frame")
     p.add_argument("--checkpoint",
@@ -264,7 +266,11 @@ def main(argv=None, scene=None) -> int:
             print(f"frame {idx}: {stats.frame_ms:.1f}ms "
                   f"{stats.mrays_per_s:.2f} Mrays/s", file=sys.stderr)
 
-    with profile(args.profile_dir, args.device):
+    def traced_tables():
+        held = getattr(renderer, "graphs", None)
+        return held.tables().values() if held is not None else ()
+
+    with profile(args.profile_dir, args.device, traced_tables):
         if pipeline:
             sched = runtime.FrameScheduler(inflight=3)
             in_flight_cams = {}

@@ -36,10 +36,16 @@ the launch into the graph). A replay runs no Python and counts nothing
 there. What a replay launches is seen on the card, where torch.profiler
 (CUPTI) records every kernel node of a replayed graph by name;
 `kernel_launches` reads the port's kernels from such a run.
+
+Tracing (tracing.py): a capture made while tracing is on records the
+frame's span table (`tables`), the order of the marks each replay leaves
+on the card. The cache's own work is host spans: `vkrt.capture`, and per
+call `vkrt.copy_in`, `vkrt.replay` and `vkrt.clone`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 import time
 from typing import NamedTuple
@@ -47,6 +53,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkrt_tpu_torch import tracing
 from vkrt_tpu_torch.runtime import map_tensors
 
 
@@ -102,6 +109,7 @@ class _Entry(NamedTuple):
     outputs: object       # static outputs (tensors in tuples)
     holds: tuple          # what the graph reads by address
     capture_ms: float     # warm-up and capture, host clock
+    table: object         # tracing.Table of a traced capture, else None
 
 
 def _source(x):
@@ -130,6 +138,11 @@ class FrameGraph:
         """{key: warm-up + capture ms} of the graphs held."""
         return {k: e.capture_ms for k, e in self._entries.items()}
 
+    def tables(self) -> dict:
+        """{key: tracing.Table} of the graphs captured with tracing on."""
+        return {k: e.table for k, e in self._entries.items()
+                if e.table is not None}
+
     def run(self, key, fn, inputs, device, holds=(), copy: bool = True):
         """fn(*inputs) through the graph of `key` on CUDA `device`: the
         outputs, cloned unless `copy` is False (then the static outputs,
@@ -138,14 +151,18 @@ class FrameGraph:
         with torch.cuda.device(dev):
             entry = self._entries.get(key)
             if entry is None:
-                entry = self._entries[key] = _capture(fn, inputs, dev,
-                                                      tuple(holds))
-            for s, x in zip(entry.inputs, inputs):
-                s.copy_(_source(x), non_blocking=True)
-            entry.graph.replay()
+                with tracing.span("vkrt.capture"):
+                    entry = self._entries[key] = _capture(fn, inputs, dev,
+                                                          tuple(holds))
+            with tracing.span("vkrt.copy_in"):
+                for s, x in zip(entry.inputs, inputs):
+                    s.copy_(_source(x), non_blocking=True)
+            with tracing.span("vkrt.replay"):
+                entry.graph.replay()
             if not copy:
                 return entry.outputs
-            return map_tensors(torch.clone, entry.outputs)
+            with tracing.span("vkrt.clone"):
+                return map_tensors(torch.clone, entry.outputs)
 
     def free(self) -> None:
         """Drop every graph; their pools go back to the allocator."""
@@ -153,7 +170,8 @@ class FrameGraph:
 
 
 def _capture(fn, inputs, dev, holds) -> _Entry:
-    """Warm up fn on static copies of `inputs`, then capture it."""
+    """Warm up fn on static copies of `inputs`, then capture it (with
+    tracing on, recording its span table)."""
     t0 = time.perf_counter()
     static = []
     for x in inputs:
@@ -167,7 +185,10 @@ def _capture(fn, inputs, dev, holds) -> _Entry:
         fn(*static)                                           # warm-up
     here.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=torch.cuda.Stream(dev)):
+    traced = tracing.record() if tracing.enabled() \
+        else contextlib.nullcontext()
+    with traced as table, torch.cuda.graph(graph,
+                                           stream=torch.cuda.Stream(dev)):
         outputs = fn(*static)
     return _Entry(graph, static, outputs, holds,
-                  (time.perf_counter() - t0) * 1e3)
+                  (time.perf_counter() - t0) * 1e3, table)

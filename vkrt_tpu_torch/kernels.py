@@ -11,9 +11,10 @@ library. Nothing here runs at import time: the CPU tests import every
 module on a machine without nvcc.
 
 Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
-occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G);
-headers common.cuh (shared by A, A', B and G) and walk.cuh (the
-front-to-back group walk of A, A' and B).
+occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G),
+span_mark.cu (tracing.py's empty mark kernel); headers common.cuh
+(shared by A, A', B and G) and walk.cuh (the front-to-back group walk of
+A, A' and B).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product
@@ -37,7 +38,7 @@ from vkrt_tpu_torch.utils.cache import build_root
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
-           "pack.cu", "lanesort.cu", "raster_edge.cu")
+           "pack.cu", "lanesort.cu", "raster_edge.cu", "span_mark.cu")
 HEADERS = ("common.cuh", "walk.cuh")
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -136,9 +137,10 @@ def library() -> ctypes.CDLL:
     lib.vkrt_lane_unsort.argtypes = [_P, _P, _I, _I, _I, _P, _P]
     lib.vkrt_raster_edge.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P,
                                      _I, _P, _P, _P, _P, _P, _P]
+    lib.vkrt_span_mark.argtypes = [_P]
     for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
                lib.vkrt_lane_sort, lib.vkrt_lane_unsort,
-               lib.vkrt_raster_edge):
+               lib.vkrt_raster_edge, lib.vkrt_span_mark):
         fn.restype = _I
     return lib
 

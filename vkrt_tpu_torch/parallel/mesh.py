@@ -33,10 +33,9 @@ import functools
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from vkrt_tpu_torch import config as C
-from vkrt_tpu_torch import graphs
+from vkrt_tpu_torch import graphs, tracing
 from vkrt_tpu_torch.raster.edge import build_raster_setup
 from vkrt_tpu_torch.raster.pipeline import (_to_image, edge_color_lanes,
                                             sample_offsets,
@@ -153,7 +152,8 @@ def render_frame_sharded(backend, tex, proj_inverse, view_inverse, lights,
         body = functools.partial(_ray_shard, be, tx, li, cfg,
                                  range(k * per, (k + 1) * per))
         if graphs.resolve(graph, dev, wait):
-            key = ("rays", k, str(dev), per, cfg, id(be), id(tx), id(li))
+            key = ("rays", k, str(dev), per, cfg, id(be), id(tx), id(li),
+                   tracing.enabled())
             a, c = replicas.graphs.run(key, body, (proj_inverse, view_inverse),
                                        dev, holds=(be, tx, li), copy=False)
         else:
@@ -168,7 +168,7 @@ def render_frame_sharded(backend, tex, proj_inverse, view_inverse, lights,
 
 
 def _setup(tree, cfg: C.RenderConfig, view, proj):
-    with record_function("raster_setup"):
+    with tracing.span("raster_setup", view.device):
         return build_raster_setup(tree, view, proj, cfg.width, cfg.height)
 
 
@@ -207,7 +207,8 @@ def render_raster_frame_sharded(tree, tex, view, proj, cfg: C.RenderConfig,
         replicas = replicate(tex, mesh)
     if graphs.resolve(graph, home):
         setup = replicas.graphs.run(
-            ("setup", str(home), id(tree), cfg.width, cfg.height),
+            ("setup", str(home), id(tree), cfg.width, cfg.height,
+             tracing.enabled()),
             functools.partial(_setup, tree, cfg), (view, proj), home,
             holds=(tree,), copy=False)
     else:
@@ -218,7 +219,8 @@ def render_raster_frame_sharded(tree, tex, view, proj, cfg: C.RenderConfig,
         body = functools.partial(_raster_shard, tx, cfg, offsets,
                                  range(k * per, (k + 1) * per))
         if graphs.resolve(graph, dev):
-            key = ("raster", k, str(dev), per, cfg, msaa, id(tx))
+            key = ("raster", k, str(dev), per, cfg, msaa, id(tx),
+                   tracing.enabled())
             c = replicas.graphs.run(key, body, setup, dev, holds=(tx,),
                                     copy=False)
         else:

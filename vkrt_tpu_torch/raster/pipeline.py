@@ -30,9 +30,9 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from vkrt_tpu_torch import config as C
+from vkrt_tpu_torch import tracing
 from vkrt_tpu_torch.app.overlay import draw_text
 from vkrt_tpu_torch.raster.edge import ZFAR_PARK, build_raster_setup, raster_edge
 from vkrt_tpu_torch.shade import shading
@@ -143,14 +143,14 @@ def edge_color_lanes(tex, setup, scb, clb, px, py, inside,
     """Lane-space body of one edge-rasterizer sample pass: coverage and
     depth test (kernel G), alpha discard as depth-floor continuation
     rounds. px/py/inside are lane-major [Nb,128]; returns unlit color
-    [3,Nb,128]. `label` names the profiler range of G's launches
-    (`raster_edge_{label}`)."""
+    [3,Nb,128]. `label` names the span of G's launches
+    (`raster_edge_{label}`; tracing.span)."""
     color = _clear(px.shape, px.device)
     zfloor = torch.where(inside, 0.0, ZFAR_PARK)              # pads park
     for _ in range(MAX_DISCARD_ROUNDS):
-        with record_function(f"raster_edge_{label}"):
+        with tracing.span(f"raster_edge_{label}", px.device):
             z, slot, u, v, mat = raster_edge(setup, scb, clb, px, py, zfloor)
-        with record_function("raster_sample"):
+        with tracing.span("raster_sample", px.device):
             hit = slot >= 0
             texel, _, _ = sample_material(
                 tex.texels_tri, tex.level_offset, tex.level_width,
@@ -178,7 +178,7 @@ def render_raster_frame_edge(tree, tex, view, proj, cfg: C.RenderConfig,
     coverage pass per MSAA sample, averaged resolve. Needs the forward
     view and projection matrices (the WVP of the reference's UBO, ref:
     Rasterizer.cpp:172-195)."""
-    with record_function("raster_setup"):
+    with tracing.span("raster_setup", view.device):
         setup, scb, clb = build_raster_setup(tree, view, proj, cfg.width,
                                              cfg.height)
     offsets = sample_offsets(msaa)
@@ -230,10 +230,14 @@ class Rasterizer(engine.SceneOnDevice):
                             for m in mats])
         if not self.captured():
             return self.frame_body(engine.upload_matrix(x, self.device))
-        key = ("raster", str(self.device), self.cfg, self.method, self.msaa,
-               id(self.backend), id(self.tex))
-        return self.graphs.run(key, self.frame_body, (x,), self.device,
-                               holds=(self.backend, self.tex))
+        return self.graphs.run(self.graph_key(), self.frame_body, (x,),
+                               self.device, holds=(self.backend, self.tex))
+
+    def graph_key(self) -> tuple:
+        """The static key of a captured frame, tracing's state with it."""
+        return ("raster", str(self.device), self.cfg, self.method,
+                self.msaa, id(self.backend), id(self.tex),
+                tracing.enabled())
 
     def frame_body(self, x):
         """The frame as the graph captures it, reading only `x` on the

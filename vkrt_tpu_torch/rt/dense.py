@@ -42,7 +42,7 @@ from typing import NamedTuple
 
 import torch
 
-from vkrt_tpu_torch import kernels
+from vkrt_tpu_torch import kernels, tracing
 from vkrt_tpu_torch.accel.clusters import (K1, K2, ROWS, SUB_COL, SUBRUNS,
                                            ClusterTree)
 
@@ -711,6 +711,7 @@ def trace_occluded(tree: ClusterTree, origins, dirs, tmax, *,
     ablate = _ablate(ablate, pregate)
     dev, nb = _check_rays("trace_occluded", origins, dirs, tmax, block,
                           point_origin, stats)
+    tracing.lanes("trace_occluded", nb * LANES)
     lists = (closest_worklists(tree, origins, dirs, tmax,
                                point_origin=point_origin, block=block)
              if pregate else None)
@@ -818,6 +819,7 @@ def trace_dense(tree: ClusterTree, origins, dirs, tmax, *, block: int = 512,
         return out
     dev, nb = _check_rays("trace_dense", origins, dirs, tmax, block,
                           point_origin, stats)
+    tracing.lanes("trace_closest", nb * LANES)
     lists = (closest_worklists(tree, origins, dirs, tmax,
                                point_origin=point_origin, block=block)
              if pregate else None)

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-from vkrt_tpu_torch import kernels
+from vkrt_tpu_torch import kernels, tracing
 from vkrt_tpu_torch.rt.dense import (_INF, ABLATES, LANES, WorkLists,
                                      _ablate, _check_block, _check_tree,
                                      _count, _mode_counts, _plain_lists,
@@ -118,6 +118,7 @@ def occluded_multi(tree: ClusterTree, light_pts, dirs, tmax, *,
     dev = dirs.device
     ns, nb = dirs.shape[0], dirs.shape[2]
     _check_block("occluded_multi", block, block)
+    tracing.lanes("occl_multi", ns * nb * LANES)
     lists = (multi_worklists(tree, light_pts, dirs, tmax)
              if pregate else None)
     if dev.type == "cpu":

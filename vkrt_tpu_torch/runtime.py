@@ -16,7 +16,7 @@ from typing import Callable
 
 import torch
 
-from vkrt_tpu_torch import kernels
+from vkrt_tpu_torch import kernels, tracing
 from vkrt_tpu_torch.utils.log import get_logger
 
 log = get_logger("vkrt_tpu_torch.runtime")
@@ -118,7 +118,12 @@ class FrameScheduler:
     numpy arrays, so the host waits for that frame alone and not for the
     frames queued after it: the role of the reference's per-image fence
     wait (Context.cpp:141-152). On the CPU the outputs are already there.
-    drain() retires the rest, oldest first."""
+    drain() retires the rest, oldest first.
+
+    Host spans (tracing.span, the frame's index in their args):
+    `vkrt.submit` with `vkrt.download` (the pinned copy and the event)
+    inside it; `vkrt.retire` with `vkrt.wait` (the event) and
+    `vkrt.numpy` inside it."""
 
     def __init__(self, inflight: int = 3):   # swapchain depth
         self.inflight = inflight
@@ -128,23 +133,29 @@ class FrameScheduler:
     def submit(self, fn: Callable, *args):
         """Enqueue one frame; returns (index, numpy outputs) of the frame
         this submission retired, or None."""
-        out = fn(*args)
-        event = None
-        if any(t.is_cuda for t in _tensors(out)):
-            out = map_tensors(_to_pinned, out)
-            event = torch.cuda.Event()
-            event.record()
-        self._queue.append((self._next, out, event))
-        self._next += 1
+        idx = str(self._next)
+        with tracing.span("vkrt.submit", args=idx):
+            out = fn(*args)
+            event = None
+            if any(t.is_cuda for t in _tensors(out)):
+                with tracing.span("vkrt.download", args=idx):
+                    out = map_tensors(_to_pinned, out)
+                    event = torch.cuda.Event()
+                    event.record()
+            self._queue.append((self._next, out, event))
+            self._next += 1
         if len(self._queue) > self.inflight:
             return self._retire()
         return None
 
     def _retire(self):
         idx, out, event = self._queue.popleft()
-        if event is not None:
-            event.synchronize()
-        return idx, map_tensors(torch.Tensor.numpy, out)
+        with tracing.span("vkrt.retire", args=str(idx)):
+            if event is not None:
+                with tracing.span("vkrt.wait", args=str(idx)):
+                    event.synchronize()
+            with tracing.span("vkrt.numpy", args=str(idx)):
+                return idx, map_tensors(torch.Tensor.numpy, out)
 
     def drain(self):
         while self._queue:

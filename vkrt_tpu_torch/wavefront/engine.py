@@ -46,6 +46,19 @@ per static key (graphs.py; the JAX engine's jitted frame): the accel
 update and the frame, reading only the frame's inputs (`frame_inputs`:
 the camera matrices, the transform, the Morton AABB). `host_wait` names
 the frames that stay eager.
+
+Spans (tracing.py; they survive the replay as marks on the card):
+`frame` holds `accel_update`, `camera_rays`, per depth d
+`trace_closest_d{d}`, `shade_d{d}`, `sample_d{d}`, `trace_shadow_d{d}`,
+and `resolve`; these leaves tile the frame, every kernel falls in one.
+`shade_d{d}` covers the miss shader, interpolation, the perturbed normal
+and light geometry, and the combine and reflection carry after the
+shadow trace: up to three intervals a depth, around `sample_d{d}` and
+`trace_shadow_d{d}`. Counters per depth: `live_closest_d{d}` (the rays
+kernel A traces live) and `cast_shadow_d{d}` (the segments kernel B
+traces live, summed over the lights); summed over the depths they are
+the frame's ray count. Kernels A, A' and B record the lanes they are
+launched over (tracing.lanes).
 """
 
 from __future__ import annotations
@@ -55,10 +68,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from vkrt_tpu_torch import config as C
-from vkrt_tpu_torch import graphs, runtime
+from vkrt_tpu_torch import graphs, runtime, tracing
 from vkrt_tpu_torch.accel.clusters import build_clusters, scene_attrs
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.accel.refit import refit_clusters
@@ -291,12 +303,15 @@ def render_frame(backend, tex: TextureArrays, proj_inverse, view_inverse,
     """Render one frame. Returns (framebuffer f32[H,W,3], rays i32[Nb,128]
     traced per pixel)."""
     wp, hp = _pad_dims(cfg.width, cfg.height)
-    origin_pt, dirs, valid = camera_ray_blocks(proj_inverse, view_inverse,
-                                               cfg)
+    dev = proj_inverse.device
+    with tracing.span("camera_rays", dev):
+        origin_pt, dirs, valid = camera_ray_blocks(proj_inverse,
+                                                   view_inverse, cfg)
     accum, ray_count = wavefront_rounds(backend, tex, origin_pt, dirs,
                                         lights, cfg, valid)
-    fb = torch.stack([untile(accum[k], hp, wp)[: cfg.height, : cfg.width]
-                      for k in range(3)], dim=-1)
+    with tracing.span("resolve", dev):
+        fb = torch.stack([untile(accum[k], hp, wp)[: cfg.height, : cfg.width]
+                          for k in range(3)], dim=-1)
     return fb, ray_count
 
 
@@ -306,8 +321,9 @@ def render_frame_u8(backend, tex: TextureArrays, proj_inverse, view_inverse,
     the JAX engine) and the ray-count sum."""
     fb, ray_count = render_frame(backend, tex, proj_inverse, view_inverse,
                                  lights, cfg)
-    fb8 = torch.clamp(fb * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
-    return fb8, ray_count.sum()
+    with tracing.span("resolve", fb.device):
+        fb8 = torch.clamp(fb * 255.0 + 0.5, 0.0, 255.0).to(torch.uint8)
+        return fb8, ray_count.sum()
 
 
 def lane_pixels(cfg: C.RenderConfig, rows: range, device):
@@ -357,18 +373,19 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
     dev = dirs.device
     nb = dirs.shape[1]
     shape = (nb, L.LANES)
-    accum = torch.zeros((3,) + shape, device=dev)
-    attenuation = torch.ones(shape, device=dev)
-    active = valid
-    ray_count = torch.zeros(shape, dtype=torch.int32, device=dev)
-    lights = lights[:cfg.num_lights]
-    origins = origin_pt[:, None, None].expand((3,) + shape).contiguous()
+    with tracing.span("camera_rays", dev):
+        accum = torch.zeros((3,) + shape, device=dev)
+        attenuation = torch.ones(shape, device=dev)
+        active = valid
+        ray_count = torch.zeros(shape, dtype=torch.int32, device=dev)
+        lights = lights[:cfg.num_lights]
+        origins = origin_pt[:, None, None].expand((3,) + shape).contiguous()
     cblk = _occl_block(nb * L.LANES)
 
     for depth in range(cfg.max_depth):
-        # record_function ranges name the layers in torch.profiler traces
-        # (the JAX engine's jax.named_scope ranges)
-        with record_function(f"trace_closest_d{depth}"):
+        # spans name the layers in torch.profiler traces, and in a
+        # replayed graph by their marks (the JAX engine's jax.named_scope)
+        with tracing.span(f"trace_closest_d{depth}", dev):
             tmax = torch.where(active, C.RAY_TMAX, 0.0)
             # resort_secondary: the reflection rays by direction octant,
             # dead rays last; results inverted after the trace
@@ -384,6 +401,7 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
                     cblk)
                 active = attenuation > 0
                 tmax = torch.where(active, C.RAY_TMAX, 0.0)
+            tracing.count(f"live_closest_d{depth}", active)
             o_t, d_t, tm_t = origins, dirs, tmax
             if rs_closest:
                 perm = resort.radix_partition_perm(
@@ -399,17 +417,19 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
                 inv = resort.inverse_permutation(perm)
                 t, u, v, attrs, hitm = (resort.permute_rays(x, inv)
                                         for x in (t, u, v, attrs, hitm))
-        dcount = active.to(torch.float32)
-        hit = hitm & active
-        miss = active & ~hitm
+        with tracing.span(f"shade_d{depth}", dev):
+            dcount = active.to(torch.float32)
+            hit = hitm & active
+            miss = active & ~hitm
 
-        # miss shader: sky, unattenuated (ref: shader.rmiss:17); Python
-        # scalars, so no host-to-device copy waits for the card
-        dacc = torch.stack([torch.where(miss, float(c), 0.0)
-                            for c in C.SKY_COLOR])
+            # miss shader: sky, unattenuated (ref: shader.rmiss:17);
+            # Python scalars, so no host-to-device copy waits for the card
+            dacc = torch.stack([torch.where(miss, float(c), 0.0)
+                                for c in C.SKY_COLOR])
 
-        pos, normal, uv, tangent, mat_ids = shading.interpolate(attrs, u, v)
-        with record_function(f"sample_d{depth}"):
+            pos, normal, uv, tangent, mat_ids = shading.interpolate(attrs, u,
+                                                                    v)
+        with tracing.span(f"sample_d{depth}", dev):
             if depth == 0 and cfg.mip_lod:
                 # beyond parity: trilinear at a per-ray level from
                 # lane-neighbour differentials (config.mip_lod)
@@ -430,71 +450,81 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
         base = base4[:3]
 
         if cfg.flat_albedo:
-            accum = accum + dacc + torch.where(hit[None], base, 0.0)
-            ray_count = ray_count + dcount.to(torch.int32)
+            with tracing.span(f"shade_d{depth}", dev):
+                accum = accum + dacc + torch.where(hit[None], base, 0.0)
+                ray_count = ray_count + dcount.to(torch.int32)
             break
 
-        map_n = nmap4[:3]
-        metallic = mr4[2]
-        pn = shading.perturbed_normal(normal, tangent, map_n)
-
-        total_light = torch.zeros(shape, device=dev)
-        nl = cfg.num_lights
-        geo = [shading.light_geometry(pos, lights[li]) for li in range(nl)]
-        ndotls = [L.dot3(pn, g[0]) for g in geo]
-        occs = [None] * nl
-        if cfg.enable_shadows and nl > 0:
-            casts = [hit & (nd > 0) for nd in ndotls]
-            with record_function(f"trace_shadow_d{depth}"):
+        with tracing.span(f"shade_d{depth}", dev):
+            map_n = nmap4[:3]
+            metallic = mr4[2]
+            pn = shading.perturbed_normal(normal, tangent, map_n)
+            nl = cfg.num_lights
+            geo = [shading.light_geometry(pos, lights[li])
+                   for li in range(nl)]
+            ndotls = [L.dot3(pn, g[0]) for g in geo]
+            occs = [None] * nl
+            shadows = cfg.enable_shadows and nl > 0
+            if shadows:
+                casts = [hit & (nd > 0) for nd in ndotls]
+        if shadows:
+            with tracing.span(f"trace_shadow_d{depth}", dev):
+                if tracing.enabled():
+                    tracing.count(f"cast_shadow_d{depth}",
+                                  torch.stack(casts))
                 occs = list(trace_shadows(backend, lights, pos, geo, hit,
                                           casts, cfg, depth))
-            for c in casts:
-                dcount = dcount + c.to(torch.float32)
+        with tracing.span(f"shade_d{depth}", dev):
+            total_light = torch.zeros(shape, device=dev)
+            if shadows:
+                for c in casts:
+                    dcount = dcount + c.to(torch.float32)
 
-        if cfg.enable_reflections:
-            reflective = hit & (metallic > C.METALLIC_THRESHOLD)
-            # attenuation updates BEFORE the (1 - attenuation) scale —
-            # order quirk preserved (ref: shader.rchit:165-167)
-            new_att = attenuation * (C.REFLECT_SCALE * metallic)
-            att_updated = torch.where(reflective, new_att, attenuation)
-        else:
-            reflective = torch.zeros_like(hit)
-            att_updated = attenuation
+            if cfg.enable_reflections:
+                reflective = hit & (metallic > C.METALLIC_THRESHOLD)
+                # attenuation updates BEFORE the (1 - attenuation) scale —
+                # order quirk preserved (ref: shader.rchit:165-167)
+                new_att = attenuation * (C.REFLECT_SCALE * metallic)
+                att_updated = torch.where(reflective, new_att, attenuation)
+            else:
+                reflective = torch.zeros_like(hit)
+                att_updated = attenuation
 
-        for li in range(nl):
-            diffuse = torch.clamp(ndotls[li], 0.0, 1.0)
-            mult = torch.ones(shape, device=dev)
-            if cfg.enable_shadows:
-                cast = hit & (ndotls[li] > 0)
-                mult = torch.where(cast & occs[li], C.SHADOW_MULTIPLIER, 1.0)
-            total_light = total_light + diffuse * geo[li][2] * mult
+            for li in range(nl):
+                diffuse = torch.clamp(ndotls[li], 0.0, 1.0)
+                mult = torch.ones(shape, device=dev)
+                if cfg.enable_shadows:
+                    cast = hit & (ndotls[li] > 0)
+                    mult = torch.where(cast & occs[li], C.SHADOW_MULTIPLIER,
+                                       1.0)
+                total_light = total_light + diffuse * geo[li][2] * mult
 
-        hit_value = (base * (total_light * attenuation)[None]
-                     + base * C.AMBIENT)
-        if cfg.enable_reflections:
-            hit_value = torch.where(reflective[None],
-                                    hit_value * (1.0 - att_updated)[None],
-                                    hit_value)
-        dacc = dacc + torch.where(hit[None], hit_value, 0.0)
+            hit_value = (base * (total_light * attenuation)[None]
+                         + base * C.AMBIENT)
+            if cfg.enable_reflections:
+                hit_value = torch.where(reflective[None],
+                                        hit_value * (1.0 - att_updated)[None],
+                                        hit_value)
+            dacc = dacc + torch.where(hit[None], hit_value, 0.0)
 
-        attenuation = att_updated
-        origins = L.where3(reflective, pos, origins)
-        dirs = L.where3(reflective, shading.reflect(dirs, pn), dirs)
-        active = reflective
-        if pt_closest:
-            # one inverse returns the contributions, and the reflection
-            # carry while depths remain, to the original ray order
-            more = depth + 1 < cfg.max_depth
-            back = unpartition_rays(dacc, dcount, origins, dirs,
-                                    attenuation, active, undo_c, more)
-            accum = accum + back[:3]
-            ray_count = ray_count + back[3].to(torch.int32)
-            if more:
-                origins, dirs = back[4:7], back[7:10]
-                attenuation, active = back[10], back[11] > 0.5
-        else:
-            accum = accum + dacc
-            ray_count = ray_count + dcount.to(torch.int32)
+            attenuation = att_updated
+            origins = L.where3(reflective, pos, origins)
+            dirs = L.where3(reflective, shading.reflect(dirs, pn), dirs)
+            active = reflective
+            if pt_closest:
+                # one inverse returns the contributions, and the reflection
+                # carry while depths remain, to the original ray order
+                more = depth + 1 < cfg.max_depth
+                back = unpartition_rays(dacc, dcount, origins, dirs,
+                                        attenuation, active, undo_c, more)
+                accum = accum + back[:3]
+                ray_count = ray_count + back[3].to(torch.int32)
+                if more:
+                    origins, dirs = back[4:7], back[7:10]
+                    attenuation, active = back[10], back[11] > 0.5
+            else:
+                accum = accum + dacc
+                ray_count = ray_count + dcount.to(torch.int32)
 
     return accum, ray_count
 
@@ -890,13 +920,18 @@ class Renderer(SceneOnDevice):
         update = m is not None
         if not self.captured():
             return self.frame_body(upload_matrix(x, self.device), update)
-        key = ("frame", str(self.device), self.cfg, self.quantize, update,
-               self.rebuild, repr(self.sah_opts), id(self.backend),
-               id(self.tex), id(self.lights))
         return self.graphs.run(
-            key, lambda xs: self.frame_body(xs, update), (x,), self.device,
-            holds=(self.backend, self.tex, self.lights,
-                   self._rebuild_inputs))
+            self.graph_key(update), lambda xs: self.frame_body(xs, update),
+            (x,), self.device, holds=(self.backend, self.tex, self.lights,
+                                      self._rebuild_inputs))
+
+    def graph_key(self, update: bool) -> tuple:
+        """The static key of a captured frame: all it reads but its
+        inputs, and whether tracing is on (a traced frame carries marks
+        and counters)."""
+        return ("frame", str(self.device), self.cfg, self.quantize, update,
+                self.rebuild, repr(self.sah_opts), id(self.backend),
+                id(self.tex), id(self.lights), tracing.enabled())
 
     def frame_inputs(self, camera, m=None) -> np.ndarray:
         """All that a frame reads that may change from frame to frame, as
@@ -926,14 +961,17 @@ class Renderer(SceneOnDevice):
     def frame_body(self, x, update: bool):
         """The frame as the graph captures it, reading only `x`
         (`frame_inputs` on the device) beside the scene: the accel update
-        when `update`, then render_frame_u8 (quantize) or render_frame."""
+        when `update`, then render_frame_u8 (quantize) or render_frame;
+        all of it in the span `frame`."""
         backend = self.backend
-        if update:
-            with record_function("accel_update"):
-                backend = backend._replace(tree=self._update_tree(x[32:]))
-        frame = render_frame_u8 if self.quantize else render_frame
-        return frame(backend, self.tex, x[0:16].reshape(4, 4),
-                     x[16:32].reshape(4, 4), self.lights, self.cfg)
+        with tracing.span("frame", x.device):
+            if update:
+                with tracing.span("accel_update", x.device):
+                    backend = backend._replace(
+                        tree=self._update_tree(x[32:]))
+            frame = render_frame_u8 if self.quantize else render_frame
+            return frame(backend, self.tex, x[0:16].reshape(4, 4),
+                         x[16:32].reshape(4, 4), self.lights, self.cfg)
 
     def render(self, camera, transform=None):
         """Synchronous render: enqueue + materialize on host."""
