@@ -17,7 +17,7 @@ raster frame and --shard, and 26 run the default, a CUDA graph a frame
 Python) and, for graphs, on the card by torch.profiler, which records
 every kernel node of a replay by name (graphs.kernel_launches):
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A-G and A' from vkrt_tpu_torch/csrc/ into
+  2. build    compile kernels A-H and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked),
@@ -107,7 +107,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               rebuild_per_frame) with a y-rotation that grows every frame,
               for rebuild = refit, full (device SAH), full_morton: a warm-up
               frame + CONFIG5_FRAMES timed frames each (A 4, B 4, C-F 3
-              launches per frame), the accel update's own time (mean of 5),
+              launches per frame, and H 14 in full), the accel update's
+              own time (mean of 5),
               then per mode two profiled frames and two frames whose engine
               ranges are timed with CUDA events (they partition the frame)
  17. config-5 gates  identity refit frame bit-equal to the frame without a
@@ -118,6 +119,14 @@ every kernel node of a replay by name (graphs.kernel_launches):
               transformed triangles (per mode); the device-SAH order a
               permutation whose cluster area is <= 1.30x the host build's
               and < 0.8x the Morton order's on the full scene
+ 27. kernel H (device_sah.cut_round, one cut round of the device SAH
+              build) vs its plain version `_cut_round` on the card: the
+              probes of `cut_case` (every size and kind, rounded either
+              way), then the 14 rounds of one build of the full scene
+              (2,049 chunks, recorded from device_sah_order), bit-equal,
+              and that build's order equal to the one made with the plain
+              rounds; ms per launch on a filled queue beside the plain
+              version's, the bound and the host's enqueue ms
  18. config-5 shapes  phase 9 on config 5, per rebuild mode: kernels A and
               B at all four depths and C-F at depths 1-3, each vs its plain
               version on the inputs one 1080p frame gives it on the tree
@@ -219,7 +228,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path, on the card (phase 26's config-4 graph
 frames for A-F, phase 15's graph frames for A', phase 26's raster graph
-frames for G), or on the host for the modes (phase 24's eager frames for
+frames for G, phase 26's config-5 full-rebuild graph frames for H), or on
+the host for the modes (phase 24's eager frames for
 the four mode rows, phase 25's drive for its rows), its largest error,
 its time per frame and the bound of that
 work, and, as the last line, {"ok": true, "device": {...}}.
@@ -246,7 +256,7 @@ import torch
 
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import graphs, kernels, runtime, tracing
-from vkrt_tpu_torch.accel import clusters
+from vkrt_tpu_torch.accel import clusters, device_sah
 from vkrt_tpu_torch.accel.clusters import K1, K2, SUB_COL, SUBRUNS
 from vkrt_tpu_torch.accel.device_sah import device_sah_order
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
@@ -331,6 +341,7 @@ G_CHUNK = 4              # phase 10: kernel G's work list cut to 4
                          # superclusters a chunk (the full scene has 33)
 CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1)   # a config-4 frame
 CONFIG5_LAUNCHES = dict(A=4, B=4, C=3, D=3, E=3, F=3)   # a config-5 frame
+SAH_ROUNDS = 14          # kernel H a device-SAH build (max_levels)
 SHARD_KEYS = ("device_ms", "host_enqueue_ms", "host_enqueue_ms_idle_stream",
               "device_busy_ms", "busy_share_profiled", "peak_mem_gb")
 REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
@@ -359,6 +370,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "C": pack.consolidate,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
            "F": lanesort.lane_unsort, "G": edge.raster_edge,
+           "H": device_sah.cut_round,
            "A.sub_gate": ModeCount(trace_dense, "sub_gate"),
            "A.recheck": ModeCount(trace_dense, "recheck"),
            "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
@@ -368,7 +380,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
 # graph's too, which run no Python and so move no wrapper's count
 ON_CARD = {"A": "trace_closest", "A'": "trace_occluded", "B": "occl_multi",
            "C": "consolidate", "D": "scatter_back", "E": "lane_sort",
-           "F": "lane_unsort", "G": "raster_edge"}
+           "F": "lane_unsort", "G": "raster_edge", "H": "sah_cut"}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 # phase 25: the JAX kernels' remaining modes, each a wrapper's
@@ -792,6 +804,47 @@ def adversarial_keys(rng, nb: int, block: int) -> dict:
                                   DEAD_KEY),
             "signed": rng.integers(-(1 << 23), 1 << 23, n)}
     return {k: v.reshape(nb, 128).astype(np.int32) for k, v in keys.items()}
+
+
+CUT_SIZES = (1, 2, 64, 65, 1025, 2049, 131072)   # chunks (c5 builds 2,049)
+CUT_KINDS = ("one", "singles", "mixed", "padding", "ties")
+CUT_LENGTHS = (1, 2, 3, 7, 40, 64, 65, 100, 129, 300)   # "mixed" segments
+
+
+def cut_case(nc: int, kind: str, seed: int = SEED) -> tuple:
+    """Inputs of one cut round (device_sah.cut_round) on the CPU: cb
+    bool[nc], nmin / nmax f32[nc,3], ncnt f32[nc]. "one" segment;
+    "singles", every chunk a segment of its own (no valid cut); "mixed",
+    segments of CUT_LENGTHS chunks, some longer than K2 (K2-aligned
+    cuts); "padding", mixed with a fifth of the chunks padding-only
+    (+-_INF boxes, count 0), a padding tail, and a fifth of the segments
+    holding triangles in their first chunk alone (no valid cut); "ties",
+    mixed with one unit box and one count in every chunk, so that every
+    valid cut of a segment costs exactly the same and the lowest must
+    win."""
+    rng = np.random.default_rng(seed + 7919 * nc)
+    if kind == "one":
+        cb = np.zeros(nc, bool)
+    elif kind == "singles":
+        cb = np.ones(nc, bool)
+    else:
+        lens = rng.choice(CUT_LENGTHS, size=nc)
+        starts = np.cumsum(lens) - lens
+        cb = np.zeros(nc, bool)
+        cb[starts[starts < nc]] = True
+    cb[0] = True
+    lo = rng.uniform(-100.0, 100.0, (nc, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.0, 20.0, (nc, 3))).astype(np.float32)
+    cnt = rng.integers(1, K1, nc).astype(np.float32)    # sum below 2^24
+    if kind == "ties":
+        lo[:], hi[:], cnt[:] = 0.0, 1.0, 64.0
+    if kind == "padding":
+        sid = np.cumsum(cb) - 1
+        alone = rng.random(sid[-1] + 1) < 0.2
+        pad = (rng.random(nc) < 0.2) | (alone[sid] & ~cb)
+        pad[-max(1, nc // 50):] = True
+        lo[pad], hi[pad], cnt[pad] = clusters._INF, -clusters._INF, 0.0
+    return tuple(torch.from_numpy(x) for x in (cb, lo, hi, cnt))
 
 
 def probe_moves(device) -> dict:
@@ -2062,6 +2115,12 @@ def config5_tfs(n: int) -> list:
     return [rot_y(0.01 * k) for k in range(n)]
 
 
+def config5_launches(mode: str) -> dict:
+    """A config-5 frame's launches in a rebuild mode: the full rebuild
+    runs kernel H once a level."""
+    return {**CONFIG5_LAUNCHES, "H": SAH_ROUNDS * (mode == "full")}
+
+
 def config5_modes(base: Renderer, cams) -> tuple:
     """Phase 16: config 5 at full width on the full scene, per rebuild
     mode: a warm-up frame + CONFIG5_FRAMES timed frames under the
@@ -2076,7 +2135,7 @@ def config5_modes(base: Renderer, cams) -> tuple:
     for mode in REBUILD_MODES:
         r = copy.copy(base)
         r.cfg, r.rebuild = cfg, mode
-        out, frames[mode] = drive(r, cams, CONFIG5_LAUNCHES,
+        out, frames[mode] = drive(r, cams, config5_launches(mode),
                                   f"config 5, rebuild={mode}", tfs)
         m = rot_y(0.02)
         out["update_ms"] = cuda_ms(lambda: r.update_tree(m), 5)
@@ -2211,6 +2270,63 @@ def config5_gates(base: Renderer, cam: Camera, dev) -> dict:
         raise AssertionError(f"device-SAH order failed its gates: "
                              f"{out['sah']}")
     return out
+
+
+def sah_cut_shapes(base: Renderer, dev) -> dict:
+    """Phase 27: kernel H (device_sah.cut_round) vs its plain version
+    `_cut_round` on the card, bit for bit: on `cut_case`'s probes, then on
+    the cut rounds of one device-SAH build of the full scene (config 5's
+    per-frame rebuild) made with the plain rounds, whose inputs are
+    recorded, and whose order must equal the kernel's build's. Times at
+    the build's shape on
+    a filled queue (`queued_ms`; a round's inputs are the previous
+    kernels' outputs, in L2 as there): H's ms per launch over the 14
+    rounds, the plain version's per round over rounds 0, 4, 9 and 13, the
+    host's enqueue ms of each; the bound of the
+    work (the inputs read once, the output written once; ~20 float
+    operations a chunk)."""
+    mismatched = []
+    for nc in CUT_SIZES:
+        for kind in CUT_KINDS:
+            args = [x.to(dev) for x in cut_case(nc, kind)]
+            for fused in (False, True):
+                if not torch.equal(device_sah.cut_round(*args, fused),
+                                   device_sah._cut_round(*args, fused)):
+                    mismatched.append((nc, kind, fused))
+    geometry, _, _ = base.rebuild_inputs()
+    kernel = device_sah.cut_round
+    rounds = []
+
+    def record(*args):            # the plain rounds' inputs, in order
+        rounds.append([x.clone() if torch.is_tensor(x) else x
+                       for x in args])
+        return device_sah._cut_round(*args)
+
+    try:
+        device_sah.cut_round = record
+        order_plain = device_sah_order(*geometry)
+    finally:
+        device_sah.cut_round = kernel
+    same_order = bool(torch.equal(device_sah_order(*geometry), order_plain))
+    for k, r in enumerate(rounds):
+        if not torch.equal(kernel(*r), device_sah._cut_round(*r)):
+            mismatched.append(("build round", k))
+    nc = rounds[0][0].shape[0]
+    h = queued_ms([functools.partial(kernel, *r) for r in rounds],
+                  reps=2 * len(rounds))
+    # the plain round enqueues ~500 PyTorch calls (~8 ms of host): four
+    # rounds across the levels fit behind queued_ms's spin
+    plain = queued_ms([functools.partial(device_sah._cut_round, *rounds[k])
+                       for k in (0, 4, 9, 13)], reps=4)
+    res = dict(chunks=nc, rounds=len(rounds), mismatched=mismatched,
+               order_equal=same_order, ms=h["ms"],
+               enqueue_ms=h["enqueue_ms"], plain_ms=plain["ms"],
+               plain_enqueue_ms=plain["enqueue_ms"],
+               **bound(30 * nc, 20 * nc))
+    log("  kernel H vs plain:", json.dumps(res))
+    if mismatched or not same_order or len(rounds) != SAH_ROUNDS:
+        raise AssertionError(f"kernel H differs from _cut_round: {res}")
+    return res
 
 
 def zero_counts() -> None:
@@ -3329,8 +3445,9 @@ def graph_frames(model, sync, rast, cams, rcams, ref: dict, dev,
     included; on the host the captures alone), device ms, host enqueue
     ms, the profiled busy share (replays show no ranges), capture ms and
     peak memory; each renderer's graphs are freed after its part. Returns
-    the table and the launches on the card of the config-4 and raster
-    runs (the default path of phases 7 and 12: the kernels' line)."""
+    the table and the launches on the card of the config-4, config-5
+    full-rebuild and raster runs (the default path of phases 7, 16 and 12:
+    the kernels' line)."""
     rows = {}
     cam = start_camera(sync.cfg.width, sync.cfg.height)
     g = graphed(sync)
@@ -3347,9 +3464,11 @@ def graph_frames(model, sync, rast, cams, rcams, ref: dict, dev,
     for mode in REBUILD_MODES:
         g = graphed(sync)
         g.cfg, g.rebuild = C.config5_stress(), mode
-        res, outs = drive(g, c5cams, CONFIG5_LAUNCHES,
+        res, outs = drive(g, c5cams, config5_launches(mode),
                           f"graph: config 5, rebuild={mode}",
                           config5_tfs(len(c5cams)))
+        if mode == "full":
+            launches.update(config5_full=res["launches"])
         same_frames(outs, ref["config5_outs"][mode],
                     f"graph: config 5, {mode}")
         prof = profile_frames(lambda: g.render_async(cam),
@@ -3529,6 +3648,9 @@ def main() -> int:
 
     log("== 17. config-5 gates")
     config5_gates(renderer, cam, dev)
+
+    log("== 27. kernel H vs plain: cut-round probes and a full-scene build")
+    res_27 = sah_cut_shapes(renderer, dev)
 
     log("== 18. kernels vs plain at the config-5 path's shapes")
     res_18 = {}
@@ -3719,6 +3841,19 @@ def main() -> int:
                    "vkrt_tpu_torch/csrc/occl_multi.cu",
                    "vkrt_tpu/rt/occl_multi.py:404"),
         *[p25_entry(k) for k in P25_ROWS],
+        {"name": "sah_cut", "route": "cuda",
+         "source": "vkrt_tpu_torch/csrc/sah_cut.cu",
+         "replaces": "none: vkrt_tpu/accel/device_sah.py's cut rounds "
+                     "(:387) are XLA",
+         "launches": main_launches["config5_full"]["H"],
+         "max_abs_err": len(res_27["mismatched"]),
+         "ms": res_27["ms"] * SAH_ROUNDS,
+         "ms_per_launch": res_27["ms"],
+         "plain_ms": res_27["plain_ms"] * SAH_ROUNDS,
+         "bound_ms": res_27["bound_ms"] * SAH_ROUNDS,
+         "bound_by": res_27["bound_by"], "library_ms": None,
+         "design": "one block: segmented box scans by warp shuffles, tiles "
+                   "of 1024 chunks"},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,15 +1,17 @@
-"""Kernels A-G and A' on the card vs their plain PyTorch versions (A, A'
+"""Kernels A-H and A' on the card vs their plain PyTorch versions (A, A'
 and B in each of their modes also vs their default mode; A's and A''s
 stats within the plain version's bounds), the
-per-frame accel update (refit, device SAH and Morton rebuilds) on the
-card vs the CPU, the app surface on the card (FrameScheduler on CUDA
-events, the CLI's fly-through, the reference backend (LBVH) vs dense),
-and a frame split over logical shards of the card vs the unsharded one.
+per-frame accel update (refit, device SAH in every mode, and Morton
+rebuilds) on the card vs the CPU, the app surface on the card
+(FrameScheduler on CUDA events, the CLI's fly-through, the reference
+backend (LBVH) vs dense), and a frame split over logical shards of the
+card vs the unsharded one.
 
 Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
 covered on the CPU by test_torch_trace.py, test_torch_pack.py,
-test_torch_lanesort.py and test_torch_raster_edge.py). C-F move f32
+test_torch_lanesort.py, test_torch_raster_edge.py and
+test_torch_device_build.py). C-F move f32
 values without arithmetic, so they must equal their plain versions
 exactly. Imports no JAX, so it runs on a machine without it:
 
@@ -23,8 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (adversarial_keys, duplicate_triangle, tie_slots,
-                        tie_tree)
+from chip_smoke import (CUT_KINDS, CUT_SIZES, adversarial_keys, cut_case,
+                        duplicate_triangle, tie_slots, tie_tree)
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import graphs, tracing
 from vkrt_tpu_torch.accel import clusters
@@ -40,7 +42,8 @@ from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster.pipeline import (MSAA8, Rasterizer,
                                             render_raster_frame_edge,
                                             sample_pixel_lanes)
-from vkrt_tpu_torch.accel.device_sah import device_sah_order
+from vkrt_tpu_torch.accel.device_sah import (_cut_round, cut_round,
+                                             device_sah_order)
 from vkrt_tpu_torch.accel.refit import refit_clusters
 from vkrt_tpu_torch import kernels
 from vkrt_tpu_torch.rt import dense
@@ -97,7 +100,7 @@ WRAPPERS = {"trace_closest": dense.trace_dense,
             "scatter_back": pack.scatter_back,
             "lane_sort": lanesort.lane_sort,
             "lane_unsort": lanesort.lane_unsort,
-            "raster_edge": edge.raster_edge}
+            "raster_edge": edge.raster_edge, "sah_cut": cut_round}
 
 
 def counted(fn):
@@ -707,7 +710,58 @@ def test_device_sah_order_on_card_matches_cpu(renderer, card):
     tris = [torch.as_tensor(x) for x in (v0, p[idx[:, 1]] - v0,
                                          p[idx[:, 2]] - v0)]
     want = device_sah_order(*tris)
+    before = cut_round.launches
     got = device_sah_order(*(x.to(card) for x in tris))
+    assert cut_round.launches == before + 14       # a round a level
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", CUT_KINDS)
+@pytest.mark.parametrize("nc", CUT_SIZES)
+def test_kernel_h_matches_plain(card, nc, kind):
+    """Kernel H (one launch) vs the plain `_cut_round` on the same CUDA
+    tensors and on the CPU, rounded either way: the same new boundaries,
+    bit for bit (one segment; single-chunk segments; segments past K2
+    chunks, K2-aligned; padding-only chunks; exact ties, the lowest chunk
+    winning; segments without a valid cut)."""
+    host = cut_case(nc, kind)
+    args = [x.to(card) for x in host]
+    for fused in (False, True):
+        before = cut_round.launches
+        got = cut_round(*args, fused)
+        assert cut_round.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, _cut_round(*args, fused)), fused
+        assert torch.equal(got.cpu(), _cut_round(*host, fused)), fused
+
+
+@pytest.fixture(scope="module")
+def full_triangles():
+    """(v0, e1, e2) of the full procedural scene (262,267 triangles, the
+    per-frame rebuild's 2,049 chunks), CPU tensors."""
+    from vkrt_tpu_torch.scene import flatten_model
+    flat = flatten_model(procedural_model("full", seed=0))
+    idx = np.asarray(flat.indices, dtype=np.int64)
+    p = np.asarray(flat.positions, np.float32)
+    v0 = p[idx[:, 0]]
+    return [torch.as_tensor(x) for x in (v0, p[idx[:, 1]] - v0,
+                                         p[idx[:, 2]] - v0)]
+
+
+@pytest.mark.parametrize("opts", [
+    {}, dict(axis_mode="extent"), dict(axis_mode="variance"),
+    dict(axis_mode="slab"), dict(axis_mode="hybrid:4"),
+    dict(axis_mode="sampled:8"), dict(cuts=2), dict(stable=False)],
+    ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()) or "shipped")
+def test_device_sah_order_modes_on_card_match_cpu(card, full_triangles,
+                                                  opts):
+    """device_sah_order on the full scene, each mode: the card's order
+    (kernel H a cut round: 14, or 10 + 4 x 2 with cuts=2) equals the
+    CPU's."""
+    want = device_sah_order(*full_triangles, **opts)
+    before = cut_round.launches
+    got = device_sah_order(*(x.to(card) for x in full_triangles), **opts)
+    assert cut_round.launches - before == (18 if opts.get("cuts") else 14)
     assert torch.equal(got.cpu(), want)
 
 
@@ -1142,7 +1196,8 @@ def test_graph_frames_equal_eager_frames(renderer, case):
     """Configs 1-5 (config 5 in each rebuild mode, under two transforms)
     at 64x48: the replayed frames and ray counts equal the eager ones of
     the same camera bit for bit, two cameras give two frames. Launches:
-    an eager frame's run on the card as its wrappers count them; the
+    an eager frame's run on the card as its wrappers count them (kernel
+    H 14 times in config 5's full rebuild, else never); the
     first graph frame runs them twice on the card (warm-up and replay)
     and counts them twice on the host (warm-up and capture); a replay
     runs them once on the card and counts nothing."""
@@ -1159,6 +1214,7 @@ def test_graph_frames_equal_eager_frames(renderer, case):
     for k, (cam, tf) in enumerate(zip(two_cameras(), tfs)):
         want, card, host = counted(lambda: eager.render_async(cam, tf))
         assert card == host and card["trace_closest"] > 0
+        assert card.get("sah_cut", 0) == (14 if mode == "full" else 0)
         got, g_card, g_host = counted(lambda: graph.render_async(cam, tf))
         assert g_card == (twice(card) if k == 0 else card)
         assert g_host == (twice(card) if k == 0 else {})

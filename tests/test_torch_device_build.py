@@ -9,7 +9,10 @@ whole-number sums, one sort per level and elementwise float32 on both
 sides; XLA's CPU code contracts the SAH costs' product sums into fused
 multiply-adds, and the port rounds those once too, so ties fall alike);
 total cluster area at most 1.30x the host build's and
-below 0.8x the Morton order's (tests/test_device_sah.py's bars).
+below 0.8x the Morton order's (tests/test_device_sah.py's bars). The cut
+round's plain version (`_cut_round`, the specification kernel H is held
+to on the card) equal to a direct loop over each segment's cuts; its
+wrapper `cut_round` on the CPU runs it and launches nothing.
 """
 
 import jax.numpy as jnp
@@ -22,8 +25,10 @@ from vkrt_tpu.accel.clusters import scene_attrs as jax_scene_attrs
 from vkrt_tpu.accel.device_sah import device_sah_order as jax_sah_order
 from vkrt_tpu.accel.lbvh import morton30 as jax_morton30
 from vkrt_tpu.scene import flatten_model
+from chip_smoke import CUT_KINDS, CUT_SIZES, cut_case
 from vkrt_tpu_torch.accel import clusters as tc
-from vkrt_tpu_torch.accel.device_sah import device_sah_order
+from vkrt_tpu_torch.accel.device_sah import (_cut_round, cut_round,
+                                             device_sah_order)
 from vkrt_tpu_torch.accel.lbvh import morton30
 from vkrt_tpu_torch.scene.procedural import procedural_model
 
@@ -219,3 +224,105 @@ def test_host_build_keeps_working_and_rejects_unknown_method():
     assert isinstance(morton.tri_data, torch.Tensor)
     with pytest.raises(ValueError, match="unknown method"):
         tc.build_clusters(v0, e1, e2, method="lbvh")
+
+
+def _area_np(ext, fused: bool):
+    """device_sah._area's rounding in numpy (float32; `fused`: each
+    product sum in float64, rounded to float32 once)."""
+    e0, e1, e2 = ext[:, 0], ext[:, 1], ext[:, 2]
+    if not fused:
+        return e2 * e0 + (e0 * e1 + e1 * e2)
+
+    def fma(a, b, c):
+        return (a.astype(np.float64) * b + c.astype(np.float64)).astype(
+            np.float32)
+    return fma(e2, e0, fma(e0, e1, e1 * e2))
+
+
+def cut_round_loop(cb, nmin, nmax, ncnt, fused: bool):
+    """A cut round written out segment by segment: the box and count of
+    each side of every K1-aligned cut (K2-aligned in a segment of more
+    than K2 chunks) that leaves triangles on both sides, its SAH cost
+    (the left side's area times its count, plus the right side's), and
+    the first cut of the least cost, if that is below _INF."""
+    cb, nmin, nmax, ncnt = (x.numpy() for x in (cb, nmin, nmax, ncnt))
+    out = cb.copy()
+    starts = np.flatnonzero(cb)
+    for s, e in zip(starts, list(starts[1:]) + [len(cb)]):
+        align = tc.K2 if e - s > tc.K2 else 1
+        ks = np.arange(align, e - s, align)         # cut before chunk s + k
+        if not len(ks):
+            continue
+        mn, mx, ct = nmin[s:e], nmax[s:e], ncnt[s:e].astype(np.float64)
+        with np.errstate(over="ignore"):
+            cost_l = _area_np(np.maximum(np.maximum.accumulate(mx)
+                                         - np.minimum.accumulate(mn), 0),
+                              fused) * np.cumsum(ct).astype(np.float32)
+            cost_r = _area_np(np.maximum(
+                np.maximum.accumulate(mx[::-1])[::-1]
+                - np.minimum.accumulate(mn[::-1])[::-1], 0),
+                fused) * np.cumsum(ct[::-1])[::-1].astype(np.float32)
+        left = np.cumsum(ct)
+        right = np.cumsum(ct[::-1])[::-1]
+        cost = np.where((left[ks - 1] > 0) & (right[ks] > 0),
+                        cost_l[ks - 1] + cost_r[ks], np.float32(tc._INF))
+        if cost.min() < np.float32(tc._INF):
+            out[s + ks[np.argmin(cost)]] = True      # the first minimum
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("kind", CUT_KINDS)
+@pytest.mark.parametrize("nc", CUT_SIZES)
+def test_plain_cut_round_matches_segment_loop(nc, kind):
+    """`_cut_round`'s segmented scans (int64 cummin / cummax keys) give
+    the same new boundaries as the loop over segments, rounded either
+    way; exact ties (kind "ties") go to the lowest chunk, padding-only
+    chunks (+-_INF boxes) cost nothing, and a segment without a valid cut
+    gets no bit."""
+    args = cut_case(nc, kind)
+    for fused in (False, True):
+        got = _cut_round(*args, fused)
+        want = cut_round_loop(*args, fused)
+        assert torch.equal(got, want), fused
+        assert torch.equal(got & args[0], args[0])
+    if kind == "singles":
+        assert torch.equal(got, args[0])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_cut_round_on_cpu_runs_the_plain_version(fused):
+    """cut_round on CPU tensors is `_cut_round` and launches nothing; so
+    does a whole CPU build."""
+    before = cut_round.launches
+    for kind in CUT_KINDS:
+        args = cut_case(2049, kind)
+        assert torch.equal(cut_round(*args, fused), _cut_round(*args, fused))
+    device_sah_order(*to_torch(*triangles("scene")))
+    assert cut_round.launches == before == 0
+
+
+def _bad_cut_inputs():
+    cb, nmin, nmax, ncnt = cut_case(65, "mixed")
+    wide = torch.zeros(65, 4)
+    return {
+        "cb_dtype": (cb.to(torch.uint8), nmin, nmax, ncnt),
+        "cb_shape": (cb[:, None], nmin, nmax, ncnt),
+        "nmin_dtype": (cb, nmin.double(), nmax, ncnt),
+        "nmax_shape": (cb, nmin, wide, ncnt),
+        "ncnt_shape": (cb, nmin, nmax, ncnt[:, None]),
+        "ncnt_length": (cb, nmin, nmax, ncnt[:64]),
+        "strided": (cb, nmin, wide[:, :3], ncnt),
+        "devices": (cb, nmin, nmax, ncnt.to("meta")),
+        "unsupported": tuple(x.to("meta") for x in (cb, nmin, nmax, ncnt)),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_cut_inputs()))
+def test_cut_round_checks_its_arguments(case):
+    """What kernel H does not take raises ValueError on every device, as
+    wavefront/pack.py's checks do: dtypes, shapes, contiguity, one
+    device, and a device that is neither the CPU nor CUDA."""
+    match = {"strided": "contiguous", "devices": "contiguous",
+             "unsupported": "unsupported device"}.get(case, "want bool")
+    with pytest.raises(ValueError, match=match):
+        cut_round(*_bad_cut_inputs()[case], False)

@@ -228,7 +228,8 @@ def test_kernel_launches_read_the_profiler_names():
     assert graphs.kernel_name(events[5].key) is None
     assert graphs.kernel_launches(events) == dict(
         trace_closest=5, trace_occluded=0, occl_multi=4, consolidate=0,
-        scatter_back=0, lane_sort=3, lane_unsort=2, raster_edge=0)
+        scatter_back=0, lane_sort=3, lane_unsort=2, raster_edge=0,
+        sah_cut=0)
 
 
 @pytest.mark.parametrize("shards", [2, 5, 7])

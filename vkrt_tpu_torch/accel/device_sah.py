@@ -17,10 +17,13 @@ the tensors' device, every level processing ALL current segments at once:
      segment exceeds a supercluster, so superclusters stay subtrees);
   4. each segment's best cut becomes one new boundary bit.
 
-The result feeds accel/clusters._assemble. Plain PyTorch with no host
-wait (no .item(), no nonzero) in the level loop: the per-frame rebuild
-calls this every frame. The JAX package computes the same passes in XLA,
-outside any Pallas kernel.
+The result feeds accel/clusters._assemble. No host wait (no .item(), no
+nonzero) in the level loop: the per-frame rebuild calls this every frame,
+captured in its CUDA graph. Steps 1-2 are plain PyTorch; steps 3-4, a cut
+round, are `cut_round`: on a CUDA tensor kernel H (csrc/sah_cut.cu), one
+launch a round, on a CPU tensor its plain version `_cut_round`, bit for
+bit the same. The JAX package computes the same passes in XLA, outside
+any Pallas kernel.
 
 The JAX function's float sums of products are compiled by XLA on the
 CPU into fused multiply-adds. The ablation modes round the same ones
@@ -30,11 +33,14 @@ order; sampled:8 meets an exact tie there). The shipped mode keeps
 float32 products and sums: the per-frame rebuild runs it, and the fused
 rounding costs it three float64 casts a product sum.
 
-torch has no associative_scan, so the segmented box scans run as ONE
-cummin / cummax over int64 keys: segment ids are monotone along the
-chunks, so a key of (segment rank << 32 | order-preserving bits of the
-f32 value), with the rank falling (cummin) or rising (cummax) along the
-scan, confines the running extreme to the current segment exactly.
+In the plain `_cut_round` (the CPU path, and the specification kernel H
+is held to) the segmented box scans run, as torch has no
+associative_scan, as ONE cummin / cummax over int64 keys: segment ids
+are monotone along the chunks, so a key of (segment rank << 32 |
+order-preserving bits of the f32 value), with the rank falling (cummin)
+or rising (cummax) along the scan, confines the running extreme to the
+current segment exactly. Kernel H scans the same order-preserving bits
+segment by segment.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import re
 
 import torch
 
+from vkrt_tpu_torch import kernels
 from vkrt_tpu_torch.accel.clusters import _INF, K1, K2
 
 NBINS = 16   # axis-choice SAH bins
@@ -233,7 +240,7 @@ def _axis_slab(cen_o, tw, tvalid, lo_c, span_c, smin, smax, sid_c,
                               dim=1).values.flip(1)
         pct = torch.cumsum(bct, dim=1)
         tot = pct[:, -1:]
-        unit = ext[:, ax:ax + 1] / nbins
+        unit = ext[:, ax:ax + 1] / ext.new_full((), nbins)   # as `cen`
         e_l = (pmax[:, :-1].to(torch.float32) + 1.0) * unit
         e_r = (nbins - smin_b[:, 1:].to(torch.float32)) * unit
         o1 = ext[:, (ax + 1) % 3][:, None]
@@ -264,7 +271,8 @@ def _cut_round(cb, nmin, nmax, ncnt, fused: bool):
     """One cut round over the sorted order: chunk-granular segmented
     prefix / suffix box scans, exact SAH at every K1-aligned cut (K1*K2-
     aligned while a segment exceeds a supercluster), and each segment's
-    best cut (its lowest chunk index at the minimum) as a new boundary."""
+    best cut (its lowest chunk index at the minimum) as a new boundary.
+    The plain PyTorch version of kernel H (`cut_round`)."""
     nc = cb.shape[0]
     dev = cb.device
     iota_c = torch.arange(nc, device=dev)
@@ -298,6 +306,55 @@ def _cut_round(cb, nmin, nmax, ncnt, fused: bool):
         0, torch.clamp(first_best, 0, nc - 1),
         (first_best < nc).to(torch.int64), "amax", include_self=True)
     return cb | (bits > 0)
+
+
+def _check_cut(cb, nmin, nmax, ncnt):
+    """Raise unless cb is bool[Nc], nmin / nmax f32[Nc,3] and ncnt f32[Nc],
+    all contiguous on cb's device (what kernel H takes)."""
+    nc = cb.shape[0] if cb.dim() == 1 else -1
+    if (cb.dtype != torch.bool or nc < 0
+            or any(t.dtype != torch.float32 for t in (nmin, nmax, ncnt))
+            or nmin.shape != (nc, 3) or nmax.shape != (nc, 3)
+            or ncnt.shape != (nc,)):
+        raise ValueError(
+            f"cut_round: want bool[Nc], f32[Nc,3], f32[Nc,3], f32[Nc], got "
+            + ", ".join(f"{t.dtype}{tuple(t.shape)}"
+                        for t in (cb, nmin, nmax, ncnt)))
+    for t in (nmin, nmax, ncnt, cb):
+        if t.device != cb.device or not t.is_contiguous():
+            raise ValueError(f"cut_round: inputs must be contiguous on "
+                             f"{cb.device}")
+
+
+def cut_round(cb, nmin, nmax, ncnt, fused: bool):
+    """One cut round: cb bool[Nc] segment heads (cb[0] set), the sorted
+    order's chunk boxes nmin / nmax f32[Nc,3] (finite, or the padding's
+    +-_INF) and triangle counts ncnt f32[Nc] (whole numbers, sum below
+    2^24) → cb with each segment's best cut added (`_cut_round`).
+    A CUDA tensor launches kernel H (csrc/sah_cut.cu) and counts it in
+    `cut_round.launches`; a CPU tensor runs `_cut_round`."""
+    _check_cut(cb, nmin, nmax, ncnt)
+    dev = cb.device
+    if dev.type == "cpu":
+        return _cut_round(cb, nmin, nmax, ncnt, fused)
+    if dev.type != "cuda":
+        raise ValueError(f"cut_round: unsupported device {dev}")
+    nc = cb.shape[0]
+    out = torch.empty_like(cb)
+    scratch = torch.empty(3 * nc, dtype=torch.int32, device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vkrt_sah_cut(cb.data_ptr(), nmin.data_ptr(),
+                               nmax.data_ptr(), ncnt.data_ptr(), nc, K2,
+                               _INF, int(fused), scratch.data_ptr(),
+                               out.data_ptr(), stream)
+    kernels.check(err, "cut_round")
+    cut_round.launches += 1
+    return out
+
+
+cut_round.launches = 0
 
 
 def _level(S, cb, nbins: int, axis_mode: str = "binned",
@@ -362,7 +419,7 @@ def _level(S, cb, nbins: int, axis_mode: str = "binned",
     nmax = S_new[:, 6:9].reshape(nc, K1, 3).amax(dim=1)
     ncnt = S_new[:, 9].reshape(nc, K1).sum(dim=1)
     for _ in range(n_cuts):
-        cb = _cut_round(cb, nmin, nmax, ncnt, fused)
+        cb = cut_round(cb, nmin, nmax, ncnt, fused)
     return S_new, cb
 
 
@@ -394,7 +451,10 @@ def device_sah_order(v0, e1, e2, max_levels: int = 14,
     p1, p2 = v0 + e1, v0 + e2
     tmin = torch.minimum(torch.minimum(v0, p1), p2)
     tmax = torch.maximum(torch.maximum(v0, p1), p2)
-    cen = v0 + (e1 + e2) / 3.0
+    # a tensor divisor: on CUDA, PyTorch divides by a Python number as a
+    # product with its reciprocal, which rounds 1/3 and so parts from the
+    # CPU's quotient (and the JAX order's) in the last bit
+    cen = v0 + (e1 + e2) / v0.new_full((), 3.0)
     w = torch.ones(T, 1, device=dev)
     S = torch.cat([cen, tmin, tmax, w], dim=1)
     if pad:             # padding rows: cen, tmin = INF, tmax = -INF, w = 0
