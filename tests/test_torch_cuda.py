@@ -1379,3 +1379,60 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
     for fb, rays in outs + [(want_fb, want_rays)]:
         assert torch.equal(fb, plain[0]) and torch.equal(rays, plain[1])
     graph.free_graphs()
+
+
+def test_graph_quantized_raster_frames_equal_eager_frames(renderer):
+    """Rasterizer(quantize=True) at 64x48, msaa 8: the replayed (u8
+    frame, visibility queries) equal the eager ones on two cameras, the
+    u8 frame the truncating cast of the f32 frame, the queries every
+    pixel of every sample at least; the f32 graph and the quantized one
+    are two keys."""
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    r = Rasterizer(renderer.model, cfg, renderer.device, quantize=True)
+    eager, graph = graph_twin(r)
+    f32 = Rasterizer(renderer.model, cfg, renderer.device)
+    for cam in two_cameras():
+        want = eager.render_async(cam)
+        got = graph.render_async(cam)
+        assert got[0].dtype == torch.uint8 and got[1].ndim == 0
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        cast = torch.clamp(f32.render_async(cam) * 255.0 + 0.5, 0.0,
+                           255.0).to(torch.uint8)
+        assert torch.equal(got[0], cast)
+        assert int(got[1]) >= 64 * 48 * 8
+    assert len(graph.graphs) == 1
+    graph.free_graphs()
+
+
+def test_traced_raster_replays_count_n_times_one_frame(renderer, card):
+    """A quantized raster frame captured with tracing on, replayed 3
+    times: the counters raster_live_r0..3 read 3 times those of the same
+    frame traced eagerly, which add up to its visibility queries; the
+    table holds G's 32 launches' lanes; the frames are the untraced
+    graph's bits."""
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    r = Rasterizer(renderer.model, cfg, card, quantize=True)
+    eager, graph = graph_twin(r)
+    cam = list(camera_path(64, 48))[130]
+    plain = graph.render_async(cam)
+    tracing.reset()
+    with tracing.on():
+        want_fb, want_n = eager.render_async(cam)
+        want = {k: v for k, v in tracing.counters(card).items() if v}
+        graph.render_async(cam)                       # captured, marked
+        torch.cuda.synchronize()
+        tracing.reset()
+        outs = [graph.render_async(cam) for _ in range(3)]
+        torch.cuda.synchronize()
+        got = tracing.counters(card)
+    assert len(graph.graphs) == 2
+    (table,) = graph.graphs.tables().values()
+    assert set(want) >= {"raster_live_r0", "raster_live_r1"}
+    assert all(k.startswith("raster_live_r") for k in want)
+    assert sum(want.values()) == int(want_n)
+    assert {k: v for k, v in got.items() if v} == {k: 3 * v
+                                                  for k, v in want.items()}
+    assert [k for k, _, _ in table.lanes] == ["raster_edge"] * 32
+    for fb, n in outs + [(want_fb, want_n)]:
+        assert torch.equal(fb, plain[0]) and torch.equal(n, plain[1])
+    graph.free_graphs()

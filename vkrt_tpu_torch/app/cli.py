@@ -9,10 +9,13 @@ PyTorch versions of the kernels, as the tests do). Examples:
   python -m vkrt_tpu_torch.app.cli --raster --frames 1 --output raster.png
   python -m vkrt_tpu_torch.app.cli --config 4 --shard --output frame.png
 
-A fly-through (--frames > 1) on the ray tracer keeps up to 3 frames in
-flight (runtime.FrameScheduler); the raster path renders serially, with
-the FPS overlay burned in. --shard splits each frame over devices
-(parallel/mesh.py) and renders serially, as the JAX CLI does.
+A fly-through (--frames > 1) keeps up to 3 frames in flight
+(runtime.FrameScheduler), u8 frames quantized on the device; the raster
+path burns the FPS overlay into each retired frame on the host. A single
+frame, a .npy output and --check-finite (which need the f32 image) render
+serially, the raster path with its overlay too. --shard splits each
+frame over devices (parallel/mesh.py) and renders serially, as the JAX
+CLI does.
 `main(argv, scene=model)` takes an in-memory `Model` in place of
 --scene. Unlike the JAX CLI, --scene has no default path: the Sponza
 glTF is not part of the repository.
@@ -220,18 +223,26 @@ def main(argv=None, scene=None) -> int:
 
     runtime.initialize(args.device)
     src = args.scene if scene is None else scene
+    # quantize on the device (u8 frame + scalar ray or visibility-query
+    # count) unless the caller needs the f32 image on the host
+    quantize = not args.check_finite and not (
+        args.output and args.output.endswith(".npy"))
+    # frames in flight: up to 3 frames queued on the card while the host
+    # prepares the next camera and checkpoints the last retired frame
+    # (the reference's 3 swapchain images, Context.cpp:141-180; its
+    # raster path keeps them too). The raster path's f32 frames and the
+    # sharded paths stay serial, as in the JAX CLI.
+    pipeline = args.frames > 1 and mesh is None and (
+        quantize or not args.raster)
     if mesh is not None:
         renderer = _sharded_renderer(src, cfg, args, mesh)
     elif args.raster:
-        from vkrt_tpu_torch.raster.pipeline import Rasterizer
+        from vkrt_tpu_torch.raster.pipeline import Rasterizer, fps_overlay
         renderer = Rasterizer(src, cfg, args.device, msaa=args.msaa,
                               method=args.raster_method, backend=args.backend,
-                              max_texture_dim=args.max_texture_dim)
+                              max_texture_dim=args.max_texture_dim,
+                              quantize=pipeline)
     else:
-        # quantize on the device (u8 frame + scalar ray count) unless the
-        # caller needs the f32 image on the host
-        quantize = not args.check_finite and not (
-            args.output and args.output.endswith(".npy"))
         renderer = Renderer(src, cfg, args.device, quantize=quantize,
                             rebuild=args.rebuild, backend=args.backend,
                             max_texture_dim=args.max_texture_dim)
@@ -251,11 +262,6 @@ def main(argv=None, scene=None) -> int:
 
     timer = FrameTimer()
     fb = None
-    # frames in flight: up to 3 frames queued on the card while the host
-    # prepares the next camera and checkpoints the last retired frame
-    # (the reference's 3 swapchain images, Context.cpp:141-180). The
-    # raster and sharded paths stay serial, as in the JAX CLI.
-    pipeline = args.frames > 1 and not args.raster and mesh is None
 
     def finish(idx, cam, fb_, stats):
         if args.check_finite:
@@ -281,6 +287,8 @@ def main(argv=None, scene=None) -> int:
                 fb, rays_arr = out
                 stats = timer.end(int(np.asarray(rays_arr).sum()))
                 timer.begin()
+                if args.raster:
+                    fb = fps_overlay(fb, stats.fps)
                 finish(idx, in_flight_cams.pop(idx), fb, stats)
 
             timer.begin()

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from vkrt_tpu_torch import kernels
+from vkrt_tpu_torch import kernels, tracing
 from vkrt_tpu_torch.accel.clusters import K1, K2, ClusterTree
 from vkrt_tpu_torch.utils import layout as L
 
@@ -349,12 +349,14 @@ def raster_edge(setup, scb, clb, px, py, zfloor, chunk: int = SC_CHUNK):
     (cluster id * 128 + triangle; tree.leaf_tri maps it to the original
     triangle), its perspective-correct uv and its material slot. A CUDA
     tensor launches kernel G and counts it in `raster_edge.launches`; a
-    CPU tensor runs `raster_edge_plain`. The kernel takes a tree of any
-    size, `chunk` (1 to SC_CHUNK) superclusters at a time; the answer
-    does not depend on it."""
+    CPU tensor runs `raster_edge_plain`. Either records the Nb * 128
+    lanes it is launched over (tracing.lanes). The kernel takes a tree
+    of any size, `chunk` (1 to SC_CHUNK) superclusters at a time; the
+    answer does not depend on it."""
     dev = px.device
     if not 1 <= chunk <= SC_CHUNK:
         raise ValueError(f"raster_edge: chunk {chunk}, want 1 to {SC_CHUNK}")
+    tracing.lanes("raster_edge", px.shape[0] * LANES)
     if dev.type == "cpu":
         return raster_edge_plain(setup, scb, clb, px, py, zfloor)
     if dev.type != "cuda":

@@ -21,7 +21,21 @@ Two methods, as in the JAX package:
     continuing its ray just behind the surface.
 
 Frames are f32[H,W,3] on the device; `Rasterizer.render` adds the FPS
-overlay on the host.
+overlay on the host. With `quantize`, a frame is (u8[H,W,3], visibility
+queries) on the device instead, as `Renderer(quantize=True)` gives (u8
+frame, rays): the MSAA resolve and the truncating UNORM8 cast run on the
+card, and the count is the lanes live as each discard round enters the
+rasterizer (G, or kernel A in the ray-cast method), summed over the
+samples: every inside pixel in round 0, then the samples whose fragment
+was discarded. It is the raster path's counterpart of rays traced.
+
+Spans (tracing.py): `frame` holds `raster_setup` (edge), per sample k and
+round `raster_edge_s{k}` (G, and the round's live count) and
+`raster_sample` (the material sample and the discard), and `resolve`
+(each sample into the image and the sum, the average, the cast).
+Counters: `raster_live_r{r}`, the live lanes at round r's entry summed
+over the samples; G records the lanes it is launched over
+(tracing.lanes).
 """
 
 from __future__ import annotations
@@ -81,10 +95,37 @@ def _inside(cfg: C.RenderConfig, device):
     return engine.tile(engine._pad_grid(ones, wp, hp, False))
 
 
+def _count_round(r: int, live, queries) -> None:
+    """Round r's live lanes (`live()`, a bool mask, made only when asked
+    for): appended to `queries` where it is a list, and counted as
+    `raster_live_r{r}` while tracing is on."""
+    if queries is None and not tracing.enabled():
+        return
+    mask = live()
+    tracing.count(f"raster_live_r{r}", mask)
+    if queries is not None:
+        queries.append(mask.sum())
+
+
+def _resolve_add(acc, color, cfg: C.RenderConfig):
+    """acc plus one sample's lane colors as an image (acc None: the
+    first sample's image), in the `resolve` span."""
+    with tracing.span("resolve", color.device):
+        s = _to_image(color, cfg)
+        return s if acc is None else acc + s
+
+
+def _resolve(acc, n: int):
+    """The MSAA resolve's average of the n samples' summed images."""
+    with tracing.span("resolve", acc.device):
+        return acc / float(n)
+
+
 def _visibility_sample(backend, tex, proj_inverse, view_inverse,
-                       cfg: C.RenderConfig, off):
-    """One MSAA sample pass of the ray-cast method: unlit color with
-    alpha-discard continuation."""
+                       cfg: C.RenderConfig, off, queries=None):
+    """One MSAA sample pass of the ray-cast method: unlit lane colors
+    [3,Nb,128] with alpha-discard continuation (`queries`: as
+    edge_color_lanes')."""
     wp, hp = engine._pad_dims(cfg.width, cfg.height)
     o, d = engine.generate_rays(proj_inverse, view_inverse,
                                 cfg.width, cfg.height, off=off)
@@ -94,7 +135,8 @@ def _visibility_sample(backend, tex, proj_inverse, view_inverse,
         [engine.tile(engine._pad_grid(c, wp, hp, 1.0)) for c in d]))
     live = _inside(cfg, dirs.device)       # padding rays never trace
     color = _clear(live.shape, dirs.device)
-    for _ in range(MAX_DISCARD_ROUNDS):
+    for r in range(MAX_DISCARD_ROUNDS):
+        _count_round(r, lambda: live, queries)
         tmax = torch.where(live, C.RAY_TMAX, 0.0)
         _, u, v, attrs, hitm = backend.closest(origins, dirs, tmax)
         hit = hitm & live
@@ -108,20 +150,21 @@ def _visibility_sample(backend, tex, proj_inverse, view_inverse,
         # fragment kill: the ray continues just behind the surface
         origins = L.where3(discarded, pos + dirs * 1e-4, origins)
         live = discarded
-    return _to_image(color, cfg)
+    return color
 
 
 def render_raster_frame(backend, tex, proj_inverse, view_inverse,
-                        cfg: C.RenderConfig, msaa: int = 8):
+                        cfg: C.RenderConfig, msaa: int = 8, queries=None):
     """Ray-cast raster frame: one visibility pass per MSAA sample,
-    averaged resolve. Needs the inverse matrices."""
+    averaged resolve. Needs the inverse matrices. `queries`: as
+    edge_color_lanes'."""
     offsets = sample_offsets(msaa)
     acc = None
     for off in offsets:
-        s = _visibility_sample(backend, tex, proj_inverse, view_inverse, cfg,
-                               off)
-        acc = s if acc is None else acc + s
-    return acc / float(len(offsets))
+        acc = _resolve_add(acc, _visibility_sample(
+            backend, tex, proj_inverse, view_inverse, cfg, off, queries),
+            cfg)
+    return _resolve(acc, len(offsets))
 
 
 def sample_pixel_lanes(cfg: C.RenderConfig, off, device,
@@ -139,16 +182,19 @@ def sample_pixel_lanes(cfg: C.RenderConfig, off, device,
 
 
 def edge_color_lanes(tex, setup, scb, clb, px, py, inside,
-                     label: str = "s0"):
+                     label: str = "s0", queries=None):
     """Lane-space body of one edge-rasterizer sample pass: coverage and
     depth test (kernel G), alpha discard as depth-floor continuation
     rounds. px/py/inside are lane-major [Nb,128]; returns unlit color
     [3,Nb,128]. `label` names the span of G's launches
-    (`raster_edge_{label}`; tracing.span)."""
+    (`raster_edge_{label}`; tracing.span). `queries`, where a list, gets
+    each round's live lanes appended (an i64 scalar on the device; the
+    lanes not parked as the round enters G)."""
     color = _clear(px.shape, px.device)
     zfloor = torch.where(inside, 0.0, ZFAR_PARK)              # pads park
-    for _ in range(MAX_DISCARD_ROUNDS):
+    for r in range(MAX_DISCARD_ROUNDS):
         with tracing.span(f"raster_edge_{label}", px.device):
+            _count_round(r, lambda: zfloor < ZFAR_PARK, queries)
             z, slot, u, v, mat = raster_edge(setup, scb, clb, px, py, zfloor)
         with tracing.span("raster_sample", px.device):
             hit = slot >= 0
@@ -163,30 +209,22 @@ def edge_color_lanes(tex, setup, scb, clb, px, py, inside,
     return color
 
 
-def _edge_sample(tex, cfg: C.RenderConfig, off, setup, scb, clb,
-                 label: str):
-    """One MSAA sample pass through the edge-function rasterizer, as an
-    f32[H,W,3] image."""
-    px, py, inside = sample_pixel_lanes(cfg, off, setup.device)
-    return _to_image(edge_color_lanes(tex, setup, scb, clb, px, py, inside,
-                                      label), cfg)
-
-
 def render_raster_frame_edge(tree, tex, view, proj, cfg: C.RenderConfig,
-                             msaa: int = 8):
+                             msaa: int = 8, queries=None):
     """Edge-rasterizer frame: the setup stage once per pose, then one
     coverage pass per MSAA sample, averaged resolve. Needs the forward
     view and projection matrices (the WVP of the reference's UBO, ref:
-    Rasterizer.cpp:172-195)."""
+    Rasterizer.cpp:172-195). `queries`: as edge_color_lanes'."""
     with tracing.span("raster_setup", view.device):
         setup, scb, clb = build_raster_setup(tree, view, proj, cfg.width,
                                              cfg.height)
     offsets = sample_offsets(msaa)
     acc = None
     for k, off in enumerate(offsets):
-        s = _edge_sample(tex, cfg, off, setup, scb, clb, f"s{k}")
-        acc = s if acc is None else acc + s
-    return acc / float(len(offsets))
+        px, py, inside = sample_pixel_lanes(cfg, off, setup.device)
+        acc = _resolve_add(acc, edge_color_lanes(
+            tex, setup, scb, clb, px, py, inside, f"s{k}", queries), cfg)
+    return _resolve(acc, len(offsets))
 
 
 class Rasterizer(engine.SceneOnDevice):
@@ -201,12 +239,17 @@ class Rasterizer(engine.SceneOnDevice):
     backend's closest-hit trace.
 
     `graph`: as Renderer's. On a CUDA device render_async replays one
-    captured CUDA graph per (method, msaa, cfg, scene); the ray-cast
-    method on the reference backend stays eager (`captured`)."""
+    captured CUDA graph per (method, msaa, quantize, cfg, scene); the
+    ray-cast method on the reference backend stays eager (`captured`).
+
+    `quantize`: frames as (u8[H,W,3], visibility queries) on the device
+    (module docstring), what FrameScheduler carries in flight; else the
+    f32[H,W,3] frame."""
 
     def __init__(self, scene, cfg: C.RenderConfig, device="cuda",
                  msaa: int = 8, method: str = "auto", backend: str = "dense",
-                 max_texture_dim: int = 0, graph: bool | None = None):
+                 max_texture_dim: int = 0, graph: bool | None = None,
+                 quantize: bool = False):
         sample_offsets(msaa)                       # raises on a bad msaa
         if method == "auto":
             method = "edge" if backend == "dense" else "wavefront"
@@ -219,10 +262,12 @@ class Rasterizer(engine.SceneOnDevice):
         super().__init__(scene, cfg, device, backend, max_texture_dim, graph)
         self.msaa = msaa
         self.method = method
+        self.quantize = quantize
 
     def render_async(self, camera):
-        """Enqueue a frame; returns the device f32[H,W,3] frame without
-        waiting for the card, a new one each call."""
+        """Enqueue a frame; returns the device f32[H,W,3] frame (with
+        `quantize`, the u8 frame and its visibility queries, an i64
+        scalar) without waiting for the card, new ones each call."""
         mats = ((camera.view_matrix, camera.projection_matrix)
                 if self.method == "edge"
                 else (camera.proj_inverse, camera.view_inverse))
@@ -236,26 +281,44 @@ class Rasterizer(engine.SceneOnDevice):
     def graph_key(self) -> tuple:
         """The static key of a captured frame, tracing's state with it."""
         return ("raster", str(self.device), self.cfg, self.method,
-                self.msaa, id(self.backend), id(self.tex),
+                self.msaa, self.quantize, id(self.backend), id(self.tex),
                 tracing.enabled())
 
     def frame_body(self, x):
         """The frame as the graph captures it, reading only `x` on the
         device: the view and projection matrices (edge) or their inverses
-        (wavefront), 16 floats each."""
+        (wavefront), 16 floats each; all of it in the span `frame`."""
         a, b = x[0:16].reshape(4, 4), x[16:32].reshape(4, 4)
-        if self.method == "edge":
-            return render_raster_frame_edge(self.backend.tree, self.tex, a,
-                                            b, self.cfg, self.msaa)
-        return render_raster_frame(self.backend, self.tex, a, b, self.cfg,
-                                   self.msaa)
+        with tracing.span("frame", x.device):
+            queries = [] if self.quantize else None
+            if self.method == "edge":
+                fb = render_raster_frame_edge(self.backend.tree, self.tex, a,
+                                              b, self.cfg, self.msaa, queries)
+            else:
+                fb = render_raster_frame(self.backend, self.tex, a, b,
+                                         self.cfg, self.msaa, queries)
+            if not self.quantize:
+                return fb
+            with tracing.span("resolve", x.device):
+                fb8 = torch.clamp(fb * 255.0 + 0.5, 0.0, 255.0).to(
+                    torch.uint8)
+                return fb8, torch.stack(queries).sum()
 
     def render(self, camera, show_fps: bool = True):
-        """Synchronous frame as numpy f32[H,W,3], with the FPS of this
-        frame (enqueue to host copy) burned in when `show_fps`."""
+        """Synchronous frame as numpy f32[H,W,3] (u8 with `quantize`),
+        with the FPS of this frame (enqueue to host copy) burned in when
+        `show_fps`."""
         t0 = time.perf_counter()
-        fb = self.render_async(camera).cpu().numpy()
+        out = self.render_async(camera)
+        fb = (out[0] if self.quantize else out).cpu().numpy()
         dt = time.perf_counter() - t0
         if show_fps:
-            fb = draw_text(fb, f"FPS {1.0 / max(dt, 1e-9):.1f}", 8, 8)
+            fb = fps_overlay(fb, 1.0 / max(dt, 1e-9))
         return fb
+
+
+def fps_overlay(fb: np.ndarray, fps: float) -> np.ndarray:
+    """A copy of the host frame fb (f32 or u8 [H,W,3]) with "FPS x" burned
+    in, in white (ref: Rasterizer.cpp:151-161)."""
+    white = 255 if fb.dtype == np.uint8 else 1.0
+    return draw_text(fb, f"FPS {fps:.1f}", 8, 8, color=(white,) * 3)
