@@ -17,7 +17,7 @@ raster frame and --shard, and 26 run the default, a CUDA graph a frame
 Python) and, for graphs, on the card by torch.profiler, which records
 every kernel node of a replay by name (graphs.kernel_launches):
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A-H and A' from vkrt_tpu_torch/csrc/ into
+  2. build    compile kernels A-I and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked),
@@ -75,18 +75,23 @@ every kernel node of a replay by name (graphs.kernel_launches):
               and 8 under the flip gate, ray-cast method at msaa 1 by RMSE
  12. raster main  Rasterizer(full scene, reference_config() = 1600x1200,
               "cuda", msaa=8, eager): one warm-up frame, then RASTER_FRAMES
-              timed
-              frames along the fly-through path; exactly 32 launches of G
-              and none of A-F per frame; then two profiled frames (device
-              time per raster range) and one ray-cast frame on the first
-              camera, which may differ from the edge frame on at most 1%
-              of the pixels; the same gate on a frame close to a wall,
-              where clusters wholly behind the camera exist and must have
-              left the full-screen set
+              timed frames along the fly-through path; exactly 32
+              launches of G and of I and none of A-F per frame; then two
+              profiled frames (device time per raster range) and one
+              ray-cast frame on the first camera, which may differ from
+              the edge frame on at most 1% of the pixels; the same gate on
+              a frame close to a wall, where clusters wholly behind the
+              camera exist and must have left the full-screen set
  13. G shapes kernel G's inputs recorded from one raster frame: kernel vs
               plain on sample 0, rounds 0 and 1; the kernel's time over
               all 32 calls, the plain version's on sample 0's 4 calls, the
               bound of each, and the setup's box rule at this pose
+ 28. I shapes kernel I's (raster_sample_round's) 32 calls recorded from
+              the same frame: each bit-equal to raster_sample_round_plain
+              on the same tensors (colour and depth floor); ms a launch on
+              a filled queue, round 0 and rounds 1-3 apart, beside the
+              plain version's and the bound (bytes: 8 a lane, 32 more a
+              hit, 12 more an opaque hit); the lanes hit and live a round
  14. kernel A' (any-hit, per-ray or per-block origins) vs its plain
               version on probes: phase 3's rays with per-ray origins, random
               block origins and phase 4's light segments at blocks 512 and
@@ -143,8 +148,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               (retirements 5-37) and Mrays/s are printed beside phase 7's
               CUDA-event ms/frame
  19b. CLI raster  --raster --frames 1 at 1600x1200, msaa 8 (32 launches of
-              G): equal to Rasterizer.render_async of the start camera on
-              every pixel outside the FPS text
+              G and of I): equal to Rasterizer.render_async of the start
+              camera on every pixel outside the FPS text
  20. golden   bench.py's gate: a 640x480 reference_config() f32 frame from
               render_frame vs the native C++ oracle with its stability
               mask (golden_metrics): rmse_stable, rmse_trimmed and
@@ -171,7 +176,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               device's busy ms a frame (torch.profiler) and peak memory,
               beside the unsharded frame's; the raster frame at 1600x1200,
               MSAA 8, on 1 and 4 shards (and on 4 as graphs) bit-equal to
-              render_raster_frame_edge's (32k launches of G); the dry run
+              render_raster_frame_edge's (32k launches of G and of I); the
+              dry run
               dryrun_multichip(4, "cuda"); the CLI's --shard (2 frames, last
               frame equal to Renderer.render's) and --shard 2, which must
               raise ValueError on one card
@@ -228,7 +234,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path, on the card (phase 26's config-4 graph
 frames for A-F, phase 15's graph frames for A', phase 26's raster graph
-frames for G, phase 26's config-5 full-rebuild graph frames for H), or on
+frames for G and I, phase 26's config-5 full-rebuild graph frames for H),
+or on
 the host for the modes (phase 24's eager frames for
 the four mode rows, phase 25's drive for its rows), its largest error,
 its time per frame and the bound of that
@@ -274,6 +281,7 @@ from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
                                           replicate)
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster import pipeline as rp
+from vkrt_tpu_torch.raster import sample as rs
 from vkrt_tpu_torch.rt import traverse
 from vkrt_tpu_torch.rt.dense import (ABLATES, CUTS, _safe_inv,
                                      broadcast_points, closest_worklists,
@@ -370,7 +378,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "C": pack.consolidate,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
            "F": lanesort.lane_unsort, "G": edge.raster_edge,
-           "H": device_sah.cut_round,
+           "H": device_sah.cut_round, "I": rs.raster_sample_round,
            "A.sub_gate": ModeCount(trace_dense, "sub_gate"),
            "A.recheck": ModeCount(trace_dense, "recheck"),
            "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
@@ -380,7 +388,8 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
 # graph's too, which run no Python and so move no wrapper's count
 ON_CARD = {"A": "trace_closest", "A'": "trace_occluded", "B": "occl_multi",
            "C": "consolidate", "D": "scatter_back", "E": "lane_sort",
-           "F": "lane_unsort", "G": "raster_edge", "H": "sah_cut"}
+           "F": "lane_unsort", "G": "raster_edge", "H": "sah_cut",
+           "I": "raster_sample"}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 # phase 25: the JAX kernels' remaining modes, each a wrapper's
@@ -1666,13 +1675,13 @@ def drive_raster(rast, cams) -> tuple:
     """Phases 12 and 26: a warm-up frame on cams[0], then one timed frame
     per further camera, enqueued back to back (CUDA events between
     frames; the host's enqueue ms of each, no wait). Every launch count
-    is set to 0 just before and read just after: G must have 32 launches
-    per frame and A-F none, counted as `drive` says (on a graph: the
+    is set to 0 just before and read just after: G and I must have 32
+    launches per frame and A-F none, counted as `drive` says (on a graph: the
     host counts the first frame's warm-up and capture, and the card,
     under torch.profiler, the frames replayed once more). Returns
     (results, the frames)."""
     n = len(cams) - 1
-    per_frame = {"G": 32}
+    per_frame = {"G": 32, "I": 32}
     graph = rast.captured()
     held = len(rast.graphs)
     torch.cuda.synchronize()
@@ -1750,23 +1759,28 @@ def wavefront_vs_edge(rast, cam, edge_fb) -> float:
 
 
 class RecordingRaster:
-    """While active, the raster pipeline's calls of kernel G go through a
-    wrapper that keeps a copy of their inputs (the pipeline module's
-    `raster_edge` name is swapped; the launch count is untouched)."""
+    """While active, the raster pipeline's calls of `name` (raster_edge:
+    kernel G; raster_sample_round: kernel I) go through a wrapper that
+    keeps a copy of their tensor inputs (the pipeline module's name is
+    swapped; the launch count is untouched)."""
+
+    def __init__(self, name: str = "raster_edge"):
+        self.name = name
 
     def __enter__(self):
-        self.saved = rp.raster_edge
+        self.saved = getattr(rp, self.name)
         self.calls = []
 
         def call(*args):
-            self.calls.append(tuple(a.clone() for a in args))
+            self.calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                    for a in args))
             return self.saved(*args)
 
-        rp.raster_edge = call
+        setattr(rp, self.name, call)
         return self
 
     def __exit__(self, *exc):
-        rp.raster_edge = self.saved
+        setattr(rp, self.name, self.saved)
 
 
 def raster_pairs(setup, clb, px, py, zf, z_out, tri_live) -> torch.Tensor:
@@ -1939,6 +1953,64 @@ def raster_shapes(rast, cam) -> dict:
                pairs_sample0=np.sum([b["pairs"] for b in bounds[:4]],
                                     0).tolist())
     log("  kernel G at the main path's shapes:", json.dumps(res))
+    return res
+
+
+def raster_sample_shapes(rast, cam) -> dict:
+    """Phase 28: record kernel I's 32 calls of one raster frame (8 samples
+    x 4 rounds); each against raster_sample_round_plain on the same
+    tensors, colour and depth floor bit for bit; ms a launch on a filled
+    queue (`queued_ms`), round 0 (8 calls) and rounds 1-3 (24) apart, the
+    plain version's ms a call on round 0 and round 1 of sample 0; the
+    bound of each (bytes: every lane reads its slot and writes its floor,
+    a hit reads u, v, mat, z and a 16-byte quad, an opaque hit writes 12
+    bytes of colour; ~40 float operations a hit)."""
+    with RecordingRaster("raster_sample_round") as rec:
+        rast.render_async(cam)
+        torch.cuda.synchronize()
+    calls = rec.calls
+    if len(calls) != 32:
+        raise AssertionError(f"recorded {len(calls)} calls of kernel I in "
+                             f"one frame, want 32")
+    mismatched, rows = [], []
+    for k, (tex, z, slot, u, v, mat, color) in enumerate(calls):
+        got = rs.raster_sample_round(tex, z, slot, u, v, mat, color.clone())
+        want = rs.raster_sample_round_plain(tex, z, slot, u, v, mat, color)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            mismatched.append(k)
+        hit = int((slot >= 0).sum())
+        opaque = int(((slot >= 0) & (want[1] == edge.ZFAR_PARK)).sum())
+        rows.append(dict(lanes=slot.numel(), hit=hit, opaque=opaque,
+                         **bound(8 * slot.numel() + 32 * hit + 12 * opaque,
+                                 40 * hit)))
+    torch.cuda.synchronize()
+
+    def timed_rounds(rounds):
+        picked = [calls[k] for k in range(32) if k % 4 in rounds]
+        return queued_ms([functools.partial(rs.raster_sample_round, *c)
+                          for c in picked], reps=2 * len(picked))
+
+    r0, r13 = timed_rounds((0,)), timed_rounds((1, 2, 3))
+    plain = [queued_ms([functools.partial(rs.raster_sample_round_plain,
+                                          *calls[k])], reps=4)["ms"]
+             for k in (0, 1)]
+    b0 = add_bounds(rows[0::4])
+    b13 = add_bounds([r for k, r in enumerate(rows) if k % 4])
+    res = dict(mismatched=mismatched, ms_round0=r0["ms"],
+               ms_rounds13=r13["ms"], enqueue_ms=r13["enqueue_ms"],
+               ms_frame=8 * r0["ms"] + 24 * r13["ms"],
+               plain_ms_round0=plain[0], plain_ms_round1=plain[1],
+               bound_ms_round0=b0["bound_ms"] / 8,
+               bound_ms_rounds13=b13["bound_ms"] / 24,
+               bound_ms_frame=add_bounds(rows)["bound_ms"],
+               bound_by=add_bounds(rows)["bound_by"],
+               hit_each_round=[[r["hit"] for r in rows[4 * s:4 * s + 4]]
+                               for s in range(8)],
+               lanes=rows[0]["lanes"])
+    log("  kernel I at the main path's shapes:", json.dumps(res))
+    if mismatched:
+        raise AssertionError(f"kernel I differs from its plain version on "
+                             f"calls {mismatched}")
     return res
 
 
@@ -2467,7 +2539,7 @@ def cli_raster(model, rast, tmp: Path) -> None:
     equal to Rasterizer.render_async of the start camera outside the FPS
     text (its pixels change with the measured rate)."""
     png = tmp / "cli_raster.png"
-    with measured("CLI raster", {"G": 32}, 1, graph=True):
+    with measured("CLI raster", {"G": 32, "I": 32}, 1, graph=True):
         rc, _, _, wall_s = run_cli(cli.main, ["--raster", "--frames", "1",
                                               "--output", str(png)], model)
     cfg = rast.cfg
@@ -2710,7 +2782,7 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
     tree = sync.backend.tree
     zero_counts()
     want = rp.render_raster_frame_edge(tree, sync.tex, view, proj, rcfg, 8)
-    read_counts("raster unsharded", {"G": 32})
+    read_counts("raster unsharded", {"G": 32, "I": 32})
     raster = {}
     for k in RASTER_SHARDS:
         mesh = make_mesh() if k == 1 else make_mesh([dev] * k)
@@ -2725,7 +2797,7 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
         host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         torch.cuda.synchronize()
-        read_counts(f"raster, {k} shards", {"G": 32 * k})
+        read_counts(f"raster, {k} shards", {"G": 32 * k, "I": 32 * k})
         equal = torch.equal(got, want)
         raster[k] = dict(device_ms=start.elapsed_time(end),
                          host_enqueue_ms=host_ms, equal=equal)
@@ -2738,7 +2810,8 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
         json.dumps(raster))
 
     mesh = make_mesh([dev] * 4)
-    with measured("raster, 4 shards, graph", {"G": 32 * 4}, 1, graph=True):
+    with measured("raster, 4 shards, graph", {"G": 32 * 4, "I": 32 * 4}, 1,
+                  graph=True):
         got = render_raster_frame_sharded(tree, sync.tex, view, proj, rcfg,
                                           mesh, msaa=8,
                                           replicas=replicate(sync.tex, mesh))
@@ -3703,6 +3776,8 @@ def main() -> int:
 
     log("== 13. kernel G at the main path's shapes")
     res_13 = raster_shapes(rast, rcams[0])
+    log("== 28. kernel I at the main path's shapes")
+    res_28 = raster_sample_shapes(rast, rcams[0])
 
     t_new = time.perf_counter()
     out_dir = build_root() / "smoke"      # gitignored by default, in the checkout
@@ -3854,6 +3929,20 @@ def main() -> int:
          "bound_by": res_27["bound_by"], "library_ms": None,
          "design": "one block: segmented box scans by warp shuffles, tiles "
                    "of 1024 chunks"},
+        {"name": "raster_sample", "route": "cuda",
+         "source": "vkrt_tpu_torch/csrc/raster_sample.cu",
+         "replaces": "none: vkrt_tpu/raster/pipeline.py's discard rounds "
+                     "sample in XLA",
+         "launches": main_launches["raster"]["I"],
+         "max_abs_err": len(res_28["mismatched"]),
+         "ms": res_28["ms_frame"], "ms_round0": res_28["ms_round0"],
+         "ms_rounds13": res_28["ms_rounds13"],
+         "plain_ms": 8 * res_28["plain_ms_round0"]
+         + 24 * res_28["plain_ms_round1"],
+         "bound_ms": res_28["bound_ms_frame"],
+         "bound_by": res_28["bound_by"], "library_ms": None,
+         "design": "one thread a lane; a hit reads the base map's 16-byte "
+                   "quad alone"},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

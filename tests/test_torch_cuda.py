@@ -1,4 +1,4 @@
-"""Kernels A-H and A' on the card vs their plain PyTorch versions (A, A'
+"""Kernels A-I and A' on the card vs their plain PyTorch versions (A, A'
 and B in each of their modes also vs their default mode; A's and A''s
 stats within the plain version's bounds), the
 per-frame accel update (refit, device SAH in every mode, and Morton
@@ -10,10 +10,11 @@ card vs the unsharded one.
 Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
 covered on the CPU by test_torch_trace.py, test_torch_pack.py,
-test_torch_lanesort.py, test_torch_raster_edge.py and
-test_torch_device_build.py). C-F move f32
+test_torch_lanesort.py, test_torch_raster_edge.py,
+test_torch_device_build.py and test_torch_raster_frames.py). C-F move f32
 values without arithmetic, so they must equal their plain versions
-exactly. Imports no JAX, so it runs on a machine without it:
+exactly; so must H and I, which round each operation as theirs do.
+Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -39,6 +40,8 @@ from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
                                           render_raster_frame_sharded,
                                           replicate)
 from vkrt_tpu_torch.raster import edge
+from vkrt_tpu_torch.raster import pipeline as rp
+from vkrt_tpu_torch.raster import sample as rs
 from vkrt_tpu_torch.raster.pipeline import (MSAA8, Rasterizer,
                                             render_raster_frame_edge,
                                             sample_pixel_lanes)
@@ -56,10 +59,14 @@ from vkrt_tpu_torch.rt.occl_multi import (MAX_SETS, multi_worklists,
                                           occluded_multi,
                                           occluded_multi_plain)
 from vkrt_tpu_torch.runtime import FrameScheduler
+from vkrt_tpu_torch.scene import Image
 from vkrt_tpu_torch.scene.procedural import procedural_model
+from vkrt_tpu_torch.scene.textures import build_material_heap
+from vkrt_tpu_torch.shade.sampling import sample_material
 from vkrt_tpu_torch.wavefront import lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
                                              camera_ray_blocks, render_frame,
+                                             texture_arrays_from_numpy,
                                              upload_matrix)
 
 pytestmark = pytest.mark.cuda
@@ -100,7 +107,8 @@ WRAPPERS = {"trace_closest": dense.trace_dense,
             "scatter_back": pack.scatter_back,
             "lane_sort": lanesort.lane_sort,
             "lane_unsort": lanesort.lane_unsort,
-            "raster_edge": edge.raster_edge, "sah_cut": cut_round}
+            "raster_edge": edge.raster_edge, "sah_cut": cut_round,
+            "raster_sample": rs.raster_sample_round}
 
 
 def counted(fn):
@@ -525,16 +533,165 @@ def test_kernel_g_chunks_equal_plain_and_one_list(soup, chunk):
         zf = torch.where(got[1] >= 0, got[0], edge.ZFAR_PARK)
 
 
+def fallback_heap(card):
+    """The material heap of five slots over a 64x64 random map, a solid
+    4x4 fallback (alone in slot 1, and co-sized with the random map in
+    slot 3, as Sponza's), a 2x2 and a 3x5 random map, on the card."""
+    rng = np.random.default_rng(5)
+
+    def image(w, h, solid=False):
+        data = (np.broadcast_to(rng.integers(0, 256, 4, np.uint8), (h, w, 4))
+                if solid else rng.integers(0, 256, (h, w, 4), np.uint8))
+        return Image(width=w, height=h, data=np.ascontiguousarray(data))
+
+    images = [image(64, 64), image(4, 4, solid=True), image(2, 2),
+              image(3, 5)]
+    triples = np.array([[0, 0, 0], [1, 1, 1], [2, 2, 2], [0, 1, 0],
+                        [3, 3, 3]], np.int32)
+    h = build_material_heap(images, triples)
+    return texture_arrays_from_numpy(h.texels_tri, h.level_offset,
+                                     h.level_width, h.level_height, card)
+
+
+def alpha_edge_heap(card):
+    """One slot, a 2x1 map whose two texels have alpha 25 and 26 (0.098
+    and 0.102): bilinear alpha is 0.1 half-way between their centres."""
+    rgba = np.array([[[200, 40, 10, 25], [30, 180, 90, 26]]], np.uint8)
+    h = build_material_heap([Image(width=2, height=1, data=rgba)],
+                            np.zeros((1, 3), np.int32))
+    return texture_arrays_from_numpy(h.texels_tri, h.level_offset,
+                                     h.level_width, h.level_height, card)
+
+
+def kernel_i_case(renderer, card, case):
+    """One discard round's inputs (tex, z, slot, u, v, mat, color) for
+    kernel I: G's round 0 of the small scene from the start pose (dense),
+    that round with 1% of its hits kept (sparse) or none (parked), the
+    2x1 alpha map's lanes swept across alpha 0.1 (alpha_edge), the dense
+    round's hits at uvs in [-3, 4) (wrap), and every slot of the fallback
+    heap at random uvs (every_slot). The colour so far is random, so a
+    lane left alone shows."""
+    rng = np.random.default_rng(11)
+    z, slot, u, v, mat = edge.raster_edge(*raster_inputs(renderer, card))
+    tex = renderer.tex
+    shape = slot.shape
+
+    def rand(lo, hi):
+        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
+                               device=card)
+
+    def missed(keep):
+        return (torch.where(keep, z, torch.inf), torch.where(keep, slot, -1),
+                torch.where(keep, u, 0.0), torch.where(keep, v, 0.0),
+                torch.where(keep, mat, 0))
+
+    if case == "sparse":
+        keep = torch.as_tensor(rng.random(shape) < 0.01, device=card)
+        z, slot, u, v, mat = missed(keep & (slot >= 0))
+    elif case == "parked":
+        z, slot, u, v, mat = missed(torch.zeros_like(slot, dtype=torch.bool))
+    elif case == "alpha_edge":
+        tex = alpha_edge_heap(card)
+        n = slot.numel()
+        half = np.float32(0.5)
+        steps = np.arange(n, dtype=np.int64) - n // 2
+        sweep = (np.nextafter(half, np.float32(1)) - half) * steps
+        u = torch.as_tensor((half + sweep.astype(np.float32))
+                            .reshape(shape), device=card)
+        v = torch.full(shape, 0.5, device=card)
+        slot = torch.zeros_like(slot)
+        mat = torch.zeros_like(mat)
+        z = rand(0.0, 1.0)
+    elif case == "wrap":
+        u, v = rand(-3.0, 4.0), rand(-3.0, 4.0)
+    elif case == "every_slot":
+        tex = fallback_heap(card)
+        m = tex.level_offset.shape[0]
+        mat = torch.arange(slot.numel(), device=card,
+                           dtype=torch.int32).reshape(shape) % m
+        slot = torch.where(rand(0.0, 1.0) < 0.9, 5, -1).to(torch.int32)
+        u, v, z = rand(0.0, 1.0), rand(0.0, 1.0), rand(0.0, 1.0)
+    color = torch.stack([rand(0.0, 1.0) for _ in range(3)])
+    return tex, z, slot, u, v, mat, color
+
+
+@pytest.mark.parametrize("case", ["dense", "sparse", "parked", "alpha_edge",
+                                  "wrap", "every_slot"])
+def test_kernel_i_matches_plain(renderer, card, case):
+    """Kernel I (raster_sample_round on CUDA tensors) vs
+    raster_sample_round_plain on the same tensors: colour and the next
+    depth floor bit-equal, one launch counted, on every case of
+    `kernel_i_case`; each case holds what it is there for (opaque hits
+    and discards, every slot, alphas at 0.1 and one ulp either side)."""
+    tex, z, slot, u, v, mat, color = kernel_i_case(renderer, card, case)
+    want = rs.raster_sample_round_plain(tex, z, slot, u, v, mat, color)
+    before = rs.raster_sample_round.launches
+    got = rs.raster_sample_round(tex, z, slot, u, v, mat, color.clone())
+    torch.cuda.synchronize()
+    assert rs.raster_sample_round.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    hit = slot >= 0
+    kept = torch.equal(got[0][:, ~hit], color[:, ~hit])
+    assert kept and (got[1][~hit] == edge.ZFAR_PARK).all()
+    opaque = hit & (got[1] == edge.ZFAR_PARK)
+    if case == "parked":
+        assert not hit.any()
+    elif case == "sparse":
+        assert 0 < int(hit.sum()) < 0.02 * hit.numel()
+    else:
+        assert opaque.any() and (hit & ~opaque).any()
+    if case == "alpha_edge":
+        alpha = sample_material(tex.texels_tri, tex.level_offset,
+                                tex.level_width, tex.level_height, mat,
+                                torch.stack([u, v]))[0][3]
+        cut = np.float32(rp.ALPHA_DISCARD)
+        near = {float(np.nextafter(cut, np.float32(0))), float(cut),
+                float(np.nextafter(cut, np.float32(1)))}
+        assert near <= set(alpha.cpu().numpy().reshape(-1).tolist())
+    if case == "every_slot":
+        assert set(mat[hit].unique().tolist()) == set(range(5))
+        assert tex.level_width[1, 0] == 4                  # the fallback
+
+
+@pytest.mark.parametrize("graph", [False, None])
+def test_quantized_raster_frame_equals_plain_round_frame(renderer, card,
+                                                         graph, monkeypatch):
+    """Rasterizer(quantize=True) at 64x48, eagerly and as a CUDA graph
+    (captured, then replayed), on three cameras of the fly path: the u8
+    frames and visibility queries are bit-equal to the same frames made
+    with raster_sample_round_plain as the round body."""
+    cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
+    cams = [list(camera_path(64, 48))[k] for k in (0, 60, 130)]
+    r = Rasterizer(renderer.model, cfg, card, quantize=True, graph=graph)
+    with monkeypatch.context() as m:
+        m.setattr(rp, "raster_sample_round", rs.raster_sample_round_plain)
+        plain = Rasterizer(renderer.model, cfg, card, quantize=True,
+                           graph=False)
+        wants = [plain.render_async(cam) for cam in cams]
+    before = rs.raster_sample_round.launches
+    for _ in range(2):
+        for cam, want in zip(cams, wants):
+            got = r.render_async(cam)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+    torch.cuda.synchronize()
+    assert rs.raster_sample_round.launches - before == (
+        2 * 32 if r.captured() else 6 * 32)
+    assert r.captured() == (graph is None)
+    r.free_graphs()
+
+
 def test_raster_frame_on_card_matches_cpu(renderer):
-    """The msaa-8 edge frame on the card (32 launches of G a replayed
-    frame, after the capture) against the same frame on the CPU (plain
+    """The msaa-8 edge frame on the card (32 launches of G and of I a
+    replayed frame, after the capture) against the same frame on the CPU (plain
     version)."""
     cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
     cam = start_camera()
     rast = Rasterizer(renderer.model, cfg, renderer.device)
     rast.render(cam, show_fps=False)                 # the capture
     fb, card, host = counted(lambda: rast.render(cam, show_fps=False))
-    assert card == {"raster_edge": 32} and host == {}
+    assert card == {"raster_edge": 32, "raster_sample": 32} and host == {}
     want = Rasterizer(renderer.model, cfg, "cpu").render(cam, show_fps=False)
     assert (np.abs(fb - want).max(-1) > 0.02).mean() <= 0.001
 
@@ -1226,7 +1383,8 @@ def test_graph_frames_equal_eager_frames(renderer, case):
 
 @pytest.mark.parametrize("msaa", [1, 8])
 def test_graph_raster_frames_equal_eager_frames(renderer, msaa):
-    """The edge raster frame at msaa 1 and 8 (4 x msaa launches of G):
+    """The edge raster frame at msaa 1 and 8 (4 x msaa launches of G and
+    of I):
     replayed frames equal the eager ones on two cameras."""
     cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
     eager, graph = graph_twin(Rasterizer(renderer.model, cfg,
@@ -1234,7 +1392,8 @@ def test_graph_raster_frames_equal_eager_frames(renderer, msaa):
     frames = []
     for k, cam in enumerate(two_cameras()):
         want, card, host = counted(lambda: eager.render_async(cam))
-        assert card == host == {"raster_edge": 4 * msaa}
+        assert card == host == {"raster_edge": 4 * msaa,
+                                "raster_sample": 4 * msaa}
         got, g_card, g_host = counted(lambda: graph.render_async(cam))
         assert g_card == (twice(card) if k == 0 else card)
         assert g_host == (twice(card) if k == 0 else {})
@@ -1406,10 +1565,11 @@ def test_graph_quantized_raster_frames_equal_eager_frames(renderer):
 
 def test_traced_raster_replays_count_n_times_one_frame(renderer, card):
     """A quantized raster frame captured with tracing on, replayed 3
-    times: the counters raster_live_r0..3 read 3 times those of the same
-    frame traced eagerly, which add up to its visibility queries; the
-    table holds G's 32 launches' lanes; the frames are the untraced
-    graph's bits."""
+    times: the counters raster_live_r0..3 and raster_fetch_r0..3 read 3
+    times those of the same frame traced eagerly, the live ones adding up
+    to its visibility queries and each fetch count at most its live
+    count; the table holds G's and I's 32 launches' lanes; the frames are
+    the untraced graph's bits."""
     cfg = dataclasses.replace(C.reference_config(), width=64, height=48)
     r = Rasterizer(renderer.model, cfg, card, quantize=True)
     eager, graph = graph_twin(r)
@@ -1427,12 +1587,19 @@ def test_traced_raster_replays_count_n_times_one_frame(renderer, card):
         got = tracing.counters(card)
     assert len(graph.graphs) == 2
     (table,) = graph.graphs.tables().values()
-    assert set(want) >= {"raster_live_r0", "raster_live_r1"}
-    assert all(k.startswith("raster_live_r") for k in want)
-    assert sum(want.values()) == int(want_n)
+    assert set(want) >= {"raster_live_r0", "raster_live_r1",
+                         "raster_fetch_r0"}
+    assert all(k.startswith(("raster_live_r", "raster_fetch_r"))
+               for k in want)
+    assert sum(v for k, v in want.items()
+               if k.startswith("raster_live_r")) == int(want_n)
+    for r in range(rp.MAX_DISCARD_ROUNDS):
+        assert want.get(f"raster_fetch_r{r}", 0) <= want.get(
+            f"raster_live_r{r}", 0)
     assert {k: v for k, v in got.items() if v} == {k: 3 * v
                                                   for k, v in want.items()}
-    assert [k for k, _, _ in table.lanes] == ["raster_edge"] * 32
+    assert [k for k, _, _ in table.lanes] == ["raster_edge",
+                                              "raster_sample"] * 32
     for fb, n in outs + [(want_fb, want_n)]:
         assert torch.equal(fb, plain[0]) and torch.equal(n, plain[1])
     graph.free_graphs()

@@ -223,13 +223,15 @@ def test_kernel_launches_read_the_profiler_names():
                             "long>(char*)", count=9, device_type=cuda),
         SimpleNamespace(key="void vkrt::raster_edge_kernel(float const*)",
                         count=7, device_type=cpu),
+        SimpleNamespace(key="vkrt::raster_sample_kernel(int const*, float "
+                            "const*)", count=32, device_type=cuda),
         SimpleNamespace(key="cudaGraphLaunch", count=2, device_type=cpu)]
     assert graphs.kernel_name(events[0].key) == "trace_closest"
     assert graphs.kernel_name(events[5].key) is None
     assert graphs.kernel_launches(events) == dict(
         trace_closest=5, trace_occluded=0, occl_multi=4, consolidate=0,
         scatter_back=0, lane_sort=3, lane_unsort=2, raster_edge=0,
-        sah_cut=0)
+        sah_cut=0, raster_sample=32)
 
 
 @pytest.mark.parametrize("shards", [2, 5, 7])

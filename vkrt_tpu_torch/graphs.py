@@ -76,11 +76,11 @@ def resolve(graph: bool | None, device, host_wait: str = "") -> bool:
 
 
 # --- launches on the card ----------------------------------------------
-# kernels A, A', B, C, D, E, F, G, H: csrc/'s __global__ functions, named
+# kernels A, A', B, C, D, E, F, G, H, I: csrc/'s __global__ functions, named
 # without their "_kernel" suffix
 KERNELS = ("trace_closest", "trace_occluded", "occl_multi", "consolidate",
            "scatter_back", "lane_sort", "lane_unsort", "raster_edge",
-           "sah_cut")
+           "sah_cut", "raster_sample")
 _KERNEL = re.compile(r"\bvkrt::(\w+)_kernel\b")
 
 

@@ -12,7 +12,8 @@ module on a machine without nvcc.
 
 Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
 occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G),
-sah_cut.cu (H, the device SAH build's cut round), span_mark.cu
+sah_cut.cu (H, the device SAH build's cut round), raster_sample.cu (I,
+the raster discard round's material sample), span_mark.cu
 (tracing.py's empty mark kernel); headers common.cuh
 (shared by A, A', B and G) and walk.cuh (the front-to-back group walk of
 A, A' and B).
@@ -40,7 +41,7 @@ from vkrt_tpu_torch.utils.cache import build_root
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
            "pack.cu", "lanesort.cu", "raster_edge.cu", "sah_cut.cu",
-           "span_mark.cu")
+           "raster_sample.cu", "span_mark.cu")
 HEADERS = ("common.cuh", "walk.cuh")
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -141,10 +142,13 @@ def library() -> ctypes.CDLL:
     lib.vkrt_raster_edge.argtypes = [_P, _P, _I, _I, _I, _P, _P, _P, _P,
                                      _I, _P, _P, _P, _P, _P, _P]
     lib.vkrt_sah_cut.argtypes = [_P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P]
+    lib.vkrt_raster_sample.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _F, _F, _P, _P, _P]
     lib.vkrt_span_mark.argtypes = [_P]
     for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
                lib.vkrt_lane_sort, lib.vkrt_lane_unsort,
-               lib.vkrt_raster_edge, lib.vkrt_sah_cut, lib.vkrt_span_mark):
+               lib.vkrt_raster_edge, lib.vkrt_sah_cut, lib.vkrt_raster_sample,
+               lib.vkrt_span_mark):
         fn.restype = _I
     return lib
 

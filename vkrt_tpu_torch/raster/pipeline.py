@@ -29,12 +29,19 @@ rasterizer (G, or kernel A in the ray-cast method), summed over the
 samples: every inside pixel in round 0, then the samples whose fragment
 was discarded. It is the raster path's counterpart of rays traced.
 
+After each launch of G, raster/sample.py's `raster_sample_round` samples
+the base map where G hit, applies the alpha test and sets the next
+round's depth floor: kernel I (csrc/raster_sample.cu) on the card,
+`raster_sample_round_plain` on the CPU. The ray-cast method keeps
+shade/sampling.py's three-map sampler, as the ray tracer does.
+
 Spans (tracing.py): `frame` holds `raster_setup` (edge), per sample k and
-round `raster_edge_s{k}` (G, and the round's live count) and
-`raster_sample` (the material sample and the discard), and `resolve`
-(each sample into the image and the sum, the average, the cast).
-Counters: `raster_live_r{r}`, the live lanes at round r's entry summed
-over the samples; G records the lanes it is launched over
+round `raster_edge_s{k}` (G, and the round's live and hit counts) and
+`raster_sample` (kernel I), and `resolve` (each sample into the image
+and the sum, the average, the cast). Counters: `raster_live_r{r}`, the
+live lanes at round r's entry, and `raster_fetch_r{r}`, the lanes G hit
+in round r (those whose texel kernel I fetches), each summed over the
+samples; G and kernel I record the lanes they are launched over
 (tracing.lanes).
 """
 
@@ -49,13 +56,13 @@ from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import tracing
 from vkrt_tpu_torch.app.overlay import draw_text
 from vkrt_tpu_torch.raster.edge import ZFAR_PARK, build_raster_setup, raster_edge
+from vkrt_tpu_torch.raster.sample import ALPHA_DISCARD, raster_sample_round
 from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.shade.sampling import sample_material
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import engine
 
 CLEAR_COLOR = np.array([0.0, 0.0, 0.2], dtype=np.float32)  # ref: Rasterizer.cpp:119
-ALPHA_DISCARD = 0.1        # ref: shaders/shader.frag:16-20
 MAX_DISCARD_ROUNDS = 4
 
 # Standard 8x MSAA sample positions (pixel space, Vulkan/D3D pattern;
@@ -196,16 +203,11 @@ def edge_color_lanes(tex, setup, scb, clb, px, py, inside,
         with tracing.span(f"raster_edge_{label}", px.device):
             _count_round(r, lambda: zfloor < ZFAR_PARK, queries)
             z, slot, u, v, mat = raster_edge(setup, scb, clb, px, py, zfloor)
+            if tracing.enabled():
+                tracing.count(f"raster_fetch_r{r}", slot >= 0)
         with tracing.span("raster_sample", px.device):
-            hit = slot >= 0
-            texel, _, _ = sample_material(
-                tex.texels_tri, tex.level_offset, tex.level_width,
-                tex.level_height, mat, torch.stack([u, v]))
-            opaque = hit & (texel[3] >= ALPHA_DISCARD)
-            discarded = hit & ~opaque
-            color = L.where3(opaque, texel[:3], color)
-            # fragment kill: the next round takes only deeper fragments
-            zfloor = torch.where(discarded, z, ZFAR_PARK)
+            color, zfloor = raster_sample_round(tex, z, slot, u, v, mat,
+                                                color)
     return color
 
 
