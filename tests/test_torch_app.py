@@ -37,6 +37,7 @@ from vkrt_tpu_torch.golden import harness
 from vkrt_tpu_torch.raster.pipeline import Rasterizer
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront.engine import Renderer
+import torch_support  # noqa: F401
 
 W, H = 64, 48
 SMALL = ["--width", str(W), "--height", str(H), "--device", "cpu"]

@@ -13,6 +13,7 @@ from vkrt_tpu.accel import clusters as jc
 from vkrt_tpu.scene import flatten_model
 from vkrt_tpu_torch.accel import clusters as tc
 from vkrt_tpu_torch.scene.procedural import procedural_model
+import torch_support  # noqa: F401
 
 
 @pytest.fixture(scope="module")

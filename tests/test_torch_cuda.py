@@ -68,6 +68,7 @@ from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
                                              camera_ray_blocks, render_frame,
                                              texture_arrays_from_numpy,
                                              upload_matrix)
+import torch_support  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

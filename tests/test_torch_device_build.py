@@ -31,6 +31,7 @@ from vkrt_tpu_torch.accel.device_sah import (_cut_round, cut_round,
                                              device_sah_order)
 from vkrt_tpu_torch.accel.lbvh import morton30
 from vkrt_tpu_torch.scene.procedural import procedural_model
+import torch_support  # noqa: F401
 
 
 def triangles(kind: str):

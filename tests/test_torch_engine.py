@@ -26,6 +26,7 @@ from vkrt_tpu.wavefront import engine as je
 from vkrt_tpu_torch import config as TC
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 W, H = 64, 48
 RMSE_BAR = 1e-3

@@ -35,6 +35,7 @@ from vkrt_tpu_torch.raster import pipeline as tpipe
 from vkrt_tpu_torch.raster.pipeline import Rasterizer
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 W, H = 32, 24
 RMSE_BAR = 1e-3
@@ -56,18 +57,6 @@ def transform() -> np.ndarray:
     c, s = np.cos(0.1), np.sin(0.1)
     return np.array([[c, 0, s, 0.3], [0, 1, 0, -0.2], [-s, 0, c, 0.5],
                      [0, 0, 0, 1]], np.float32)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this file: a 32x24 frame is many small ops,
-    which a thread pool on cores that the suite's other workers keep busy
-    turns into waits (0.2 s a frame on one thread, 3.5 s on the default
-    pool beside a running suite)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

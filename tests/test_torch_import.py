@@ -12,6 +12,10 @@ import subprocess
 import sys
 import textwrap
 
+import torch
+
+import torch_support  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -74,3 +78,18 @@ def test_chip_smoke_fails_outside_the_repo(tmp_path):
                           timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_port_tests_run_torch_on_one_thread():
+    """tests/torch_support.py sets the port tests' CPU thread policy, and
+    every port test file imports it, so the file runs on one thread alone
+    as well as under pytest-xdist."""
+    assert torch.get_num_threads() == 1
+    tests = os.path.join(REPO, "tests")
+    missing = []
+    for name in sorted(os.listdir(tests)):
+        if name.startswith("test_torch_") and name.endswith(".py"):
+            with open(os.path.join(tests, name)) as f:
+                if "\nimport torch_support" not in f.read():
+                    missing.append(name)
+    assert not missing, missing

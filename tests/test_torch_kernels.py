@@ -12,6 +12,7 @@ import stat
 import pytest
 
 from vkrt_tpu_torch import kernels
+import torch_support  # noqa: F401
 
 FAKE_NVCC = """#!/bin/sh
 echo "$@" >> "{args}"

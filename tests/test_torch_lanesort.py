@@ -21,6 +21,7 @@ import torch
 from chip_smoke import adversarial_keys
 from vkrt_tpu.wavefront import lanesort as jls
 from vkrt_tpu_torch.wavefront import lanesort
+import torch_support  # noqa: F401
 
 ADVERSARIAL = ["equal", "descending", "max_key", "zero", "dead_tail",
                "signed"]

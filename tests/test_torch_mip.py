@@ -31,6 +31,7 @@ from vkrt_tpu_torch import config as TC
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import sampling as ts
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 ATOL = 1e-6
 RTOL = 1e-6

@@ -51,6 +51,7 @@ from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.utils.cache import DEFAULT_ROOT, ENV, build_root
 from vkrt_tpu_torch.wavefront import engine as te
 from test_scene import _write_bin_gltf
+import torch_support  # noqa: F401
 
 N = 512          # rays a call: 4 groups of 128
 BLOCK = 128      # the JAX dispatch block

@@ -29,6 +29,7 @@ from vkrt_tpu_torch.golden import cpu_tracer as tgold
 from vkrt_tpu_torch.scene import build_texture_heap, flatten_model
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.utils.cache import build_root
+import torch_support  # noqa: F401
 
 
 def jax_native():

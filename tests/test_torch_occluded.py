@@ -35,6 +35,7 @@ from vkrt_tpu_torch.rt.dense import (TMIN, broadcast_points, trace_dense,
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 N_RAYS = 2048
 REORDER_FLAGS = ("consolidate_secondary", "group_sort_shadows",

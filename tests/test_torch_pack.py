@@ -16,6 +16,7 @@ import torch
 
 from vkrt_tpu.wavefront import pack as jpack
 from vkrt_tpu_torch.wavefront import pack
+import torch_support  # noqa: F401
 
 
 def roundtrip(live, block, n_ch=4, seed=0):

@@ -36,6 +36,7 @@ from vkrt_tpu_torch.raster.pipeline import (Rasterizer,
                                             render_raster_frame_edge)
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 W, H = 64, 48
 SHARDS = [1, 3, 5, 8]
@@ -45,20 +46,6 @@ REORDER_OFF = dict(consolidate_secondary=False, group_sort_shadows=False,
                    partition_shadows=False)
 VARIANTS = {"defaults": ({}, "dense"), "flags_off": (REORDER_OFF, "dense"),
             "reference": ({}, "reference")}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for this file. The reference backend's
-    traversal is thousands of small ops a frame; with the suite's workers
-    on every core, each worker's thread pool turns every op into a wait
-    for busy cores (on an 8-core host running the suite on 6 workers this
-    file took 960 s with the default pool, and 80 s alone on one
-    thread)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def start_camera(w=W, h=H):

@@ -23,6 +23,7 @@ from pathlib import Path
 import torch
 
 from vkrt_tpu_torch import runtime
+import torch_support  # noqa: F401
 
 PKG = Path(__file__).resolve().parent.parent / "vkrt_tpu_torch"
 

@@ -20,6 +20,7 @@ from vkrt_tpu_torch.raster import pipeline as rp
 from vkrt_tpu_torch.scene import build_texture_heap
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront.engine import Renderer
+import torch_support  # noqa: F401
 
 W, H = 64, 48
 # sha256 of the small scene's geometry, materials and RGB texels as they

@@ -30,6 +30,7 @@ from vkrt_tpu_torch.raster import pipeline as tpipe
 from vkrt_tpu_torch.scene import build_texture_heap, flatten_model
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 W, H = 64, 48
 FLIP = 0.02            # a pixel "flips" if a channel differs by more

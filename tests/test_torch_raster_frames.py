@@ -35,6 +35,7 @@ import check  # noqa: E402
 import raster_reference  # noqa: E402
 import reference  # noqa: E402
 import scene_gen  # noqa: E402
+import torch_support  # noqa: E402,F401
 
 W, H = 64, 48
 CAMERAS = list(camera_path(W, H))

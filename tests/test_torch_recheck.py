@@ -38,6 +38,7 @@ from vkrt_tpu_torch.rt.occl_multi import (multi_interval_gate,
                                           multi_worklists, occluded_multi)
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from test_torch_trace import lanes, make_rays, shadow_segments
+import torch_support  # noqa: F401
 
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck"),
          "both": dict(sub_gate=True, pregate="recheck")}

@@ -36,6 +36,7 @@ from vkrt_tpu_torch.rt import intersect as tint
 from vkrt_tpu_torch.rt import traverse as ttrav
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 W, H = 64, 48
 RMSE_BAR = 1e-3

@@ -25,6 +25,7 @@ from vkrt_tpu_torch.accel.clusters import (K1, SUB_COL, SUBRUNS,
 from vkrt_tpu_torch.accel.refit import refit_clusters
 from vkrt_tpu_torch.rt.dense import trace_dense
 from vkrt_tpu_torch.scene.procedural import procedural_model
+import torch_support  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

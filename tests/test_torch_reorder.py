@@ -24,6 +24,7 @@ from vkrt_tpu.wavefront import resort as jrs
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 OBLK = 1024
 

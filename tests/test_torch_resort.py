@@ -13,6 +13,7 @@ import torch
 
 from vkrt_tpu.wavefront import resort as jrs
 from vkrt_tpu_torch.wavefront import resort
+import torch_support  # noqa: F401
 
 GROUP_KEY_AGREE = 0.99
 

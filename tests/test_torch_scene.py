@@ -6,6 +6,7 @@ import pytest
 from vkrt_tpu import config as C
 from vkrt_tpu.scene import flatten_model
 from vkrt_tpu_torch.scene.procedural import SIZES, procedural_model
+import torch_support  # noqa: F401
 
 
 def scene_bounds(model):

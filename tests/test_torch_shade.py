@@ -21,6 +21,7 @@ from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import sampling as ts
 from vkrt_tpu_torch.shade import shading as tsh
 from vkrt_tpu_torch.utils import layout as tl
+import torch_support  # noqa: F401
 
 ATOL = 1e-6
 NB = 4

@@ -33,6 +33,7 @@ from vkrt_tpu_torch.scene import synth as tsynth
 from vkrt_tpu_torch.scene import textures as ttex
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from test_torch_native import jax_native
+import torch_support  # noqa: F401
 
 CONSTANTS = ("LIGHT_POSITIONS", "LIGHT_INTENSITY", "SHADOW_MULTIPLIER",
              "AMBIENT", "SKY_COLOR", "METALLIC_THRESHOLD", "REFLECT_SCALE",

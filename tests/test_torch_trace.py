@@ -27,6 +27,7 @@ from vkrt_tpu_torch.accel.clusters import tree_from_numpy
 from vkrt_tpu_torch.rt.dense import trace_dense, trace_dense_plain
 from vkrt_tpu_torch.rt.occl_multi import occluded_multi
 from vkrt_tpu_torch.scene.procedural import procedural_model
+import torch_support  # noqa: F401
 
 N_RAYS = 2048
 

@@ -28,19 +28,10 @@ from vkrt_tpu_torch.raster.pipeline import Rasterizer
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import engine as te
+import torch_support  # noqa: F401
 
 W, H = 32, 24
 MARK = "void vkrt::span_mark_kernel()"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread, as tests/test_torch_graph.py: a 32x24 frame is
-    many small ops, which a busy thread pool turns into waits."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
