@@ -17,7 +17,7 @@ raster frame and --shard, and 26 run the default, a CUDA graph a frame
 Python) and, for graphs, on the card by torch.profiler, which records
 every kernel node of a replay by name (graphs.kernel_launches):
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A-I and A' from vkrt_tpu_torch/csrc/ into
+  2. build    compile kernels A-J and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked),
@@ -61,7 +61,7 @@ every kernel node of a replay by name (graphs.kernel_launches):
          time per engine range, busy share, top kernels)
  10. kernel G vs its plain version on probes: the full and the small
               procedural scene, from the start pose and close to a wall
-              (sheets behind the camera: full-screen boxes), at three
+              (sheets across w = 0: boxes from kernel J), at three
               sample offsets, with random and parked depth floors, then a
               continuation round behind every hit; per pose a tie probe
               (one triangle in two clusters, the copy of the higher slot
@@ -81,7 +81,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               ray-cast frame on the first camera, which may differ from
               the edge frame on at most 1% of the pixels; the same gate on
               a frame close to a wall, where clusters wholly behind the
-              camera exist and must have left the full-screen set
+              camera exist and must be empty, and no cluster, those with
+              a triangle across w = 0 included, may be full-screen
  13. G shapes kernel G's inputs recorded from one raster frame: kernel vs
               plain on sample 0, rounds 0 and 1; the kernel's time over
               all 32 calls, the plain version's on sample 0's 4 calls, the
@@ -92,6 +93,13 @@ every kernel node of a replay by name (graphs.kernel_launches):
               a filled queue, round 0 and rounds 1-3 apart, beside the
               plain version's and the bound (bytes: 8 a lane, 32 more a
               hit, 12 more an opaque hit); the lanes hit and live a round
+ 29. J shapes kernel J (raster/clip.py::clip_boxes) on the setup of the
+              same frame's pose and on the crossing soup's
+              (`crossing_soup`: sheets across w = 0 that reach the frame):
+              bit-equal to clip_boxes_plain on the CPU copy; ms a launch
+              on a filled queue beside the plain version's and the bound
+              (bytes: a slot's mask byte and 20 bytes out, 48 bytes of
+              rows a crossing slot); the slots crossing and kept
  14. kernel A' (any-hit, per-ray or per-block origins) vs its plain
               version on probes: phase 3's rays with per-ray origins, random
               block origins and phase 4's light segments at blocks 512 and
@@ -282,6 +290,7 @@ from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
 from vkrt_tpu_torch.raster import edge
 from vkrt_tpu_torch.raster import pipeline as rp
 from vkrt_tpu_torch.raster import sample as rs
+from vkrt_tpu_torch.raster.clip import clip_boxes, clip_boxes_plain
 from vkrt_tpu_torch.rt import traverse
 from vkrt_tpu_torch.rt.dense import (ABLATES, CUTS, _safe_inv,
                                      broadcast_points, closest_worklists,
@@ -379,6 +388,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
            "F": lanesort.lane_unsort, "G": edge.raster_edge,
            "H": device_sah.cut_round, "I": rs.raster_sample_round,
+           "J": clip_boxes,
            "A.sub_gate": ModeCount(trace_dense, "sub_gate"),
            "A.recheck": ModeCount(trace_dense, "recheck"),
            "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
@@ -389,7 +399,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
 ON_CARD = {"A": "trace_closest", "A'": "trace_occluded", "B": "occl_multi",
            "C": "consolidate", "D": "scatter_back", "E": "lane_sort",
            "F": "lane_unsort", "G": "raster_edge", "H": "sah_cut",
-           "I": "raster_sample"}
+           "I": "raster_sample", "J": "raster_clip"}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 # phase 25: the JAX kernels' remaining modes, each a wrapper's
@@ -1505,7 +1515,7 @@ def compare_raster(setup, scb, clb, px, py, zf, label: str = "") -> dict:
 
 def wall_camera(width: int, height: int) -> Camera:
     """A pose close to the z- wall, looking along it: sheets pass behind
-    the camera, so clusters get full-screen boxes."""
+    the camera, so triangles cross w = 0."""
     cam = Camera(width, height)
     cam.set_position((2.0, 3.0, -10.2))
     cam.set_rotation((0.0, 3.0, 0.0))
@@ -1531,6 +1541,84 @@ def duplicate_triangle(setup, scb, clb, slot: int, cluster: int):
     scb[0:3, s] = torch.minimum(scb[0:3, s], box[0:3])
     scb[3:6, s] = torch.maximum(scb[3:6, s], box[3:6])
     return setup, scb, clb
+
+
+def crossing_slots(tree, setup, view, proj):
+    """bool [C1p, 128]: the slots kernel J clips (a corner at w <= 1e-9,
+    another in front, setup rows kept), from the corners' w in
+    float64."""
+    wrow = (proj.double() @ view.double())[3]
+    td = tree.tri_data.double()
+    v0 = td[..., 0:3]
+    ws = [(p * wrow[:3]).sum(-1) + wrow[3]
+          for p in (v0, v0 + td[..., 3:6], v0 + td[..., 6:9])]
+    near = (ws[0] <= 1e-9) | (ws[1] <= 1e-9) | (ws[2] <= 1e-9)
+    behind = (ws[0] <= 0) & (ws[1] <= 0) & (ws[2] <= 0)
+    return (setup[..., :9] != 0).any(-1) & near & ~behind
+
+
+def clip_shapes(rast, cam) -> dict:
+    """Phase 29: kernel J on the setup of `rast`'s tree at `cam` and on
+    the crossing soup's at the same pose (module docstring)."""
+    w, h = rast.cfg.width, rast.cfg.height
+    view = torch.as_tensor(cam.view_matrix, device=rast.device)
+    proj = torch.as_tensor(cam.projection_matrix, device=rast.device)
+    res = {}
+    for name, tree in (("scene", rast.backend.tree),
+                       ("soup", crossing_soup(cam, rast.device))):
+        setup = edge.build_raster_setup(tree, view, proj, w, h)[0]
+        crossing = crossing_slots(tree, setup, view, proj)
+        got = clip_boxes(setup, crossing, w, h)
+        want = clip_boxes_plain(setup.cpu(), crossing.cpu(), w, h)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"kernel J ({name}): differs from "
+                                 f"clip_boxes_plain")
+        q = queued_ms([lambda: clip_boxes(setup, crossing, w, h)])
+        n, nc = crossing.numel(), int(crossing.sum())
+        r = dict(slots=n, crossing=nc,
+                 kept=int((crossing & (got[0] <= got[2])).sum()),
+                 bit_equal=True, ms=q["ms"], enqueue_ms=q["enqueue_ms"],
+                 plain_ms=cuda_ms(lambda: clip_boxes_plain(
+                     setup, crossing, w, h), 3),
+                 **bound(n * 21 + nc * 48, 0))
+        log(f"  kernel J ({name}, {w}x{h}):", json.dumps(r))
+        res[name] = r
+    return res
+
+
+def crossing_soup(cam: Camera, device, seed: int = 5):
+    """A tree (Morton-ordered, on `device`) in which many triangles cross
+    w = 0 of `cam` and their sheets reach its frame, as no pose of the
+    procedural scenes has them: 1,000 triangles with one corner 0.2-3
+    units behind the camera plane and two 1-15 units in front inside the
+    view, two floor triangles 40 units across 1.5 units below the eye
+    (half behind the camera), and 7,000 small triangles 2-30 units in
+    front. Built in view space and carried to the world by
+    cam.view_inverse, like test_torch_cuda.py's soup."""
+    rng = np.random.default_rng(seed)
+    n_cross, n_small = 1000, 7000
+    a = np.stack([rng.uniform(-3, 3, n_cross), rng.uniform(-3, 3, n_cross),
+                  rng.uniform(0.2, 3, n_cross)], 1)
+    b = np.stack([rng.uniform(-8, 8, n_cross), rng.uniform(-6, 6, n_cross),
+                  rng.uniform(-15, -1, n_cross)], 1)
+    c = b + rng.uniform(-3, 3, (n_cross, 3))
+    c[:, 2] = np.minimum(c[:, 2], -0.5)
+    f = np.array([[-40.0, -1.5, 40.0], [40.0, -1.5, 40.0],
+                  [40.0, -1.5, -40.0], [-40.0, -1.5, -40.0]])
+    s0 = np.stack([rng.uniform(-15, 15, n_small),
+                   rng.uniform(-10, 10, n_small),
+                   rng.uniform(-30, -2, n_small)], 1)
+    v0 = np.concatenate([a, f[[0, 0]], s0])
+    e1 = np.concatenate([b - a, f[[1, 2]] - f[[0, 0]],
+                         rng.uniform(-0.5, 0.5, (n_small, 3))])
+    e2 = np.concatenate([c - a, f[[2, 3]] - f[[0, 0]],
+                         rng.uniform(-0.5, 0.5, (n_small, 3))])
+    vi = np.asarray(cam.view_inverse, np.float64)
+    v0 = v0 @ vi[:3, :3].T + vi[:3, 3]
+    e1, e2 = e1 @ vi[:3, :3].T, e2 @ vi[:3, :3].T
+    return clusters.build_clusters(
+        *(torch.as_tensor(x, dtype=torch.float32, device=device)
+          for x in (v0, e1, e2)), method="morton")
 
 
 def tie_probe(setup, scb, clb, px, py, inside, label: str) -> float:
@@ -1609,8 +1697,8 @@ def probe_raster(dev, scenes) -> float:
             setup, scb, clb = edge.build_raster_setup(
                 tree, torch.as_tensor(cam.view_matrix, device=dev),
                 torch.as_tensor(cam.projection_matrix, device=dev), w, h)
-            if not bool((clb[:, 0] == -1e8).any()):
-                raise AssertionError(f"{name} {pose}: no full-screen box")
+            if bool((clb[:, 0] == -1e8).any()):
+                raise AssertionError(f"{name} {pose}: a full-screen box")
             for off in ((0.5, 0.5), tuple(rp.MSAA8[0]), tuple(rp.MSAA8[5])):
                 px, py, inside = rp.sample_pixel_lanes(cfg, off, dev)
                 r = rng.random(px.shape)
@@ -1681,7 +1769,7 @@ def drive_raster(rast, cams) -> tuple:
     under torch.profiler, the frames replayed once more). Returns
     (results, the frames)."""
     n = len(cams) - 1
-    per_frame = {"G": 32, "I": 32}
+    per_frame = {"G": 32, "I": 32, "J": 1}
     graph = rast.captured()
     held = len(rast.graphs)
     torch.cuda.synchronize()
@@ -1837,10 +1925,9 @@ def camera_classes(rast, cam) -> tuple:
     in float64: `behind`, every triangle of the cluster has all three
     corners at w <= 0 (no such triangle covers a pixel: its edge
     functions cannot all be >= 0 where sum_i beta_i w_i = 1); `crossing`,
-    some triangle has a corner at w <= 1e-9 and another in front (the
-    setup's full-screen rule); `near`, some triangle has a corner at
-    w <= 1e-9 (the JAX package's full-screen rule, which counts those
-    behind too)."""
+    some triangle has a corner at w <= 1e-9 and another in front (those
+    kernel J clips); `near`, some triangle has a corner at w <= 1e-9 (the
+    JAX package's full-screen rule, which counts those behind too)."""
     td = rast.backend.tree.tri_data
     wrow = (torch.as_tensor(cam.projection_matrix, device=rast.device).double()
             @ torch.as_tensor(cam.view_matrix, device=rast.device).double())[3]
@@ -1855,40 +1942,49 @@ def camera_classes(rast, cam) -> tuple:
             (near & ~behind).any(dim=1), near.any(dim=1))
 
 
-def full_screen_drop(rast, cam, clb, label: str) -> dict:
-    """The setup's box rule at one pose: the clusters wholly behind the
-    camera exist, have left the full-screen set (which is exactly the
-    clusters with a triangle crossing w = 0) and have empty boxes."""
+def screen_boxes(rast, cam, clb, label: str) -> dict:
+    """The setup's box rule at one pose: no cluster is full-screen; the
+    clusters wholly behind the camera exist and have empty boxes; of the
+    clusters with a triangle crossing w = 0 (the JAX package's rule would
+    make them and those behind full-screen), `crossing_on_screen` still
+    reach the screen, with `crossing_screen_share` the largest share of
+    it one covers."""
     behind, crossing, near = camera_classes(rast, cam)
     box = clb.permute(1, 0, 2).reshape(8, -1)
     full, empty = box[0] == -1e8, box[0] == 1e8
+    w, h = rast.cfg.width, rast.cfg.height
+    span = ((box[3].clamp(0, w) - box[0].clamp(0, w)).clamp(min=0)
+            * (box[4].clamp(0, h) - box[1].clamp(0, h)).clamp(min=0))
+    on = crossing & ~empty & (span > 0)
     res = dict(clusters=box.shape[1], full_screen_clusters=int(full.sum()),
                full_screen_jax_rule=int(near.sum()),
+               crossing_clusters=int(crossing.sum()),
+               crossing_on_screen=int(on.sum()),
+               crossing_screen_share=float(span[crossing].max() / (w * h))
+               if bool(crossing.any()) else 0.0,
                behind_camera_clusters=int(behind.sum()),
                empty_clusters=int(empty.sum()),
-               full_is_crossing=bool(torch.equal(full, crossing)),
                behind_are_empty=bool(empty[behind].all()))
     log(f"  screen boxes ({label}):", json.dumps(res))
-    if not (res["behind_camera_clusters"] > 0 and res["full_is_crossing"]
-            and res["behind_are_empty"]
-            and res["full_screen_jax_rule"] - res["full_screen_clusters"]
-            >= res["behind_camera_clusters"]):
+    if not (res["behind_camera_clusters"] > 0 and res["crossing_clusters"] > 0
+            and res["full_screen_clusters"] == 0
+            and res["behind_are_empty"]):
         raise AssertionError(f"screen-box rule failed ({label}): {res}")
     return res
 
 
 def wall_pose_frame(rast) -> None:
     """Phase 12's wall-pose probe at the full width: close to a wall,
-    where clusters wholly behind the camera exist, the full-screen set
-    dropped them and the edge frame still passes the ray-cast frame
-    gate."""
+    where clusters wholly behind the camera exist and are empty, no
+    cluster is full-screen and the edge frame still passes the ray-cast
+    frame gate."""
     cam = wall_camera(rast.cfg.width, rast.cfg.height)
     _, _, clb = edge.build_raster_setup(
         rast.backend.tree,
         torch.as_tensor(cam.view_matrix, device=rast.device),
         torch.as_tensor(cam.projection_matrix, device=rast.device),
         rast.cfg.width, rast.cfg.height)
-    full_screen_drop(rast, cam, clb, "wall pose")
+    screen_boxes(rast, cam, clb, "wall pose")
     wavefront_vs_edge(rast, cam, rast.render_async(cam))
 
 
@@ -1901,7 +1997,7 @@ def raster_shapes(rast, cam) -> dict:
     work of the 32 calls and of sample 0's four (the clusters wholly
     behind the camera need none; `pairs_*`: the (pixel, triangle) pairs
     counted, [all, past edge 0, past all three edges]); check the setup's box rule at this pose
-    (`full_screen_drop`)."""
+    (`screen_boxes`)."""
     with RecordingRaster() as rec:
         rast.render_async(cam)
         torch.cuda.synchronize()
@@ -1935,7 +2031,7 @@ def raster_shapes(rast, cam) -> dict:
         cuda_ms(lambda c=c: edge.raster_edge_plain(*c), 1, warmup=False)
         for c in calls[2:4])
     behind = camera_classes(rast, cam)[0]
-    boxes = full_screen_drop(rast, cam, calls[0][2], "start pose")
+    boxes = screen_boxes(rast, cam, calls[0][2], "start pose")
     bounds = [raster_bound(*c, edge.raster_edge(*c)[0], behind)
               for c in calls]
     frame_b = add_bounds(bounds)
@@ -2539,7 +2635,7 @@ def cli_raster(model, rast, tmp: Path) -> None:
     equal to Rasterizer.render_async of the start camera outside the FPS
     text (its pixels change with the measured rate)."""
     png = tmp / "cli_raster.png"
-    with measured("CLI raster", {"G": 32, "I": 32}, 1, graph=True):
+    with measured("CLI raster", {"G": 32, "I": 32, "J": 1}, 1, graph=True):
         rc, _, _, wall_s = run_cli(cli.main, ["--raster", "--frames", "1",
                                               "--output", str(png)], model)
     cfg = rast.cfg
@@ -2782,7 +2878,7 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
     tree = sync.backend.tree
     zero_counts()
     want = rp.render_raster_frame_edge(tree, sync.tex, view, proj, rcfg, 8)
-    read_counts("raster unsharded", {"G": 32, "I": 32})
+    read_counts("raster unsharded", {"G": 32, "I": 32, "J": 1})
     raster = {}
     for k in RASTER_SHARDS:
         mesh = make_mesh() if k == 1 else make_mesh([dev] * k)
@@ -2797,7 +2893,8 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
         host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         torch.cuda.synchronize()
-        read_counts(f"raster, {k} shards", {"G": 32 * k, "I": 32 * k})
+        read_counts(f"raster, {k} shards",
+                    {"G": 32 * k, "I": 32 * k, "J": 1})
         equal = torch.equal(got, want)
         raster[k] = dict(device_ms=start.elapsed_time(end),
                          host_enqueue_ms=host_ms, equal=equal)
@@ -2810,7 +2907,8 @@ def sharded(model, sync, cams, event_ms: float, dev, tmp: Path) -> dict:
         json.dumps(raster))
 
     mesh = make_mesh([dev] * 4)
-    with measured("raster, 4 shards, graph", {"G": 32 * 4, "I": 32 * 4}, 1,
+    with measured("raster, 4 shards, graph",
+                  {"G": 32 * 4, "I": 32 * 4, "J": 1}, 1,
                   graph=True):
         got = render_raster_frame_sharded(tree, sync.tex, view, proj, rcfg,
                                           mesh, msaa=8,
@@ -3778,6 +3876,8 @@ def main() -> int:
     res_13 = raster_shapes(rast, rcams[0])
     log("== 28. kernel I at the main path's shapes")
     res_28 = raster_sample_shapes(rast, rcams[0])
+    log("== 29. kernel J at the main path's shapes")
+    res_29 = clip_shapes(rast, rcams[0])
 
     t_new = time.perf_counter()
     out_dir = build_root() / "smoke"      # gitignored by default, in the checkout
@@ -3943,6 +4043,18 @@ def main() -> int:
          "bound_by": res_28["bound_by"], "library_ms": None,
          "design": "one thread a lane; a hit reads the base map's 16-byte "
                    "quad alone"},
+        {"name": "raster_clip", "route": "cuda",
+         "source": "vkrt_tpu_torch/csrc/raster_clip.cu",
+         "replaces": "none: vkrt_tpu/raster/edge.py gives such clusters "
+                     "full-screen boxes",
+         "launches": main_launches["raster"]["J"],
+         "max_abs_err": 0.0, "ms": res_29["scene"]["ms"],
+         "ms_soup": res_29["soup"]["ms"],
+         "plain_ms": res_29["scene"]["plain_ms"],
+         "bound_ms": res_29["scene"]["bound_ms"],
+         "bound_by": res_29["scene"]["bound_by"], "library_ms": None,
+         "design": "one thread a triangle slot, float64 Sutherland-Hodgman; "
+                   "a slot not crossing w = 0 writes the empty box"},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

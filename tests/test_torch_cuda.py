@@ -1,4 +1,4 @@
-"""Kernels A-I and A' on the card vs their plain PyTorch versions (A, A'
+"""Kernels A-J and A' on the card vs their plain PyTorch versions (A, A'
 and B in each of their modes also vs their default mode; A's and A''s
 stats within the plain version's bounds), the
 per-frame accel update (refit, device SAH in every mode, and Morton
@@ -13,7 +13,7 @@ covered on the CPU by test_torch_trace.py, test_torch_pack.py,
 test_torch_lanesort.py, test_torch_raster_edge.py,
 test_torch_device_build.py and test_torch_raster_frames.py). C-F move f32
 values without arithmetic, so they must equal their plain versions
-exactly; so must H and I, which round each operation as theirs do.
+exactly; so must H, I and J, which round each operation as theirs do.
 Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -27,7 +27,8 @@ import pytest
 import torch
 
 from chip_smoke import (CUT_KINDS, CUT_SIZES, adversarial_keys, cut_case,
-                        duplicate_triangle, tie_slots, tie_tree)
+                        crossing_slots, crossing_soup, duplicate_triangle,
+                        tie_slots, tie_tree)
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import graphs, tracing
 from vkrt_tpu_torch.accel import clusters
@@ -40,6 +41,7 @@ from vkrt_tpu_torch.parallel.mesh import (make_mesh, render_frame_sharded,
                                           render_raster_frame_sharded,
                                           replicate)
 from vkrt_tpu_torch.raster import edge
+from vkrt_tpu_torch.raster.clip import clip_boxes, clip_boxes_plain
 from vkrt_tpu_torch.raster import pipeline as rp
 from vkrt_tpu_torch.raster import sample as rs
 from vkrt_tpu_torch.raster.pipeline import (MSAA8, Rasterizer,
@@ -109,7 +111,8 @@ WRAPPERS = {"trace_closest": dense.trace_dense,
             "lane_sort": lanesort.lane_sort,
             "lane_unsort": lanesort.lane_unsort,
             "raster_edge": edge.raster_edge, "sah_cut": cut_round,
-            "raster_sample": rs.raster_sample_round}
+            "raster_sample": rs.raster_sample_round,
+            "raster_clip": clip_boxes}
 
 
 def counted(fn):
@@ -655,6 +658,116 @@ def test_kernel_i_matches_plain(renderer, card, case):
         assert tex.level_width[1, 0] == 4                  # the fallback
 
 
+@pytest.fixture(scope="module")
+def full_raster_tree(card):
+    """The full scene's cluster tree on the card (the raster cell's)."""
+    from vkrt_tpu_torch.scene import flatten_model
+    from vkrt_tpu_torch.wavefront.engine import make_backend
+    return make_backend(flatten_model(procedural_model("full", seed=0)),
+                        "dense", card).tree
+
+
+def clip_case(tree, card, case):
+    """The 1600x1200 raster setup at `case`'s pose (the start pose, the
+    wall pose, fly path frames 110 and 160; "soup": chip_smoke.py's
+    crossing soup from the start pose instead of `tree`; "-all": every
+    live slot marked, not only those crossing w = 0) and the slots kernel
+    J clips: a corner at w <= 1e-9, another in front, setup rows kept."""
+    w, h = 1600, 1200
+    pose = case.split("-")[0]
+    if pose.startswith("fly"):
+        cam = list(camera_path(w, h))[int(pose[3:])]
+    elif pose == "wall":
+        cam = Camera(w, h)
+        cam.set_position((2.0, 3.0, -10.2))
+        cam.set_rotation((0.0, 3.0, 0.0))
+    else:
+        cam = Camera(w, h)
+        cam.set_position(C.CAMERA_START_POSITION)
+        cam.set_rotation(C.CAMERA_START_ROTATION)
+    if pose == "soup":
+        tree = crossing_soup(cam, card)
+    view = torch.as_tensor(cam.view_matrix, device=card)
+    proj = torch.as_tensor(cam.projection_matrix, device=card)
+    setup, _, clb = edge.build_raster_setup(tree, view, proj, w, h)
+    if case.endswith("-all"):
+        return setup, (setup[..., :9] != 0).any(-1), clb, w, h
+    return setup, crossing_slots(tree, setup, view, proj), clb, w, h
+
+
+@pytest.mark.parametrize("case", ["start", "wall", "fly110", "fly160",
+                                  "start-all", "soup"])
+def test_clip_matches_plain(full_raster_tree, card, case):
+    """Kernel J (clip_boxes on CUDA tensors) vs clip_boxes_plain on the
+    same setup copied to the CPU: every slot's lo x, lo y, hi x, hi y and
+    zmin bit-equal, one launch counted; unmarked slots get the empty box;
+    a marked slot's box lies in the screen; the setup's cluster boxes
+    hold each crossing slot's (its cluster: slot // 128). The cases hold
+    what they are there for: slots crossing w = 0 at every pose, and
+    sheets that reach the screen in the soup and, over every live slot,
+    at the start pose (along the fly path none does)."""
+    setup, crossing, clb, w, h = clip_case(full_raster_tree, card, case)
+    before = clip_boxes.launches
+    got = clip_boxes(setup, crossing, w, h)
+    torch.cuda.synchronize()
+    assert clip_boxes.launches == before + 1
+    want = clip_boxes_plain(setup.cpu(), crossing.cpu(), w, h)
+    assert torch.equal(got.cpu(), want)
+    assert int(crossing.sum()) > 100
+    empty = torch.tensor([1e8, 1e8, -1e8, -1e8, 1e8], device=card)
+    assert (got[:, ~crossing] == empty[:, None]).all()
+    kept = crossing & (got[0] <= got[2])
+    lo_x, lo_y, hi_x, hi_y, zmin = got[:, kept]
+    assert ((lo_x >= 0) & (hi_x <= w) & (lo_y >= 0) & (hi_y <= h)).all()
+    assert ((zmin >= 0) & (zmin <= 1)).all()
+    assert kept.any() == (case in ("soup", "start-all"))
+    if case.endswith("-all"):
+        return
+    box = clb.permute(1, 0, 2).reshape(8, -1)
+    c = torch.nonzero(kept.reshape(-1), as_tuple=True)[0] // 128
+    assert ((box[0][c] <= lo_x) & (box[1][c] <= lo_y) & (box[3][c] >= hi_x)
+            & (box[4][c] >= hi_y) & (box[2][c] <= zmin)).all()
+
+
+def test_kernel_g_on_clipped_boxes_equals_full_screen_rule(card):
+    """Kernel G's zmin walk on the boxes kernel J gives the clusters of
+    chip_smoke.py's crossing soup (sheets across w = 0 that win most of
+    the frame, zmin above 0) equals G on the same clusters with
+    full-screen boxes and zmin 0 (the rule before J) and the plain
+    version, every output, at 320x240 in the first round and behind
+    every hit."""
+    w, h = 320, 240
+    cam = Camera(w, h)
+    cam.set_position(C.CAMERA_START_POSITION)
+    cam.set_rotation(C.CAMERA_START_ROTATION)
+    tree = crossing_soup(cam, card)
+    view = torch.as_tensor(cam.view_matrix, device=card)
+    proj = torch.as_tensor(cam.projection_matrix, device=card)
+    setup, scb, clb = edge.build_raster_setup(tree, view, proj, w, h)
+    cross = crossing_slots(tree, setup, view, proj).any(1)
+    box = clb.permute(1, 0, 2).reshape(8, -1).clone()
+    assert int(cross.sum()) > 10 and (box[2][cross] > 0).any()
+    for row, value in ((0, -1e8), (1, -1e8), (2, 0.0), (3, 1e8), (4, 1e8),
+                       (5, 1e8)):
+        box[row] = torch.where(cross, value, box[row])
+    n_sc = clb.shape[0]
+    oclb = box.reshape(8, n_sc, -1).permute(1, 0, 2).contiguous()
+    oscb = scb.clone()
+    oscb[0:3, :n_sc] = oclb[:, 0:3].amin(dim=2).T
+    oscb[3:6, :n_sc] = oclb[:, 3:6].amax(dim=2).T
+    cfg = dataclasses.replace(C.reference_config(), width=w, height=h)
+    px, py, inside = sample_pixel_lanes(cfg, tuple(MSAA8[2]), card)
+    zf = torch.where(inside, 0.0, edge.ZFAR_PARK)
+    for _ in range(2):
+        got = edge.raster_edge(setup, scb, clb, px, py, zf)
+        want = edge.raster_edge(setup, oscb, oclb, px, py, zf)
+        plain = edge.raster_edge_plain(setup, scb, clb, px, py, zf)
+        for g, o, p in zip(got, want, plain):
+            assert torch.equal(g, o) and torch.equal(g, p)
+        assert (got[1] >= 0).any()
+        zf = torch.where(got[1] >= 0, got[0], edge.ZFAR_PARK)
+
+
 @pytest.mark.parametrize("graph", [False, None])
 def test_quantized_raster_frame_equals_plain_round_frame(renderer, card,
                                                          graph, monkeypatch):
@@ -692,7 +805,8 @@ def test_raster_frame_on_card_matches_cpu(renderer):
     rast = Rasterizer(renderer.model, cfg, renderer.device)
     rast.render(cam, show_fps=False)                 # the capture
     fb, card, host = counted(lambda: rast.render(cam, show_fps=False))
-    assert card == {"raster_edge": 32, "raster_sample": 32} and host == {}
+    assert card == {"raster_edge": 32, "raster_sample": 32,
+                    "raster_clip": 1} and host == {}
     want = Rasterizer(renderer.model, cfg, "cpu").render(cam, show_fps=False)
     assert (np.abs(fb - want).max(-1) > 0.02).mean() <= 0.001
 
@@ -1394,7 +1508,7 @@ def test_graph_raster_frames_equal_eager_frames(renderer, msaa):
     for k, cam in enumerate(two_cameras()):
         want, card, host = counted(lambda: eager.render_async(cam))
         assert card == host == {"raster_edge": 4 * msaa,
-                                "raster_sample": 4 * msaa}
+                                "raster_sample": 4 * msaa, "raster_clip": 1}
         got, g_card, g_host = counted(lambda: graph.render_async(cam))
         assert g_card == (twice(card) if k == 0 else card)
         assert g_host == (twice(card) if k == 0 else {})
@@ -1590,8 +1704,9 @@ def test_traced_raster_replays_count_n_times_one_frame(renderer, card):
     (table,) = graph.graphs.tables().values()
     assert set(want) >= {"raster_live_r0", "raster_live_r1",
                          "raster_fetch_r0"}
-    assert all(k.startswith(("raster_live_r", "raster_fetch_r"))
-               for k in want)
+    assert all(k.startswith(("raster_live_r", "raster_fetch_r",
+                             "raster_clip_")) for k in want)
+    assert want.get("raster_clip_kept", 0) <= want.get("raster_clip_cross", 0)
     assert sum(v for k, v in want.items()
                if k.startswith("raster_live_r")) == int(want_n)
     for r in range(rp.MAX_DISCARD_ROUNDS):

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import duplicate_triangle
+from chip_smoke import crossing_soup, duplicate_triangle
 from vkrt_tpu import config as JC
 from vkrt_tpu.raster import edge as jedge
 from vkrt_tpu.raster import pipeline as jpipe
@@ -39,8 +39,8 @@ SLOT_AGREE = 0.995     # plain version vs the JAX kernel, same setup
 
 
 def cameras(w=W, h=H):
-    """The start pose (floor and wall sheets pass behind it, so their
-    clusters get full-screen boxes) and a pose close to the z- wall."""
+    """The start pose (floor and wall sheets pass behind it: their
+    triangles cross w = 0) and a pose close to the z- wall."""
     start = Camera(w, h)
     start.set_position(TC.CAMERA_START_POSITION)
     start.set_rotation(TC.CAMERA_START_ROTATION)
@@ -156,16 +156,29 @@ def box_classes(clb):
     return (box[0] == -big) & (box[3] == big), box[0] == big
 
 
+def without_crossing(tree, crossing):
+    """The tree with its triangles that cross w = 0 zeroed (invalid), so
+    that no cluster takes kernel J's path."""
+    td = tree.tri_data.clone()
+    td[torch.from_numpy(crossing)] = 0.0
+    return tree._replace(tri_data=td)
+
+
 @pytest.mark.parametrize("pose", ["start", "wall"])
 def test_screen_boxes_match_jax(scene, pose):
-    """scb and clb, full-screen and empty boxes included. The port's
-    full-screen clusters are the JAX package's less those with no
-    triangle crossing w = 0 (a triangle wholly behind the camera bounds
-    nothing in the port); a cluster of nothing but such triangles is
-    empty in the port. Where both give a cluster the same kind of box:
-    the boxes are the corners divided by w, in float64 in the port and
-    float32 (with FMAs) in the JAX package: x, y to 1e-6 relative plus
-    1e-4 pixel, zmax to 1e-6 relative; the port's zmin lies below the JAX
+    """scb and clb, full-screen and empty boxes included. The JAX package
+    gives a full-screen box to every cluster with a triangle crossing w =
+    0 (and to those with a triangle wholly behind the camera); the port
+    gives none: a crossing triangle adds its sheet clipped to the screen
+    and depth range (kernel J's plain version), so such a cluster's box
+    lies inside the JAX package's; a triangle wholly behind the camera
+    bounds nothing, and a cluster of nothing but such triangles is empty.
+    The other clusters' boxes are those of the same setup on the tree
+    without its crossing triangles, bit for bit (the clip moves no other
+    cluster). Where both give a cluster the same kind of box: the boxes
+    are the corners divided by w, in float64 in the port and float32
+    (with FMAs) in the JAX package: x, y to 1e-6 relative plus 1e-4
+    pixel, zmax to 1e-6 relative; the port's zmin lies below the JAX
     package's (its pad for kernel G's depth error, measured here: at most
     0.03); the padding rows 6-7 are 0. A supercluster's box is compared
     where all of its clusters are of the same kind in both, and lies
@@ -176,14 +189,22 @@ def test_screen_boxes_match_jax(scene, pose):
     valid, crossing, behind = w_classes(scene[3].tree, cam)
     jfull, jempty = box_classes(jclb)
     full, empty = box_classes(tclb)
-    assert full.any(), "the pose should put some sheet across w = 0"
-    np.testing.assert_array_equal(full, jfull & crossing.any(1))
-    np.testing.assert_array_equal(full, crossing.any(1))
+    cross = crossing.any(1)
+    assert cross.any(), "the pose should put some sheet across w = 0"
+    assert not full.any()
+    assert jfull[cross].all()
     only_behind = valid.any(1) & ~(valid & ~behind).any(1)
-    np.testing.assert_array_equal(empty, jempty | only_behind)
+    np.testing.assert_array_equal(empty & ~cross, jempty | only_behind)
     assert (jfull[only_behind]).all()
     if pose == "start":
         assert only_behind.sum() >= 2      # the case is not vacuous
+    _, _, oclb = tedge.build_raster_setup(
+        without_crossing(scene[3].tree, crossing),
+        torch.from_numpy(cam.view_matrix),
+        torch.from_numpy(cam.projection_matrix), W, H)
+    ocl = np.moveaxis(oclb.numpy(), 1, 0).reshape(8, -1)
+    np.testing.assert_array_equal(
+        np.moveaxis(tclb, 1, 0).reshape(8, -1)[:, ~cross], ocl[:, ~cross])
     same = (full == jfull) & (empty == jempty)         # per cluster
     n_sc = tclb.shape[0]
     same_sc = np.zeros(tscb.shape[1], bool)
@@ -203,16 +224,18 @@ def test_screen_boxes_match_jax(scene, pose):
         assert not t[6:].any()
         # elsewhere the port's box is the smaller one
         assert (t[:2] >= j[:2] - 1e-4).all() and (t[3:5] <= j[3:5] + 1e-4).all()
-    assert (tcl[2][full] == 0).all()
+    assert (tcl[2][cross] >= 0).all()
 
 
 @pytest.mark.parametrize("pose", ["start", "wall"])
 def test_clusters_behind_camera_get_empty_boxes(full_tree, pose):
     """On the full scene both poses leave many clusters wholly behind the
     camera (every triangle with all three corners at w <= 0): they get
-    the empty, inverted box; a cluster is full-screen exactly when one of
-    its triangles crosses w = 0; a cluster that mixes triangles behind
-    with triangles in front (none crossing) keeps a bounded box."""
+    the empty, inverted box; no cluster is full-screen, those with a
+    triangle crossing w = 0 included: a cluster of nothing but crossing
+    triangles (and padding) gets a box inside the screen, or the empty
+    box where no clipped sheet is left; a cluster that mixes triangles
+    behind with triangles in front (none crossing) keeps a bounded box."""
     w, h = 160, 120
     cam = cameras(w, h)[pose]
     _, scb, clb = tedge.build_raster_setup(
@@ -220,14 +243,21 @@ def test_clusters_behind_camera_get_empty_boxes(full_tree, pose):
         torch.from_numpy(cam.projection_matrix), w, h)
     valid, crossing, behind = w_classes(full_tree, cam)
     full, empty = box_classes(clb.numpy())
+    cross = crossing.any(1)
     only_behind = valid.any(1) & ~(valid & ~behind).any(1)
     assert only_behind.sum() > 100
     assert empty[only_behind].all()
-    np.testing.assert_array_equal(empty, only_behind | ~valid.any(1))
-    np.testing.assert_array_equal(full, crossing.any(1))
-    mixed = behind.any(1) & ~only_behind & ~crossing.any(1)
-    assert mixed.any()
+    np.testing.assert_array_equal(empty & ~cross, only_behind | ~valid.any(1))
+    assert not full.any() and cross.sum() > 50
     box = np.moveaxis(clb.numpy(), 1, 0).reshape(8, -1)
+    only_cross = cross & ~(valid & ~crossing & ~behind).any(1)
+    assert (only_cross & empty).sum() >= 5   # their sheets miss the frame
+    held = only_cross & ~empty
+    assert (box[0, held] >= 0).all() and (box[3, held] <= w).all()
+    assert (box[1, held] >= 0).all() and (box[4, held] <= h).all()
+    assert (box[2, held] >= 0).all() and (box[5, held] == 1).all()
+    mixed = behind.any(1) & ~only_behind & ~cross
+    assert mixed.any()
     assert (np.abs(box[:6, mixed]) < 1e7).all()
     assert (box[0, mixed] <= box[3, mixed]).all()
     # the superclusters' boxes hold their clusters' (empty ones aside)
@@ -259,24 +289,29 @@ def jax_rule_boxes(tree, cam, scb, clb):
 
 @pytest.mark.parametrize("which, pose", [("small", "start"),
                                          ("small", "wall"),
-                                         ("full", "wall")])
+                                         ("full", "start"),
+                                         ("full", "wall"),
+                                         ("soup", "start")])
 def test_plain_frame_equals_jax_box_rule(scene, full_tree, which, pose):
-    """Leaving the triangles wholly behind the camera out of the boxes
-    changes no pixel: raster_edge_plain on the port's boxes equals it on
-    the boxes of the JAX package's rule (rebuilt here: full-screen for
-    any corner at w <= 1e-9) bit for bit, in all five outputs."""
-    tree = scene[3].tree if which == "small" else full_tree
+    """Clipping the sheets of the triangles that cross w = 0 and leaving
+    the triangles wholly behind the camera out of the boxes changes no
+    pixel: raster_edge_plain on the port's boxes equals it on the boxes
+    of the JAX package's rule (rebuilt here: full-screen with zmin 0 for
+    any corner at w <= 1e-9) bit for bit, in all five outputs. On the
+    procedural scenes no clipped sheet reaches the frame; on
+    chip_smoke.py's crossing soup they do, and win pixels."""
     w, h = (W, H) if which == "small" else (80, 60)
     cam = cameras(w, h)[pose]
+    tree = {"small": scene[3].tree, "full": full_tree}.get(which)
+    if which == "soup":
+        tree = crossing_soup(cam, "cpu")
     setup, scb, clb = tedge.build_raster_setup(
         tree, torch.from_numpy(cam.view_matrix),
         torch.from_numpy(cam.projection_matrix), w, h)
     oscb, oclb = jax_rule_boxes(tree, cam, scb, clb)
     ofull, _ = box_classes(oclb.numpy())
     full, _ = box_classes(clb.numpy())
-    assert (ofull | ~full).all()
-    if (which, pose) != ("small", "wall"):
-        assert ofull.sum() > full.sum()        # the rule did drop clusters
+    assert ofull.any() and not full.any()   # the rule did drop clusters
     cfg = dataclasses.replace(TC.reference_config(), width=w, height=h)
     px, py, inside = tpipe.sample_pixel_lanes(cfg, tuple(tpipe.MSAA8[2]),
                                               "cpu")
@@ -286,6 +321,9 @@ def test_plain_frame_equals_jax_box_rule(scene, full_tree, which, pose):
     assert (got[1] >= 0).float().mean() > 0.3
     for g, o in zip(got, want):
         assert torch.equal(g, o)
+    if which == "soup":
+        crossing = torch.from_numpy(w_classes(tree, cam)[1]).reshape(-1)
+        assert crossing[got[1][got[1] >= 0].long()].float().mean() > 0.5
 
 
 def lane_inputs(cam_cfg, seed=3):
@@ -460,23 +498,31 @@ def corner_zmin(tree, cam, w, h):
     return np.where(td[..., 0:9].any(-1), z, np.inf).min(axis=1)
 
 
-@pytest.mark.parametrize("pose", ["start", "wall"])
+@pytest.mark.parametrize("pose", ["start", "wall", "soup"])
 def test_cluster_zmin_bounds_its_fragments(full_tree, pose):
     """Kernel G skips a cluster whose zmin is >= the pixel's committed
     depth, so zmin must lie below every depth G computes for the
     cluster's fragments (the plain version's arithmetic, the kernel's bit
     for bit). On the full scene at 160x120, two sample offsets: the
     corners' least z/w (the JAX package's zmin) lies above many fragments
-    of small far triangles; the port's padded zmin above none."""
+    of small far triangles; the port's padded zmin above none. The
+    clusters with a triangle crossing w = 0 (their boxes from kernel J's
+    clip) are held to more: each of their triangles' rows evaluated at
+    every sample of the frame, not only inside the box, every fragment
+    with beta >= 0, sum(beta) > 0 and 0 <= z <= 1 lies in the cluster's
+    box widened by BOX_PAD and at or above its zmin. "soup": the same on
+    chip_smoke.py's crossing soup from the start pose, where the clipped
+    sheets do reach the frame."""
     w, h = 160, 120
-    cam = cameras(w, h)[pose]
+    cam = cameras(w, h)["start" if pose == "soup" else pose]
+    tree = crossing_soup(cam, "cpu") if pose == "soup" else full_tree
     setup, _, clb = tedge.build_raster_setup(
-        full_tree, torch.from_numpy(cam.view_matrix),
+        tree, torch.from_numpy(cam.view_matrix),
         torch.from_numpy(cam.projection_matrix), w, h)
     box = clb.permute(1, 0, 2).reshape(8, -1)
     bounded = (box[0] > -1e8) & (box[0] < 1e8)
     cols = setup.transpose(1, 2).contiguous()
-    exact = torch.from_numpy(corner_zmin(full_tree, cam, w, h))
+    exact = torch.from_numpy(corner_zmin(tree, cam, w, h))
     cfg = dataclasses.replace(TC.reference_config(), width=w, height=h)
     frags = below_pad = below_corner = 0
     for off in ((0.5, 0.5), tuple(tpipe.MSAA8[3])):
@@ -496,5 +542,32 @@ def test_cluster_zmin_bounds_its_fragments(full_tree, pose):
             below_pad += int((z < box[2][cc]).sum())
             below_corner += int((z.double() < exact[cc]).sum())
     assert frags > 50_000
-    assert below_corner > 100
     assert below_pad == 0
+    _, crossing, _ = w_classes(tree, cam)
+    ids = np.nonzero(crossing.any(1))[0]
+    if pose != "soup":
+        assert below_corner > 100 and ids.size > 50
+    assert ids.size > 10
+    frags = outside = below = 0
+    for off in ((0.5, 0.5), tuple(tpipe.MSAA8[3])):
+        px, py, inside = tpipe.sample_pixel_lanes(cfg, off, "cpu")
+        x = px.reshape(-1)[inside.reshape(-1)][:, None]
+        y = py.reshape(-1)[inside.reshape(-1)][:, None]
+        for c in ids.tolist():
+            rows = cols[c]                                 # [20, K1]
+            b = tedge._barycentrics(lambda j: rows[j], x, y)
+            sumb = (b[0] + b[1]) + b[2]
+            zz = (b[0] * rows[9] + b[1] * rows[10]) + b[2] * rows[11]
+            p, k = torch.nonzero((b[0] >= 0) & (b[1] >= 0) & (b[2] >= 0)
+                                 & (sumb > 0) & (zz >= 0.0) & (zz <= 1.0),
+                                 as_tuple=True)
+            frags += p.numel()
+            held = tedge.box_gate(box[0][c:c + 1], box[1][c:c + 1],
+                                  box[3][c:c + 1], box[4][c:c + 1],
+                                  x[p, 0], y[p, 0])[:, 0]
+            outside += int((~held).sum())
+            below += int((zz[p, k] < box[2][c]).sum())
+    if pose != "start":     # sheets across w = 0 reach the frame
+        assert frags > (20 if pose == "wall" else 100_000)
+    assert outside == 0 and below == 0
+

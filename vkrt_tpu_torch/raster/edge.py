@@ -11,7 +11,8 @@ Two stages, as in the JAX package:
     beta_i >= 0 (both windings), depth z = sum_i beta_i Z_i needs no
     per-pixel division, and uv = sum(beta_i uv_i) / sum(beta_i) is
     perspective-correct. Triangles crossing w = 0 rasterize their visible
-    sheet without a clipper; their clusters get full-screen boxes.
+    sheet without a clipper; kernel J (raster/clip.py) bounds the part of
+    that sheet kernel G can keep on the screen, for their clusters' boxes.
   * `raster_edge`: kernel G's wrapper. On a CUDA tensor it launches the
     hand-written kernel in csrc/raster_edge.cu (which replaces the Pallas
     kernel `_raster_kernel`, vkrt_tpu/raster/edge.py:204) or raises; on a
@@ -42,6 +43,7 @@ import torch
 
 from vkrt_tpu_torch import kernels, tracing
 from vkrt_tpu_torch.accel.clusters import K1, K2, ClusterTree
+from vkrt_tpu_torch.raster.clip import EMPTY, clip_boxes
 from vkrt_tpu_torch.utils import layout as L
 
 N_SETUP = 19          # setup columns the rasterizer reads
@@ -49,7 +51,7 @@ SETUP_W = 20          # stored columns per triangle (19 + 1 pad)
 ZFAR_PARK = 1.0e9     # zfloor >= this parks a pixel
 BOX_PAD = 1.0 / 64.0  # pixels: screen-box slack of the per-pixel gate
 _W_EPS = 1e-9
-_BIG = 1.0e8          # full-screen and empty box bounds
+_BIG = EMPTY          # empty box bounds: lo +1e8, hi -1e8
 LANES = L.LANES
 DEPTH_ULPS = 2.0 ** -20  # 16 float32 ulps: zmin's pad per unit of error
 PIX_CHUNK = 8192      # plain version: pixels gated at a time
@@ -79,7 +81,8 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
     sum(beta_i * Z_i) with it, can be off by percents, enough to put a
     farther surface in front (PERF.md, section 6). Rounded from float64, the
     rows leave only the kernel's own float32 evaluation error. Same
-    columns, same rule for the boxes, no matmul.
+    columns, no matmul; the boxes differ from the JAX package's as
+    below.
 
     view, proj: the camera's forward [4,4] matrices on the tree's
     device. Returns (setup f32[C1p,128,20], scb f32[8,C2p], clb
@@ -88,9 +91,18 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
     rows 0-2 lo (x, y, zmin), 3-5 hi, 6-7 zero. zmin sits below the
     corners' least z/w by a bound on the float32 depth error of kernel G
     (so no fragment it computes lies below it); the JAX package's is the
-    least z/w. A cluster holding a triangle that crosses w = 0 (a corner
-    at w <= 1e-9, another in front) gets a full-screen box with zmin 0.
-    Empty clusters get inverted boxes (lo +1e8, hi -1e8).
+    least z/w. A triangle that crosses w = 0 (a corner at w <= 1e-9,
+    another in front) adds to its cluster's box and zmin the box and
+    least depth of the fragments G can keep from it on the screen [0,
+    width] x [0, height], its sheet clipped to the screen and to 0 <= z
+    <= 1 with room for G's float32 error (kernel J, raster/clip.py), and
+    1 to its zmax; the JAX package gives its cluster a full-screen box
+    with zmin 0. So the boxes hold G's fragments at every sample inside
+    the screen (no pixel changes: the samples G is given lie inside it),
+    not outside it. Counters (tracing.count): `raster_clip_cross`, the
+    clusters holding such a triangle, and `raster_clip_kept`, those of
+    them that a clipped sheet still adds to. Empty clusters get inverted
+    boxes (lo +1e8, hi -1e8).
 
     A triangle with all three corners at w <= 0 lies wholly behind the
     camera. The JAX package counts it as unboundable too and gives its
@@ -147,13 +159,22 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
 
     # screen boxes: a triangle is boundable iff all three corners have
     # w > 1e-9; one wholly behind the camera (every w <= 0) covers
-    # nothing and is left out; any other gives its cluster a full-screen
-    # box
+    # nothing and is left out; any other (with setup rows) is clipped by
+    # kernel J
     bounded = behind = valid
     for w in W:
         bounded = bounded & (w > _W_EPS)
         behind = behind & (w <= 0)
-    unbounded = valid & ~bounded & ~behind
+    crossing = valid & ~bounded & ~behind & keep
+    clip = clip_boxes(setup, crossing, width, height)         # [5,C1p,K1]
+    c_lo_x, c_lo_y, c_lo_z = (clip[k].amin(dim=1).double() for k in (0, 1, 4))
+    c_hi_x, c_hi_y = (clip[k].amax(dim=1).double() for k in (2, 3))
+    del clip
+    any_cross = crossing.any(dim=1)
+    kept = any_cross & (c_lo_x <= c_hi_x)    # a clipped sheet is left
+    if tracing.enabled():
+        tracing.count("raster_clip_cross", any_cross)
+        tracing.count("raster_clip_kept", kept)
 
     def extent(vals, lo: bool):
         m = None
@@ -167,13 +188,17 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
     sx = [X[i] / ws[i] for i in range(3)]
     sy = [Y[i] / ws[i] for i in range(3)]
     sz = [Z[i] / ws[i] for i in range(3)]
-    any_unb = unbounded.any(dim=1)
-    empty = ~(valid & ~behind).any(dim=1)
-    lo_x = torch.where(any_unb, -_BIG, extent(sx, True))
-    lo_y = torch.where(any_unb, -_BIG, extent(sy, True))
-    hi_x = torch.where(any_unb, _BIG, extent(sx, False))
-    hi_y = torch.where(any_unb, _BIG, extent(sy, False))
-    hi_z = torch.where(any_unb, _BIG, extent(sz, False))
+    empty = ~(bounded.any(dim=1) | kept)
+    lo_x = extent(sx, True)
+    lo_y = extent(sy, True)
+    hi_x = extent(sx, False)
+    hi_y = extent(sy, False)
+    hi_z = extent(sz, False)
+    lo_x = torch.where(any_cross, torch.minimum(lo_x, c_lo_x), lo_x)
+    lo_y = torch.where(any_cross, torch.minimum(lo_y, c_lo_y), lo_y)
+    hi_x = torch.where(any_cross, torch.maximum(hi_x, c_hi_x), hi_x)
+    hi_y = torch.where(any_cross, torch.maximum(hi_y, c_hi_y), hi_y)
+    hi_z = torch.where(kept, torch.clamp(hi_z, min=1.0), hi_z)
 
     # zmin must bound every depth kernel G computes in the cluster, or its
     # zmin >= committed-depth skip could drop a nearer fragment. At a
@@ -190,8 +215,8 @@ def build_raster_setup(tree: ClusterTree, view, proj, width: int,
         err = err + (Z[i].abs() + W[i].abs()) * t
     err = torch.where(bounded & keep, err, 0.0).amax(dim=1) * DEPTH_ULPS
     zmin = extent(sz, True)
-    lo_z = torch.where(any_unb, 0.0, torch.clamp(
-        zmin - zmin.abs() * 2.0 ** -22 - err, min=0.0))
+    lo_z = torch.clamp(zmin - zmin.abs() * 2.0 ** -22 - err, min=0.0)
+    lo_z = torch.where(any_cross, torch.minimum(lo_z, c_lo_z), lo_z)
     lo = [torch.where(empty, _BIG, v) for v in (lo_x, lo_y, lo_z)]
     hi = [torch.where(empty, -_BIG, v) for v in (hi_x, hi_y, hi_z)]
 
