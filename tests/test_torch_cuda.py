@@ -65,6 +65,7 @@ from vkrt_tpu_torch.scene import Image
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.scene.textures import build_material_heap
 from vkrt_tpu_torch.shade.sampling import sample_material
+from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
                                              camera_ray_blocks, render_frame,
@@ -1037,6 +1038,44 @@ def test_device_sah_order_modes_on_card_match_cpu(card, full_triangles,
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("k", [None, 60], ids=["unmoved", "sway60"])
+def test_morton_orders_on_card_match_cpu(card, full_triangles, k):
+    """The Morton orders of the full scene (262,267 triangles) on the
+    card equal the CPU's slot for slot: build_clusters(method="morton")
+    in the engine's Morton range (Renderer.update_inputs: the scene's
+    centroid box, its corners moved on the host) and build_lbvh, on the
+    unmoved scene and under the benchmark's sway at path frame k = 60
+    (0.1 sin(2 pi k / 240) rad about y), the triangles moved on each
+    device as the engine moves them; so are the trees' cluster areas."""
+    m = np.eye(4, dtype=np.float32)
+    if k is not None:
+        a = 0.1 * np.sin(2.0 * np.pi * k / 240)
+        m[[0, 0, 2, 2], [0, 2, 0, 2]] = (np.cos(a), np.sin(a), -np.sin(a),
+                                         np.cos(a))
+    v0, e1, e2 = (x.numpy() for x in full_triangles)
+    c = v0 + (e1 + e2) / 3.0
+    corners = np.array([[x, y, z] for x in (c.min(0)[0], c.max(0)[0])
+                        for y in (c.min(0)[1], c.max(0)[1])
+                        for z in (c.min(0)[2], c.max(0)[2])], np.float32)
+    corners = L.mat_rows3(corners, m[:3, :3]) + m[:3, 3]
+    aabb = corners.min(axis=0), corners.max(axis=0)
+
+    def orders(dev):
+        mt = torch.as_tensor(m, device=dev)
+        tris = [x.to(dev) for x in full_triangles]
+        tris = [L.mat_rows3(tris[0], mt[:3, :3]) + mt[:3, 3],
+                L.mat_rows3(tris[1], mt[:3, :3]),
+                L.mat_rows3(tris[2], mt[:3, :3])]
+        tree = clusters.build_clusters(*tris, method="morton", aabb=aabb)
+        return (tree.leaf_tri.cpu(), build_lbvh(*tris).leaf_tri.cpu(),
+                int(clusters.cluster_area_fixed(tree.cl_boxes)))
+
+    want, got = orders("cpu"), orders(card)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    assert got[2] == want[2] > 0
+
+
 @pytest.mark.parametrize("mode", REBUILD_MODES)
 def test_config5_frame_on_card_matches_cpu(renderer, mode):
     """64x48, depth 4, 4 lights under a rotation, each rebuild mode: the
@@ -1602,10 +1641,13 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
     under torch.profiler: the marks split the device ops into whole
     frames of the graph's span table (tracing.device_spans), each the
     ops of one of the 3 graph launches, every kernel of a replay falls
-    inside a leaf span (none in `frame` itself), each leaf runs some;
-    the counters of the 3 replays are 3 times those of the same frame
-    traced eagerly, which add up to its ray count; the frames are the
-    untraced graph's bits. The profiler can drop a replay's records
+    inside a span below `frame` (none in `frame` itself; a full
+    rebuild's `accel_update` holds `accel_order` and runs the transform
+    and the packing itself; the area counter runs in `accel_area`, after
+    `accel_update`), each runs some; the
+    counters of the 3 replays are 3 times those of the same frame traced
+    eagerly, whose ray counters add up to its ray count; the frames are
+    the untraced graph's bits. The profiler can drop a replay's records
     (on an H100, 1 of 3 replays in both cases in one process of seven),
     and device_spans then leaves that replay out: at least one of the
     3 is whole."""
@@ -1632,7 +1674,9 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
         got = tracing.counters(card)
     assert len(graph.graphs) == 2                     # traced: its own key
     (table,) = graph.graphs.tables().values()
-    assert sum(want.values()) == int(want_rays)
+    assert sum(v for k, v in want.items()
+               if k != "accel_cl_area") == int(want_rays)
+    assert ("accel_cl_area" in want) == cfg.rebuild_per_frame
     assert {k: v for k, v in got.items() if v} == {k: 3 * v
                                                   for k, v in want.items()}
     ops, host = tracing.profile_ops(prof)
@@ -1643,13 +1687,20 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
     assert {f[0].group for f in frames} <= set(launches)
     for spans in frames:
         parents = {s.parent for s in spans}
-        assert [s.name for s in spans if s.name in parents] == ["frame"]
+        assert [s.name for s in spans if s.name in parents] == (
+            ["frame", "accel_update"] if cfg.rebuild_per_frame
+            else ["frame"])
         assert spans[0].ops == 0 and spans[0].self_ms == 0.0
         leaf = {}
         for s in spans[1:]:
             leaf[s.name] = leaf.get(s.name, 0) + s.ops
         assert all(n > 0 for n in leaf.values()), leaf
-        assert ("accel_update" in leaf) == cfg.rebuild_per_frame
+        assert ("accel_update" in leaf) == ("accel_area" in leaf) == (
+            cfg.rebuild_per_frame)
+        assert ("accel_order" in leaf) == (cfg.rebuild_per_frame
+                                           and mode != "refit")
+        assert {s.parent for s in spans if s.name == "accel_area"} <= {
+            "frame"}
     for fb, rays in outs + [(want_fb, want_rays)]:
         assert torch.equal(fb, plain[0]) and torch.equal(rays, plain[1])
     graph.free_graphs()

@@ -72,8 +72,8 @@ def traced_frame(r, m):
 
 
 def leaves(cfg, update: bool) -> set:
-    names = {"camera_rays", "resolve"} | ({"accel_update"} if update
-                                         else set())
+    names = {"camera_rays", "resolve"} | ({"accel_update", "accel_area"}
+                                         if update else set())
     for d in range(cfg.max_depth):
         names |= {f"trace_closest_d{d}", f"shade_d{d}", f"sample_d{d}",
                   f"trace_shadow_d{d}"}
@@ -109,6 +109,7 @@ def test_frame_spans_nest_once_a_depth(renderers, name):
                        f"trace_shadow_d{d}", f"shade_d{d}"]
     assert order[-1] == "resolve"
     assert (order[0] == "accel_update") == (m is not None)
+    assert (order[1] == "accel_area") == (m is not None)
 
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
@@ -116,9 +117,12 @@ def test_counters_add_up_to_the_ray_count(renderers, name):
     """Per depth the live closest-hit rays and the cast shadow segments;
     summed over the depths, the frame's ray count exactly. The lanes
     kernels A and B are launched over: the whole wavefront, B once per
-    light."""
+    light. A frame that updates its tree also counts the tree's cluster
+    area (accel_cl_area), which is no ray."""
     r, m = renderers[name], CONFIGS[name][1]
     (fb8, rays), table, counts = traced_frame(r, m)
+    area = counts.pop("accel_cl_area", None)
+    assert (area is not None) == (m is not None)
     assert sum(counts.values()) == int(rays) > 0
     assert set(counts) <= {f"{k}_d{d}" for d in range(r.cfg.max_depth)
                            for k in ("live_closest", "cast_shadow")}

@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from vkrt_tpu_torch import tracing
 from vkrt_tpu_torch.scene.textures import material_slots
 
 K1 = 128      # triangles per cluster
@@ -33,6 +34,7 @@ SUB_COL = 40
 ROWS = 128    # columns per triangle row (36 attributes + pad)
 
 _INF = 3.0e38
+AREA_SCALE = 1 << 16   # cluster_area_fixed's unit: 1/2^16 squared world units
 
 
 class ClusterTree(NamedTuple):
@@ -87,7 +89,8 @@ def build_clusters(v0, e1, e2, attrs=None, with_attributes: bool = False,
     one stable argsort of 30-bit Morton codes quantised inside
     `aabb=(lo, hi)` (the centroids' own bounds if omitted; conservative
     bounds are fine). `attrs` then holds tensors
-    (or arrays) keyed as `scene_attrs`."""
+    (or arrays) keyed as `scene_attrs`. The order step runs in the span
+    `accel_order` (tracing.py)."""
     if method not in ("split", "sah", "morton"):
         raise ValueError(f"build_clusters: unknown method {method!r}")
     on_host = not isinstance(v0, torch.Tensor)
@@ -105,16 +108,33 @@ def build_clusters(v0, e1, e2, attrs=None, with_attributes: bool = False,
     v0, e1, e2 = put(v0), put(e1), put(e2)
     if attrs is not None:
         attrs = {k: put(x) for k, x in attrs.items()}
-    if method == "morton":
-        from vkrt_tpu_torch.accel.lbvh import morton30
-        cen = v0 + (e1 + e2) / 3.0
-        lo, hi = ((cen.amin(dim=0), cen.amax(dim=0)) if aabb is None
-                  else (put(aabb[0]), put(aabb[1])))
-        order = torch.argsort(morton30(cen, lo, hi), stable=True)
-    else:
-        from vkrt_tpu_torch.accel.device_sah import device_sah_order
-        order = device_sah_order(v0, e1, e2, **(sah_opts or {}))
+    with tracing.span("accel_order", dev):
+        if method == "morton":
+            from vkrt_tpu_torch.accel.lbvh import morton30
+            # a tensor divisor, as in device_sah.py: on CUDA a Python
+            # number divides as a product with its rounded reciprocal
+            cen = v0 + (e1 + e2) / v0.new_full((), 3.0)
+            lo, hi = ((cen.amin(dim=0), cen.amax(dim=0)) if aabb is None
+                      else (put(aabb[0]), put(aabb[1])))
+            order = torch.argsort(morton30(cen, lo, hi), stable=True)
+        else:
+            from vkrt_tpu_torch.accel.device_sah import device_sah_order
+            order = device_sah_order(v0, e1, e2, **(sah_opts or {}))
     return _assemble(v0, e1, e2, order, attrs, with_attributes)
+
+
+def cluster_area_fixed(cl_boxes):
+    """The summed surface area of a tree's cluster boxes (cl_boxes
+    f32[C2,8,K2]; a padding cluster's inverted box counts 0) as an int64
+    0-dim tensor in units of 1/AREA_SCALE squared world units: each box's
+    area, in float64, is rounded to that unit before the sum, so the sum
+    is exact and the same on any device. No host wait."""
+    b = cl_boxes.to(torch.float64)
+    ext = b[:, 3:6, :] - b[:, 0:3, :]
+    ext = torch.where((ext >= 0).all(dim=1, keepdim=True), ext, 0.0)
+    x, y, z = ext[:, 0], ext[:, 1], ext[:, 2]
+    area = (x * y + y * z + z * x) * (2.0 * AREA_SCALE)
+    return torch.round(area).to(torch.int64).sum()
 
 
 def pack_boxes(cl_min, cl_max, c2p: int):

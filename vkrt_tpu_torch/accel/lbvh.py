@@ -71,7 +71,9 @@ def build_lbvh(v0, e1, e2) -> BVH2:
     dev = v0.device
 
     # 1. Morton codes of the centroids; 2. stable sort
-    centroid = v0 + (e1 + e2) / 3.0
+    # a tensor divisor, as in device_sah.py: on CUDA a Python number
+    # divides as a product with its rounded reciprocal
+    centroid = v0 + (e1 + e2) / v0.new_full((), 3.0)
     codes = morton30(centroid, centroid.min(dim=0).values,
                      centroid.max(dim=0).values)
     order = torch.argsort(codes, stable=True)

@@ -94,10 +94,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="two-level gate of kernels A (depth >= 1) and B: "
                         "interval candidate lists re-tested per ray (off "
                         "by default; the frame is the same)")
-    p.add_argument("--rebuild", choices=["refit", "full"], default="refit",
+    p.add_argument("--rebuild", choices=["refit", "full", "full_morton"],
+                   default="refit",
                    help="per-frame accel update when the config rebuilds "
                         "(config 5): 'refit' = box refit, 'full' = device "
-                        "SAH rebuild")
+                        "SAH rebuild, 'full_morton' = Morton (LBVH) order, "
+                        "then the cluster assembly")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; raises without a "
                         "card) or 'cpu' (the kernels' plain versions)")

@@ -50,15 +50,23 @@ the frames that stay eager.
 Spans (tracing.py; they survive the replay as marks on the card):
 `frame` holds `accel_update`, `camera_rays`, per depth d
 `trace_closest_d{d}`, `shade_d{d}`, `sample_d{d}`, `trace_shadow_d{d}`,
-and `resolve`; these leaves tile the frame, every kernel falls in one.
+and `resolve`; every kernel falls in one of them. A full rebuild's
+`accel_update` holds `accel_order` (the Morton sort or the device SAH
+order); the instance transform and the packing run in `accel_update`
+itself. While tracing is on, `accel_area` follows `accel_update` and
+counts the new tree's cluster area.
 `shade_d{d}` covers the miss shader, interpolation, the perturbed normal
 and light geometry, and the combine and reflection carry after the
 shadow trace: up to three intervals a depth, around `sample_d{d}` and
 `trace_shadow_d{d}`. Counters per depth: `live_closest_d{d}` (the rays
 kernel A traces live) and `cast_shadow_d{d}` (the segments kernel B
 traces live, summed over the lights); summed over the depths they are
-the frame's ray count. Kernels A, A' and B record the lanes they are
-launched over (tracing.lanes).
+the frame's ray count. With an accel update, `accel_cl_area`: the
+summed surface area of the updated tree's cluster boxes
+(accel/clusters.py::cluster_area_fixed, 1/2^16 squared world units),
+counted in `frame_body`'s `accel_area` span, outside `accel_update`,
+and not in `_update_tree`, which a caller may capture alone. Kernels A, A' and B record the lanes they are launched
+over (tracing.lanes).
 """
 
 from __future__ import annotations
@@ -71,7 +79,8 @@ import torch
 
 from vkrt_tpu_torch import config as C
 from vkrt_tpu_torch import graphs, runtime, tracing
-from vkrt_tpu_torch.accel.clusters import build_clusters, scene_attrs
+from vkrt_tpu_torch.accel.clusters import (build_clusters,
+                                           cluster_area_fixed, scene_attrs)
 from vkrt_tpu_torch.accel.lbvh import build_lbvh
 from vkrt_tpu_torch.accel.refit import refit_clusters
 from vkrt_tpu_torch.rt import traverse
@@ -967,8 +976,12 @@ class Renderer(SceneOnDevice):
         with tracing.span("frame", x.device):
             if update:
                 with tracing.span("accel_update", x.device):
-                    backend = backend._replace(
-                        tree=self._update_tree(x[32:]))
+                    tree = self._update_tree(x[32:])
+                if tracing.enabled():
+                    with tracing.span("accel_area", x.device):
+                        tracing.count("accel_cl_area",
+                                      cluster_area_fixed(tree.cl_boxes))
+                backend = backend._replace(tree=tree)
             frame = render_frame_u8 if self.quantize else render_frame
             return frame(backend, self.tex, x[0:16].reshape(4, 4),
                          x[16:32].reshape(4, 4), self.lights, self.cfg)
