@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Phases; any failure raises and the run exits non-zero. They run in this
-order, except that 14-18, 24 and 25 (which share the config-4 renderer)
+order, except that 14-18, 30, 24 and 25 (which share the config-4 renderer)
 run between the profile after phase 9 and phase 10, and 19-23 (the app
 surface, the golden gate, the reference backend, mip_lod and the sharded
 frames) and 26 after phase 13. Each phase states its path: the renderers
@@ -17,7 +17,7 @@ raster frame and --shard, and 26 run the default, a CUDA graph a frame
 Python) and, for graphs, on the card by torch.profiler, which records
 every kernel node of a replay by name (graphs.kernel_launches):
   1. device   fail at once without CUDA; print the device report
-  2. build    compile kernels A-J and A' from vkrt_tpu_torch/csrc/ into
+  2. build    compile kernels A-K and A' from vkrt_tpu_torch/csrc/ into
               one library (one nvcc per source, all started together)
   3. kernel A vs its plain PyTorch version on the card (~64k rays on the
               full procedural scene: camera + scattered rays, some parked),
@@ -44,9 +44,10 @@ every kernel node of a replay by name (graphs.kernel_launches):
               1920x1080, full procedural scene (262,267 triangles): one
               warm-up frame, then N_FRAMES timed frames along the
               fly-through camera path; exactly A 2, B 2, C 1, D 1, E 1,
-              F 1 launches per frame; device and host enqueue ms a frame
+              F 1, K 2 launches per frame; device and host enqueue ms a
+              frame
   8. flags off  the same frames with the three reorder flags off (the
-              path before C-F), as CUDA graphs: A 2, B 2 and no C-F
+              path before C-F), as CUDA graphs: A 2, B 2, K 2 and no C-F
               launches per frame; its u8 frames and ray counts must equal
               phase 7's bit for bit
   9. shapes   kernels A-F vs their plain versions on the inputs one
@@ -76,7 +77,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
  12. raster main  Rasterizer(full scene, reference_config() = 1600x1200,
               "cuda", msaa=8, eager): one warm-up frame, then RASTER_FRAMES
               timed frames along the fly-through path; exactly 32
-              launches of G and of I and none of A-F per frame; then two
+              launches of G and of I and none of A-F or K per frame; then
+              two
               profiled frames (device time per raster range) and one
               ray-cast frame on the first camera, which may differ from
               the edge frame on at most 1% of the pixels; the same gate on
@@ -111,7 +113,7 @@ every kernel node of a replay by name (graphs.kernel_launches):
               origins and without attributes vs A's plain version, and with
               point origins equal to the broadcast origins' result
  15. per light  config 4 with DenseBackend.per_light (one A' dispatch per
-              light in place of B), as CUDA graphs: A 2, A' 8, C-F 1
+              light in place of B), as CUDA graphs: A 2, A' 8, C-F 1, K 2
               launches per frame on the card and none of B; u8 frames and
               ray counts bit-equal to phase 7's
               first frames; then A' vs plain and vs B on one frame's recorded
@@ -119,8 +121,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
  16. config 5   Renderer at config5_stress() (1920x1080, depth 4, 4 lights,
               rebuild_per_frame) with a y-rotation that grows every frame,
               for rebuild = refit, full (device SAH), full_morton: a warm-up
-              frame + CONFIG5_FRAMES timed frames each (A 4, B 4, C-F 3
-              launches per frame, and H 14 in full), the accel update's
+              frame + CONFIG5_FRAMES timed frames each (A 4, B 4, C-F 3,
+              K 4 launches per frame, and H 14 in full), the accel update's
               own time (mean of 5),
               then per mode two profiled frames and two frames whose engine
               ranges are timed with CUDA events (they partition the frame)
@@ -144,12 +146,22 @@ every kernel node of a replay by name (graphs.kernel_launches):
               B at all four depths and C-F at depths 1-3, each vs its plain
               version on the inputs one 1080p frame gives it on the tree
               the accel update makes under rot_y(0.02); kernel ms per depth
+ 30. K shapes kernel K (shade/sampling.py::sample_hits) on the inputs the
+              engine hands it at each depth of one frame at the start
+              pose: config 4 (depths 0-1) and config 5 with the full
+              rebuild under rot_y(0.02) (depths 0-3); each bit-equal to
+              sample_hits_plain on every lane; ms a launch on a filled
+              queue beside the plain version's (CUDA events, mean of 5)
+              and the bound (bytes: every lane's mask byte and 7 channels
+              out, a hit's slot and uv and the two 32-byte sectors of its
+              48-byte heap row; OPS_K operations a hit); lanes and hits a
+              depth
  19. CLI       app/cli.main(["--config", "4", "--frames", "9", "--metrics",
               "--output", png, "--checkpoint", json], scene=model) on the
               card: the pipelined fly-through (3 frames in flight,
               runtime.FrameScheduler) at 1920x1080, a CUDA graph a frame
-              (the CLI's default); exactly A 2, B 2, C-F 1 launches a
-              frame; its last frame bit-equal to the eager
+              (the CLI's default); exactly A 2, B 2, C-F 1, K 2 launches
+              a frame; its last frame bit-equal to the eager
               Renderer.render of the ninth camera, the checkpoint at frame
               9; the FrameTimer summary (wall clock: device, u8 download
               and host work); then 40 frames, whose steady wall ms/frame
@@ -166,7 +178,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               whatever tracer runs: PERF.md); the oracle's seconds; then
               golden/harness.main(--oracle native, 160x120) must exit 0
  21. reference  the reference backend (LBVH built on the card, plain-PyTorch
-              traversal, no kernel launches) at 320x240, reference_config():
+              traversal, no trace kernel launches: K samples, 2 a frame)
+              at 320x240, reference_config():
               RMSE <= 1e-3 against the dense frame, ray counts within 0.1%;
               the LBVH build ms and the frame's ms
  22. mip_lod  config 4 at 1080p with mip_lod (1 + 2 frames, their ms beside
@@ -178,8 +191,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               card) and on [card] * 2, 4, 7 (7 pads the 16,320 rows by 4),
               eagerly, 1 + SHARD_FRAMES frames each: f32 frames and grids
               torch.equal to render_frame's on the same cameras, launches A
-              2k, B 2k, C-F k a frame; per k the device ms a frame back to
-              back (CUDA events), the host's enqueue ms a frame
+              2k, B 2k, C-F k, K 2k a frame; per k the device ms a frame
+              back to back (CUDA events), the host's enqueue ms a frame
               (perf_counter, no wait; again from an idle stream), the
               device's busy ms a frame (torch.profiler) and peak memory,
               beside the unsharded frame's; the raster frame at 1600x1200,
@@ -241,7 +254,7 @@ every kernel node of a replay by name (graphs.kernel_launches):
               19's, last frames equal
 Then the card's nvidia-smi name and power limit, one JSON line with each
 kernel's launches on its main path, on the card (phase 26's config-4 graph
-frames for A-F, phase 15's graph frames for A', phase 26's raster graph
+frames for A-F and K, phase 15's graph frames for A', phase 26's raster graph
 frames for G and I, phase 26's config-5 full-rebuild graph frames for H),
 or on
 the host for the modes (phase 24's eager frames for
@@ -356,8 +369,8 @@ SHARD_FRAMES = 3         # ... timed frames after a warm-up frame
 RASTER_SHARDS = (1, 4)
 G_CHUNK = 4              # phase 10: kernel G's work list cut to 4
                          # superclusters a chunk (the full scene has 33)
-CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1)   # a config-4 frame
-CONFIG5_LAUNCHES = dict(A=4, B=4, C=3, D=3, E=3, F=3)   # a config-5 frame
+CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1, K=2)  # a config-4 frame
+CONFIG5_LAUNCHES = dict(A=4, B=4, C=3, D=3, E=3, F=3, K=4)  # a config-5 frame
 SAH_ROUNDS = 14          # kernel H a device-SAH build (max_levels)
 SHARD_KEYS = ("device_ms", "host_enqueue_ms", "host_enqueue_ms_idle_stream",
               "device_busy_ms", "busy_share_profiled", "peak_mem_gb")
@@ -388,7 +401,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "D": pack.scatter_back, "E": lanesort.lane_sort,
            "F": lanesort.lane_unsort, "G": edge.raster_edge,
            "H": device_sah.cut_round, "I": rs.raster_sample_round,
-           "J": clip_boxes,
+           "J": clip_boxes, "K": sampling.sample_hits,
            "A.sub_gate": ModeCount(trace_dense, "sub_gate"),
            "A.recheck": ModeCount(trace_dense, "recheck"),
            "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
@@ -399,7 +412,7 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
 ON_CARD = {"A": "trace_closest", "A'": "trace_occluded", "B": "occl_multi",
            "C": "consolidate", "D": "scatter_back", "E": "lane_sort",
            "F": "lane_unsort", "G": "raster_edge", "H": "sah_cut",
-           "I": "raster_sample", "J": "raster_clip"}
+           "I": "raster_sample", "J": "raster_clip", "K": "sample_hits"}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 # phase 25: the JAX kernels' remaining modes, each a wrapper's
@@ -995,6 +1008,9 @@ OPS_G = (4, 8, 7)   # kernel G per (pixel, triangle) pair: the first
                     # other two where it is >= 0; the edges' sum (2) and
                     # the depth sum(beta_i * Z_i) (5) where all are >= 0
 PAIRS_G = 1 << 17   # (pixel, cluster) pairs evaluated at a time (bounds)
+LANE_BYTES_K = 1 + 7 * 4   # kernel K per lane: the hit mask, 7 channels out
+HIT_BYTES_K = 4 + 8 + 64   # per hit: slot, uv, two sectors of the heap row
+OPS_K = 90    # kernel K per hit: the bilinear weights and 7 four-term blends
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -2052,6 +2068,70 @@ def raster_shapes(rast, cam) -> dict:
     return res
 
 
+def sample_hits_shapes(renderer: Renderer, cam: Camera, transform=None,
+                       label: str = "config 4") -> list:
+    """Phase 30: record the inputs the engine hands kernel K
+    (sampling.sample_hits) at each depth of one eager frame of `renderer`
+    (with `transform`, on the tree its accel update makes); each call
+    against sample_hits_plain on the same tensors, every output bit for
+    bit; ms a launch on a filled queue (`queued_ms`) beside the plain
+    version's (CUDA events, mean of 5) and the bound of that call's
+    lanes and hits (LANE_BYTES_K, HIT_BYTES_K, OPS_K). Rows in depth
+    order."""
+    backend = renderer.backend
+    if transform is not None:
+        backend = backend._replace(tree=renderer.update_tree(transform))
+    calls, inner = [], engine.sample_hits
+
+    def recorded(tex, slot_ids, uv, hit):
+        calls.append((slot_ids.clone(), uv.clone(), hit.clone()))
+        return inner(tex, slot_ids, uv, hit)
+
+    engine.sample_hits = recorded
+    try:
+        render_frame_u8(backend, renderer.tex,
+                        engine.upload_matrix(cam.proj_inverse,
+                                             renderer.device),
+                        engine.upload_matrix(cam.view_inverse,
+                                             renderer.device),
+                        renderer.lights, renderer.cfg)
+        torch.cuda.synchronize()
+    finally:
+        engine.sample_hits = inner
+    if len(calls) != renderer.cfg.max_depth:
+        raise AssertionError(f"recorded {len(calls)} calls of kernel K in "
+                             f"one frame ({label}), want "
+                             f"{renderer.cfg.max_depth}")
+    tex, rows = renderer.tex, []
+    for depth, (slot_ids, uv, hit) in enumerate(calls):
+        got = sampling.sample_hits(tex, slot_ids, uv, hit)
+        want = sampling.sample_hits_plain(tex, slot_ids, uv, hit)
+        n, hits = hit.numel(), int(hit.sum())
+        r = dict(depth=depth, lanes=n, hits=hits, hit_share=hits / n,
+                 equal=all(torch.equal(a, b) for a, b in zip(got, want)),
+                 max_abs_err=max(float((a - b).abs().max())
+                                 for a, b in zip(got, want)),
+                 **bound(n * LANE_BYTES_K + hits * HIT_BYTES_K,
+                         OPS_K * hits))
+        copies = input_copies((slot_ids, uv, hit), r["bytes"])
+        r.update(queued_ms([functools.partial(sampling.sample_hits, tex, *c)
+                            for c in copies]))
+        r["plain_ms"] = cuda_ms(lambda: sampling.sample_hits_plain(
+            tex, slot_ids, uv, hit), 5)
+        del copies, got, want
+        log(f"  kernel K vs plain ({label}, depth {depth}):", json.dumps(r))
+        rows.append(r)
+    log(f"  kernel K ms per depth ({label}): " + "; ".join(
+        f"d{r['depth']} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} "
+        f"({r['ms'] / r['bound_ms']:.2f}x), plain {r['plain_ms']:.3f}, "
+        f"hits {r['hit_share']:.1%}" for r in rows))
+    bad = [r["depth"] for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"kernel K differs from its plain version at "
+                             f"depths {bad} ({label})")
+    return rows
+
+
 def raster_sample_shapes(rast, cam) -> dict:
     """Phase 28: record kernel I's 32 calls of one raster frame (8 samples
     x 4 rounds); each against raster_sample_round_plain on the same
@@ -2664,7 +2744,7 @@ def golden_gate(model, sync, dev) -> dict:
         sync.backend, sync.tex, engine.upload_matrix(cam.proj_inverse, dev),
         engine.upload_matrix(cam.view_inverse, dev), sync.lights, cfg)
     fb = fb.cpu().numpy()
-    read_counts("golden frame", dict(A=2, B=2, C=1, D=1, E=1, F=1))
+    read_counts("golden frame", CONFIG4_LAUNCHES)
     t0 = time.perf_counter()
     golden, stable = render_golden(
         sync.flat, build_texture_heap(model.images), cam.proj_inverse,
@@ -2687,7 +2767,7 @@ def golden_gate(model, sync, dev) -> dict:
             "--height", str(HARNESS_SIZE[1])]
     zero_counts()
     rc, lines, _, wall_s = run_cli(harness.main, argv, model)
-    read_counts("harness", dict(A=2, B=2, C=1, D=1, E=1, F=1))
+    read_counts("harness", CONFIG4_LAUNCHES)
     log(f"  harness {' '.join(argv)}: exit {rc}, {wall_s:.1f} s with "
         f"setup: {lines[-1]}")
     if rc != 0:
@@ -2714,7 +2794,7 @@ def reference_backend(sync, dev) -> None:
     fb, rays = engine.render_frame(ref, *args)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
-    read_counts("reference backend (plain PyTorch)", {})
+    read_counts("reference backend (plain PyTorch)", {"K": cfg.max_depth})
     want, want_rays = engine.render_frame(sync.backend, *args)
     fb, want = fb.cpu().numpy(), want.cpu().numpy()
     rays, want_rays = int(rays.sum()), int(want_rays.sum())
@@ -2735,8 +2815,8 @@ def mip_lod(sync, cams, event_ms: float, dev) -> None:
     card against the same calls on the CPU."""
     mr = copy.copy(sync)
     mr.cfg = dataclasses.replace(sync.cfg, mip_lod=True)
-    res, outs = drive(mr, cams[:3], dict(A=2, B=2, C=1, D=1, E=1, F=1),
-                      "mip_lod")
+    res, outs = drive(mr, cams[:3], {**CONFIG4_LAUNCHES, "K": 1},
+                      "mip_lod")                 # depth 0 samples trilinear
     log(f"  ms/frame: mip_lod {res['frame_ms']:.3f}, default (phase 7) "
         f"{event_ms:.3f}")
     del outs
@@ -2971,7 +3051,7 @@ def frame_launches(cfg) -> dict:
     partition_shadows (resort_secondary and recheck_secondary turn the
     three reorders off, group_sort_shadows launches none) and again with
     partition_closest (which yields to resort_secondary); the modes of A
-    (recheck at depth >= 1) and B (every depth)."""
+    (recheck at depth >= 1) and B (every depth); K once a depth."""
     d = cfg.max_depth
     deeper = d - 1
     rs, rc = cfg.resort_secondary, cfg.recheck_secondary
@@ -2982,7 +3062,8 @@ def frame_launches(cfg) -> dict:
             "E": deeper * (part + pc), "F": deeper * (part + pc),
             "A.sub_gate": d * cfg.sub_gate_closest,
             "A.recheck": deeper * rc,
-            "B.sub_gate": d * cfg.sub_gate_shadows, "B.recheck": d * rc}
+            "B.sub_gate": d * cfg.sub_gate_shadows, "B.recheck": d * rc,
+            "K": d}
 
 
 def closest_equal(tree, o, d, tmax, mode: str, label: str, block: int = 0):
@@ -3763,7 +3844,7 @@ def main() -> int:
     log("== 8. config 4 with the reorder flags off, same cameras (graphs)")
     off = graphed(renderer)
     off.cfg = dataclasses.replace(cfg, **REORDER_OFF)
-    res_off, outs_off = drive(off, cams, dict(A=2, B=2), "flags off")
+    res_off, outs_off = drive(off, cams, dict(A=2, B=2, K=2), "flags off")
     same_frames(outs_off, outs)
     off.free_graphs()
     off.graph = False            # the profile below reads per-range tables
@@ -3793,7 +3874,7 @@ def main() -> int:
     pl.backend = renderer.backend._replace(per_light=True)
     pl_cams = cams[:PER_LIGHT_FRAMES + 1]
     res_pl, outs_pl = drive(pl, pl_cams, {"A": 2, "A'": 8, "C": 1, "D": 1,
-                                          "E": 1, "F": 1},
+                                          "E": 1, "F": 1, "K": 2},
                             "per-light main path")
     same_frames(outs_pl, first_outs, "per-light")
     pl.free_graphs()
@@ -3831,6 +3912,12 @@ def main() -> int:
         log(f"  config 5, {mode}: kernel ms per frame by depth: " + json.dumps(
             {k: [round(r["ms"], 3) for r in rows]
              for k, rows in res_18[mode].items()}))
+
+    log("== 30. kernel K at the main path's shapes: config 4, config 5 full")
+    res_30 = {"config4": sample_hits_shapes(renderer, cam),
+              "config5_full": sample_hits_shapes(r5s["full"], cam,
+                                                 rot_y(0.02),
+                                                 "config 5, full")}
     del r5, r5s
 
     log("== 24. the secondary-dispatch options: kernel modes, then config 4 "
@@ -4055,6 +4142,23 @@ def main() -> int:
          "bound_by": res_29["scene"]["bound_by"], "library_ms": None,
          "design": "one thread a triangle slot, float64 Sutherland-Hodgman; "
                    "a slot not crossing w = 0 writes the empty box"},
+        {"name": "sample_hits", "route": "cuda",
+         "source": "vkrt_tpu_torch/csrc/sample_hits.cu",
+         "replaces": "none: vkrt_tpu/shade/sampling.py's sample_material "
+                     "(:24) is XLA",
+         "launches": main_launches["config4"]["K"],
+         "max_abs_err": max(r["max_abs_err"] for rows in res_30.values()
+                            for r in rows),
+         "ms": sum(r["ms"] for r in res_30["config4"]),
+         "ms_config5_full": sum(r["ms"] for r in res_30["config5_full"]),
+         "plain_ms": sum(r["plain_ms"] for r in res_30["config4"]),
+         **{k: add_bounds(res_30["config4"])[k]
+            for k in ("bound_ms", "bound_by")},
+         "bound_ms_config5_full": add_bounds(
+             res_30["config5_full"])["bound_ms"],
+         "library_ms": None,
+         "design": "one thread a lane; a hit reads its 48-byte heap row as "
+                   "three 16-byte loads, a miss writes zeros"},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

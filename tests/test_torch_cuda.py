@@ -1,4 +1,4 @@
-"""Kernels A-J and A' on the card vs their plain PyTorch versions (A, A'
+"""Kernels A-K and A' on the card vs their plain PyTorch versions (A, A'
 and B in each of their modes also vs their default mode; A's and A''s
 stats within the plain version's bounds), the
 per-frame accel update (refit, device SAH in every mode, and Morton
@@ -11,9 +11,10 @@ Marked `cuda`: these need an NVIDIA GPU with nvcc and skip elsewhere (the
 CUDA kernels have no CPU or interpret mode; their plain versions are
 covered on the CPU by test_torch_trace.py, test_torch_pack.py,
 test_torch_lanesort.py, test_torch_raster_edge.py,
-test_torch_device_build.py and test_torch_raster_frames.py). C-F move f32
-values without arithmetic, so they must equal their plain versions
-exactly; so must H, I and J, which round each operation as theirs do.
+test_torch_device_build.py, test_torch_raster_frames.py and
+test_torch_shade.py). C-F move f32 values without arithmetic, so they
+must equal their plain versions exactly; so must H, I, J and K, which
+round each operation as theirs do.
 Imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -64,9 +65,10 @@ from vkrt_tpu_torch.runtime import FrameScheduler
 from vkrt_tpu_torch.scene import Image
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.scene.textures import build_material_heap
-from vkrt_tpu_torch.shade.sampling import sample_material
+from vkrt_tpu_torch.shade.sampling import (sample_hits, sample_hits_plain,
+                                           sample_material)
 from vkrt_tpu_torch.utils import layout as L
-from vkrt_tpu_torch.wavefront import lanesort, pack
+from vkrt_tpu_torch.wavefront import engine, lanesort, pack
 from vkrt_tpu_torch.wavefront.engine import (REBUILD_MODES, Renderer,
                                              camera_ray_blocks, render_frame,
                                              texture_arrays_from_numpy,
@@ -113,7 +115,7 @@ WRAPPERS = {"trace_closest": dense.trace_dense,
             "lane_unsort": lanesort.lane_unsort,
             "raster_edge": edge.raster_edge, "sah_cut": cut_round,
             "raster_sample": rs.raster_sample_round,
-            "raster_clip": clip_boxes}
+            "raster_clip": clip_boxes, "sample_hits": sample_hits}
 
 
 def counted(fn):
@@ -131,6 +133,20 @@ def counted(fn):
             .items() if n}
     host = {k: f.launches - before[k] for k, f in WRAPPERS.items()
             if f.launches != before[k]}
+    return out, card, host
+
+
+def counted_again(fn, want: dict, tries: int = 3):
+    """counted(fn), read again while what ran on the card is not `want`,
+    up to `tries` readings. On the H100 the profiler now and then loses
+    the record of a lone kernel of a few microseconds: of 1,040 sessions
+    that ran kernel K alone, 12 read no launch. A wrapper launches as
+    many kernels at every call, so one that launches too few or too many
+    fails every reading."""
+    for _ in range(tries):
+        out, card, host = counted(fn)
+        if card == want:
+            break
     return out, card, host
 
 
@@ -657,6 +673,115 @@ def test_kernel_i_matches_plain(renderer, card, case):
     if case == "every_slot":
         assert set(mat[hit].unique().tolist()) == set(range(5))
         assert tex.level_width[1, 0] == 4                  # the fallback
+
+
+K_CASES = ("dense", "sparse", "none", "wrap", "every_slot", "texel_edge")
+
+
+def kernel_k_case(renderer, card, case):
+    """Kernel K's inputs (tex, slot_ids, uv, hit) on 64 x 128 lanes of the
+    small scene's heap: every lane hit at uvs in [0, 1) (dense), under 2%
+    hit (sparse), none hit (none), 90% hit at uvs in [-3, 4) (wrap), every
+    slot of the fallback heap (every_slot), and uvs on texel centres and
+    edges and one ulp either side of them, where floor(u * w - 0.5) steps
+    (texel_edge)."""
+    rng = np.random.default_rng(13)
+    tex = fallback_heap(card) if case == "every_slot" else renderer.tex
+    shape = (64, 128)
+    m = tex.level_offset.shape[0]
+
+    def rand(lo, hi, size=shape):
+        return torch.as_tensor(rng.uniform(lo, hi, size).astype(np.float32),
+                               device=card)
+
+    slot = torch.as_tensor(rng.integers(0, m, shape, dtype=np.int32),
+                           device=card)
+    uv = rand(-3.0, 4.0, (2, *shape)) if case == "wrap" else rand(
+        0.0, 1.0, (2, *shape))
+    frac = {"dense": 1.0, "sparse": 0.015, "none": 0.0}.get(case, 0.9)
+    hit = torch.as_tensor(rng.random(shape) < frac, device=card)
+    if case == "every_slot":
+        slot = torch.arange(slot.numel(), device=card,
+                            dtype=torch.int32).reshape(shape) % m
+    elif case == "texel_edge":
+        sizes = torch.stack([tex.level_width[:, 0],
+                             tex.level_height[:, 0]]).cpu().numpy()
+        s = slot.cpu().numpy()
+        k = rng.integers(-2, 3, (2, *shape)) * sizes[:, s] + rng.integers(
+            0, 1 << 20, (2, *shape)) % sizes[:, s]
+        half = rng.integers(0, 2, (2, *shape)) * 0.5       # edge or centre
+        x = ((k + half) / sizes[:, s]).astype(np.float32)
+        ulps = rng.integers(-1, 2, (2, *shape))
+        x = np.where(ulps < 0, np.nextafter(x, np.float32(-np.inf)),
+                     np.where(ulps > 0, np.nextafter(x, np.float32(np.inf)),
+                              x))
+        uv = torch.as_tensor(x.astype(np.float32), device=card)
+    return tex, slot, uv, hit
+
+
+@pytest.mark.parametrize("case", K_CASES)
+def test_kernel_k_matches_plain(renderer, card, case):
+    """Kernel K (sample_hits on CUDA tensors) vs sample_hits_plain on the
+    same tensors: base, metallic and normal bit-equal on every lane, one
+    launch on the card and one counted, on every case of
+    `kernel_k_case`; on the hit lanes they are sample_material's channels,
+    elsewhere 0; each case holds what it is there for."""
+    tex, slot, uv, hit = kernel_k_case(renderer, card, case)
+    want = sample_hits_plain(tex, slot, uv, hit)
+    got, on_card, host = counted_again(
+        lambda: sample_hits(tex, slot, uv, hit), {"sample_hits": 1})
+    assert on_card == host == {"sample_hits": 1}
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    base, mr, nmap = sample_material(tex.texels_tri, tex.level_offset,
+                                     tex.level_width, tex.level_height,
+                                     slot, uv)
+    for g, full in zip(got, (base[:3], mr[2], nmap[:3])):
+        assert torch.equal(g[..., hit], full[..., hit])
+        assert not g[..., ~hit].any()
+    n = hit.numel()
+    if case == "none":
+        assert not hit.any()
+    elif case == "sparse":
+        assert 0 < int(hit.sum()) < 0.02 * n
+    elif case == "dense":
+        assert hit.all()
+    elif case == "wrap":
+        assert (uv[:, hit] < 0).any() and (uv[:, hit] > 1).any()
+    elif case == "every_slot":
+        assert set(slot[hit].unique().tolist()) == set(range(5))
+        assert tex.level_width[1, 0] == 4                  # the fallback
+    elif case == "texel_edge":
+        w = tex.level_width[slot.long(), 0].float()
+        x = uv[0] * w - 0.5
+        assert (x[hit] == torch.floor(x[hit])).any()       # on a centre
+        assert (x[hit] - torch.floor(x[hit]) == 0.5).any()  # on an edge
+
+
+@pytest.mark.parametrize("case", ["config4", "config5_full"])
+def test_graph_frames_equal_plain_sample_frames(renderer, card, case,
+                                                monkeypatch):
+    """A config-4 frame (depth 2) and a config-5 full-rebuild frame
+    (depth 4) at 64x48 through the graph path: kernel K once a depth,
+    and the frame and ray count bit-equal to the same frame's with
+    sample_hits_plain forced in the engine (which launches no K)."""
+    make, mode = CASES[case]
+    cfg = dataclasses.replace(make(), width=64, height=48)
+    r = Renderer(renderer.model, cfg, card, quantize=True, rebuild=mode)
+    _, k_graph = graph_twin(r)
+    _, p_graph = graph_twin(r)
+    cam = start_camera()
+    tf = rot_y(0.05) if cfg.rebuild_per_frame else None
+    k_graph.render_async(cam, tf)                     # warm-up and capture
+    got, on_card, host = counted(lambda: k_graph.render_async(cam, tf))
+    assert on_card["sample_hits"] == cfg.max_depth and host == {}
+    monkeypatch.setattr(engine, "sample_hits", sample_hits_plain)
+    p_graph.render_async(cam, tf)
+    want, on_card, _ = counted(lambda: p_graph.render_async(cam, tf))
+    assert "sample_hits" not in on_card
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    k_graph.free_graphs()
+    p_graph.free_graphs()
 
 
 @pytest.fixture(scope="module")
@@ -1675,7 +1800,8 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
     assert len(graph.graphs) == 2                     # traced: its own key
     (table,) = graph.graphs.tables().values()
     assert sum(v for k, v in want.items()
-               if k != "accel_cl_area") == int(want_rays)
+               if k != "accel_cl_area"
+               and not k.startswith("sample_fetch_d")) == int(want_rays)
     assert ("accel_cl_area" in want) == cfg.rebuild_per_frame
     assert {k: v for k, v in got.items() if v} == {k: 3 * v
                                                   for k, v in want.items()}

@@ -4,8 +4,15 @@ Element by element on the same numpy inputs. The port performs the same
 float32 operations in the same order, so the tolerance is atol 1e-6 —
 room for a rounding difference between XLA:CPU and PyTorch's CPU
 kernels (e.g. in sqrt or a fused multiply-add), not for a different
-formula.
+formula. Also the engine's sampler `sample_hits` on the CPU (kernel K's
+plain version; the kernel itself is checked on the card by
+test_torch_cuda.py): its input checks, and its fetch counter and
+bench_torch's sample_fetch_share on small traced frames.
 """
+
+import dataclasses
+from pathlib import Path
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,11 +24,17 @@ from vkrt_tpu.scene.textures import build_material_heap
 from vkrt_tpu.shade import sampling as js
 from vkrt_tpu.shade import shading as jsh
 from vkrt_tpu.utils import layout as jl
+from vkrt_tpu_torch import config as TC
+from vkrt_tpu_torch import tracing
+from vkrt_tpu_torch.app.camera import Camera
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.shade import sampling as ts
 from vkrt_tpu_torch.shade import shading as tsh
 from vkrt_tpu_torch.utils import layout as tl
+from vkrt_tpu_torch.wavefront import engine as te
 import torch_support  # noqa: F401
+
+BENCH = Path(__file__).resolve().parent.parent / "bench_torch"
 
 ATOL = 1e-6
 NB = 4
@@ -158,3 +171,172 @@ def test_sample_material_compact(rng, heap, live_frac):
     for g, w in zip(got, want):
         close(np.asarray(g)[:, rows], np.asarray(w)[:, rows])
         assert not np.asarray(g)[:, ~rows].any()
+
+
+def heap_tex(heap):
+    """The heap as the engine holds it (TextureArrays on the CPU)."""
+    return te.texture_arrays_from_numpy(heap.texels_tri, heap.level_offset,
+                                        heap.level_width, heap.level_height,
+                                        "cpu")
+
+
+@pytest.mark.parametrize("wrap", [False, True], ids=["unit", "wrapped"])
+@pytest.mark.parametrize("hit_frac", [0.0, 0.02, 0.5, 1.0])
+def test_sample_hits_plain_matches_jax_on_hit_lanes(rng, heap, hit_frac,
+                                                    wrap):
+    """sample_hits_plain (kernel K's plain version) and the wrapper on CPU
+    tensors: on the hit lanes the JAX sample_material's base rgb,
+    metallic (mr blue) and normal rgb, at uvs in [0, 1) or wrapped in
+    [-3, 4); 0 on every other lane; the wrapper returns the same bits and
+    counts no launch."""
+    slots, uv = sample_inputs(rng, heap)
+    if not wrap:
+        uv = rng.uniform(0.0, 1.0, uv.shape).astype(np.float32)
+    hit = rng.random(slots.shape) < hit_frac
+    want = js.sample_material(*heap_args(heap, "jax"), jnp.asarray(slots),
+                              jnp.asarray(uv))
+    want = [np.asarray(want[0])[:3], np.asarray(want[1])[2],
+            np.asarray(want[2])[:3]]
+    tex = heap_tex(heap)
+    args = (tex, torch.from_numpy(slots), torch.from_numpy(uv),
+            torch.from_numpy(hit))
+    got = ts.sample_hits_plain(*args)
+    before = ts.sample_hits.launches
+    wrapped = ts.sample_hits(*args)
+    assert ts.sample_hits.launches == before
+    for g, gw, w in zip(got, wrapped, want):
+        assert torch.equal(g, gw)
+        g = g.numpy()
+        close(g[..., hit], w[..., hit])
+        assert not g[..., ~hit].any()
+    assert got[0].shape == (3, NB, 128) and got[1].shape == (NB, 128)
+    assert hit.any() == (hit_frac > 0) and hit.all() == (hit_frac == 1)
+
+
+def _misaligned(tex):
+    """The heap moved one byte into a fresh buffer: u8[N,48], contiguous,
+    not 16-byte aligned."""
+    t = tex.texels_tri
+    buf = torch.zeros(t.numel() + 16, dtype=torch.uint8)
+    start = (16 - buf.data_ptr() % 16) % 16 + 1
+    moved = buf[start:start + t.numel()].view(t.shape)
+    moved.copy_(t)
+    return tex._replace(texels_tri=moved)
+
+
+BAD_INPUTS = {
+    "slot_dtype": lambda tex, s, uv, h: (tex, s.long(), uv, h),
+    "slot_shape": lambda tex, s, uv, h: (tex, s.reshape(-1, 64), uv, h),
+    "uv_dtype": lambda tex, s, uv, h: (tex, s, uv.double(), h),
+    "uv_shape": lambda tex, s, uv, h: (tex, s, uv[:1], h),
+    "hit_dtype": lambda tex, s, uv, h: (tex, s, uv, h.to(torch.uint8)),
+    "hit_shape": lambda tex, s, uv, h: (tex, s, uv, h[:1]),
+    "heap_dtype": lambda tex, s, uv, h: (
+        tex._replace(texels_tri=tex.texels_tri.float()), s, uv, h),
+    "heap_misaligned": lambda tex, s, uv, h: (_misaligned(tex), s, uv, h),
+    "level_dtype": lambda tex, s, uv, h: (
+        tex._replace(level_width=tex.level_width.long()), s, uv, h),
+    "device": lambda tex, s, uv, h: (tex, s.to("meta"), uv.to("meta"),
+                                     h.to("meta")),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_INPUTS))
+def test_sample_hits_refuses_inputs_it_does_not_take(rng, heap, bad):
+    """A wrong dtype or shape of the slots, uvs, mask, heap or level
+    tables, a heap not 16-byte aligned, or tensors on neither the CPU
+    nor a card: ValueError before any sample, no launch counted, no
+    lanes recorded."""
+    slots, uv = sample_inputs(rng, heap)
+    hit = rng.random(slots.shape) < 0.5
+    args = BAD_INPUTS[bad](heap_tex(heap), torch.from_numpy(slots),
+                           torch.from_numpy(uv), torch.from_numpy(hit))
+    if bad == "heap_misaligned":
+        assert args[0].texels_tri.is_contiguous()
+        assert args[0].texels_tri.data_ptr() % 16
+    before = ts.sample_hits.launches
+    with tracing.on(), tracing.record() as table:
+        with pytest.raises(ValueError, match="sample_hits"):
+            ts.sample_hits(*args)
+    assert ts.sample_hits.launches == before and table.lanes == []
+
+
+@pytest.fixture(scope="module")
+def small_renderers():
+    model = procedural_model("small", seed=0)
+    cfgs = {"config4": TC.config4_flythrough(),
+            "config5_refit": TC.config5_stress()}
+    return {name: te.Renderer(model, dataclasses.replace(cfg, width=32,
+                                                         height=24),
+                              "cpu", quantize=True, rebuild="refit")
+            for name, cfg in cfgs.items()}
+
+
+def traced_sample_frame(r):
+    """One frame of `r` from the start pose through frame_body with
+    tracing on and the engine's sample_hits recorded: (hit lanes per
+    call, lanes per call, the counters, the span table)."""
+    cam = Camera(r.cfg.width, r.cfg.height)
+    cam.set_position(TC.CAMERA_START_POSITION)
+    cam.set_rotation(TC.CAMERA_START_ROTATION)
+    m = np.eye(4, dtype=np.float32) if r.cfg.rebuild_per_frame else None
+    x = torch.from_numpy(r.frame_inputs(cam, m))
+    hits, lanes = [], []
+    inner = te.sample_hits
+
+    def recorded(tex, slot_ids, uv, hit):
+        hits.append(int(hit.sum()))
+        lanes.append(hit.numel())
+        return inner(tex, slot_ids, uv, hit)
+
+    tracing.reset()
+    te.sample_hits = recorded
+    try:
+        with tracing.on(), tracing.record() as table:
+            r.frame_body(x, m is not None)
+            counts = tracing.counters("cpu")
+    finally:
+        te.sample_hits = inner
+    return hits, lanes, counts, table
+
+
+@pytest.mark.parametrize("name", ["config4", "config5_refit"])
+def test_sample_fetch_counters_are_the_hit_lanes(small_renderers, name):
+    """Traced, sample_fetch_d{d} is the lanes that hit at depth d (whose
+    heap row kernel K reads), by a recount of the mask the engine hands
+    sample_hits, once a depth; at depth 0 most lanes hit; sample_hits
+    records the whole wavefront's lanes in each sample_d{d}."""
+    r = small_renderers[name]
+    hits, lanes, counts, table = traced_sample_frame(r)
+    depth = r.cfg.max_depth
+    assert len(hits) == depth
+    assert [counts[f"sample_fetch_d{d}"] for d in range(depth)] == hits
+    assert hits[0] > 0.5 * r.cfg.width * r.cfg.height
+    assert all(h <= counts[f"live_closest_d{d}"] for d, h in enumerate(hits))
+    assert [x for x in table.lanes if x[0] == "sample_hits"] == [
+        ("sample_hits", f"sample_d{d}", n) for d, n in enumerate(lanes)]
+
+
+def test_sample_fetch_share_reads_a_traced_frame(small_renderers,
+                                                 monkeypatch):
+    """bench_torch's sample_fetch_share over two replays of a traced CPU
+    frame's counters and span table: the hit lanes over sample_hits'
+    lanes in %; None for a program without the counters (as the parent
+    of kernel K) and without a traced window."""
+    monkeypatch.syspath_prepend(str(BENCH))
+    monkeypatch.syspath_prepend(str(BENCH / "metrics"))
+    import sample_fetch_share
+    import spans_window
+    hits, lanes, counts, table = traced_sample_frame(
+        small_renderers["config5_refit"])
+    win = SimpleNamespace(counters={k: 2 * v for k, v in counts.items()},
+                          lanes=table.lanes, n=2)
+    monkeypatch.setattr(spans_window, "window", lambda run: win)
+    assert sample_fetch_share.read(None) == pytest.approx(
+        100.0 * sum(hits) / sum(lanes))
+    win.counters = {k: v for k, v in win.counters.items()
+                    if not k.startswith("sample_fetch_d")}
+    win.lanes = [x for x in table.lanes if x[0] != "sample_hits"]
+    assert sample_fetch_share.read(None) is None
+    monkeypatch.setattr(spans_window, "window", lambda run: None)
+    assert sample_fetch_share.read(None) is None

@@ -116,13 +116,19 @@ def test_frame_spans_nest_once_a_depth(renderers, name):
 def test_counters_add_up_to_the_ray_count(renderers, name):
     """Per depth the live closest-hit rays and the cast shadow segments;
     summed over the depths, the frame's ray count exactly. The lanes
-    kernels A and B are launched over: the whole wavefront, B once per
+    kernels A, K and B are launched over: the whole wavefront, B once per
     light. A frame that updates its tree also counts the tree's cluster
-    area (accel_cl_area), which is no ray."""
+    area (accel_cl_area), and every depth the lanes whose heap row the
+    sample fetches (sample_fetch_d{d}, at most the live rays): no rays."""
     r, m = renderers[name], CONFIGS[name][1]
     (fb8, rays), table, counts = traced_frame(r, m)
     area = counts.pop("accel_cl_area", None)
     assert (area is not None) == (m is not None)
+    fetch = {k: counts.pop(k) for k in list(counts)
+             if k.startswith("sample_fetch_d")}
+    assert 0 < fetch["sample_fetch_d0"] <= counts["live_closest_d0"]
+    assert all(v <= counts[f"live_closest_d{k[len('sample_fetch_d'):]}"]
+               for k, v in fetch.items())
     assert sum(counts.values()) == int(rays) > 0
     assert set(counts) <= {f"{k}_d{d}" for d in range(r.cfg.max_depth)
                            for k in ("live_closest", "cast_shadow")}
@@ -132,6 +138,7 @@ def test_counters_add_up_to_the_ray_count(renderers, name):
     assert table.lanes == [
         x for d in range(r.cfg.max_depth)
         for x in (("trace_closest", f"trace_closest_d{d}", n),
+                  ("sample_hits", f"sample_d{d}", n),
                   ("occl_multi", f"trace_shadow_d{d}", r.cfg.num_lights * n))]
 
 

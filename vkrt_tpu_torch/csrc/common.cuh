@@ -1,6 +1,8 @@
 // Shared helpers of the trace kernels (trace_closest.cu: kernel A,
-// trace_occluded.cu: A', occl_multi.cu: B) and of the raster kernel
-// (raster_edge.cu: G, which uses the list and key helpers at the end).
+// trace_occluded.cu: A', occl_multi.cu: B), of the raster kernel
+// (raster_edge.cu: G, which uses the list and key helpers) and of the two
+// material samplers (raster_sample.cu: I, sample_hits.cu: K, which use the
+// heap helpers at the end).
 //
 // Tree layout (vkrt_tpu_torch/accel/clusters.py, identical to the JAX
 // package's ClusterTree):
@@ -157,6 +159,72 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// --- the material heap's level-0 bilinear sample (I and K) ---------------
+// Heap layout (scene/textures.py::MaterialHeap): one 48-byte row a texel,
+// the 2x2 RGBA quads of its base, metallic-roughness and normal maps, each
+// corner 00, 10, 01, 11 one little-endian RGBA word. The arithmetic is
+// shade/sampling.py::sample_material's, rounded as PyTorch rounds it on
+// CUDA tensors: each product and sum on its own, in that order (the
+// library builds with -fmad=false), x = u * w - 0.5, x0 = floor(x) as
+// int32, fx = x - x0, the texel index a floor modulo (torch.remainder),
+// texel / 255 as texel * (1 / 255) (how PyTorch's true division by a CPU
+// scalar runs on CUDA), each bilinear weight its own product, and the
+// four-term blend summed left to right.
+constexpr int HEAP_ROW_BYTES = 48;
+constexpr float INV_255 = 1.0f / 255.0f;
+
+__device__ __forceinline__ int floor_mod(int a, int b) {
+  const int r = a % b;
+  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
+}
+
+// Channel c of one corner's RGBA word as a float in [0, 1].
+__device__ __forceinline__ float unorm(unsigned word, int c) {
+  return __fmul_rn(static_cast<float>((word >> (8 * c)) & 0xffu), INV_255);
+}
+
+// The heap row a sample at (u, v) reads in a map of w x h texels whose
+// level 0 starts at row `off`, and its four bilinear weights.
+struct Bilinear {
+  int row;
+  float w00, w10, w01, w11;
+};
+
+__device__ __forceinline__ Bilinear bilinear(float u, float v, int off, int w,
+                                             int h) {
+  const float x = __fsub_rn(__fmul_rn(u, static_cast<float>(w)), 0.5f);
+  const float y = __fsub_rn(__fmul_rn(v, static_cast<float>(h)), 0.5f);
+  const int x0 = static_cast<int>(floorf(x));
+  const int y0 = static_cast<int>(floorf(y));
+  const float fx = __fsub_rn(x, static_cast<float>(x0));
+  const float fy = __fsub_rn(y, static_cast<float>(y0));
+  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
+  Bilinear b;
+  b.row = off + floor_mod(y0, h) * w + floor_mod(x0, w);
+  b.w00 = __fmul_rn(gx, gy);
+  b.w10 = __fmul_rn(fx, gy);
+  b.w01 = __fmul_rn(gx, fy);
+  b.w11 = __fmul_rn(fx, fy);
+  return b;
+}
+
+// Quad `map` (0 base, 1 metallic-roughness, 2 normal) of heap row `row`.
+__device__ __forceinline__ uint4 heap_quad(const uint8_t* __restrict__ texels,
+                                           int row, int map) {
+  return __ldg(reinterpret_cast<const uint4*>(
+                   texels + static_cast<long long>(row) * HEAP_ROW_BYTES) +
+               map);
+}
+
+// Channel c of the bilinear blend of the quad's corners 00, 10, 01, 11.
+__device__ __forceinline__ float blend(const uint4& q, int c,
+                                       const Bilinear& b) {
+  float s = __fmul_rn(unorm(q.x, c), b.w00);
+  s = __fadd_rn(s, __fmul_rn(unorm(q.y, c), b.w10));
+  s = __fadd_rn(s, __fmul_rn(unorm(q.z, c), b.w01));
+  return __fadd_rn(s, __fmul_rn(unorm(q.w, c), b.w11));
 }
 
 }  // namespace vkrt

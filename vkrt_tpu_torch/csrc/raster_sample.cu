@@ -25,40 +25,14 @@
 // bytes, so a row starts 16-byte aligned when the heap does; the wrapper
 // checks). No shared memory.
 //
-// Bits: the same as the plain version on CUDA tensors. Each product and
-// sum is rounded on its own, in the plain version's order (__fmul_rn /
-// __fadd_rn / __fsub_rn; the library also builds with -fmad=false):
-// x = u * w - 0.5, x0 = floor(x) as int32, fx = x - x0, the texel index a
-// floor modulo (torch.remainder), texel / 255 as texel * (1 / 255) (how
-// PyTorch's true division by a CPU scalar runs on CUDA), each bilinear
-// weight its own product, and the four-term blend summed left to right.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bits: the same as the plain version on CUDA tensors, by the rounding
+// rules of common.cuh's heap helpers (`bilinear`, `blend`), which kernel K
+// (sample_hits.cu) shares.
+#include "common.cuh"
 
 namespace vkrt {
 
 constexpr int SAMPLE_THREADS = 256;
-constexpr int ROW_BYTES = 48;          // heap row: three maps' 2x2 quads
-constexpr float INV_255 = 1.0f / 255.0f;
-
-__device__ __forceinline__ int floor_mod(int a, int b) {
-  const int r = a % b;
-  return (r != 0 && ((r < 0) != (b < 0))) ? r + b : r;
-}
-
-// Channel c of one corner's RGBA word as a float in [0, 1].
-__device__ __forceinline__ float unorm(unsigned word, int c) {
-  return __fmul_rn(static_cast<float>((word >> (8 * c)) & 0xffu), INV_255);
-}
-
-// Channel c of the bilinear blend of the quad's corners 00, 10, 01, 11.
-__device__ __forceinline__ float blend(const uint4& q, int c, float w00,
-                                       float w10, float w01, float w11) {
-  float s = __fmul_rn(unorm(q.x, c), w00);
-  s = __fadd_rn(s, __fmul_rn(unorm(q.y, c), w10));
-  s = __fadd_rn(s, __fmul_rn(unorm(q.z, c), w01));
-  return __fadd_rn(s, __fmul_rn(unorm(q.w, c), w11));
-}
 
 __global__ void __launch_bounds__(SAMPLE_THREADS) raster_sample_kernel(
     const int* __restrict__ slot, const float* __restrict__ u,
@@ -78,22 +52,12 @@ __global__ void __launch_bounds__(SAMPLE_THREADS) raster_sample_kernel(
   const int off = __ldg(level_offset + m);
   const int w = __ldg(level_width + m);
   const int h = __ldg(level_height + m);
-  const float x = __fsub_rn(__fmul_rn(u[i], static_cast<float>(w)), 0.5f);
-  const float y = __fsub_rn(__fmul_rn(v[i], static_cast<float>(h)), 0.5f);
-  const int x0 = static_cast<int>(floorf(x));
-  const int y0 = static_cast<int>(floorf(y));
-  const float fx = __fsub_rn(x, static_cast<float>(x0));
-  const float fy = __fsub_rn(y, static_cast<float>(y0));
-  const int row = off + floor_mod(y0, h) * w + floor_mod(x0, w);
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(
-      texels + static_cast<long long>(row) * ROW_BYTES));
-  const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
-  const float w00 = __fmul_rn(gx, gy), w10 = __fmul_rn(fx, gy);
-  const float w01 = __fmul_rn(gx, fy), w11 = __fmul_rn(fx, fy);
-  if (blend(q, 3, w00, w10, w01, w11) >= alpha_discard) {     // opaque
-    color[i] = blend(q, 0, w00, w10, w01, w11);
-    color[n + i] = blend(q, 1, w00, w10, w01, w11);
-    color[2 * n + i] = blend(q, 2, w00, w10, w01, w11);
+  const Bilinear b = bilinear(u[i], v[i], off, w, h);
+  const uint4 q = heap_quad(texels, b.row, 0);
+  if (blend(q, 3, b) >= alpha_discard) {                      // opaque
+    color[i] = blend(q, 0, b);
+    color[n + i] = blend(q, 1, b);
+    color[2 * n + i] = blend(q, 2, b);
     zfloor[i] = park;
   } else {                   // discarded: the next round looks behind it
     zfloor[i] = z[i];

@@ -14,10 +14,11 @@ Sources: trace_closest.cu (kernel A), trace_occluded.cu (A'),
 occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G),
 sah_cut.cu (H, the device SAH build's cut round), raster_sample.cu (I,
 the raster discard round's material sample), raster_clip.cu (J, the
-raster setup's clip of triangles that cross w = 0), span_mark.cu
+raster setup's clip of triangles that cross w = 0), sample_hits.cu (K,
+the ray tracer's material sample on the lanes that hit), span_mark.cu
 (tracing.py's empty mark kernel); headers common.cuh
-(shared by A, A', B and G) and walk.cuh (the front-to-back group walk of
-A, A' and B).
+(shared by A, A', B, G, I and K) and walk.cuh (the front-to-back group
+walk of A, A' and B).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
 contracted into an FMA (the plain PyTorch versions round each product
@@ -42,7 +43,8 @@ from vkrt_tpu_torch.utils.cache import build_root
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
            "pack.cu", "lanesort.cu", "raster_edge.cu", "sah_cut.cu",
-           "raster_sample.cu", "raster_clip.cu", "span_mark.cu")
+           "raster_sample.cu", "raster_clip.cu", "sample_hits.cu",
+           "span_mark.cu")
 HEADERS = ("common.cuh", "walk.cuh")
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -147,11 +149,14 @@ def library() -> ctypes.CDLL:
     lib.vkrt_raster_sample.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _F, _F, _P, _P, _P]
     lib.vkrt_raster_clip.argtypes = [_P, _P, _I, _D, _D, _P, _P]
+    lib.vkrt_sample_hits.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
+                                     _P]
     lib.vkrt_span_mark.argtypes = [_P]
     for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
                lib.vkrt_lane_sort, lib.vkrt_lane_unsort,
                lib.vkrt_raster_edge, lib.vkrt_sah_cut, lib.vkrt_raster_sample,
-               lib.vkrt_raster_clip, lib.vkrt_span_mark):
+               lib.vkrt_raster_clip, lib.vkrt_sample_hits,
+               lib.vkrt_span_mark):
         fn.restype = _I
     return lib
 

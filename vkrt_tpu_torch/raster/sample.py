@@ -8,9 +8,9 @@ wrapper and its plain version.
     tracer's three-map sampler (shade/sampling.py::sample_material) over
     every lane, of which the base map's colour and alpha are kept. The
     kernel replaces no Pallas kernel (the JAX package's discard rounds
-    sample in XLA) and shares no code with the ray tracer's sampler:
-    the heap layout (scene/textures.py::MaterialHeap) is all they have
-    in common.
+    sample in XLA); it shares csrc/common.cuh's heap helpers (the
+    bilinear weights, the texel row, the blend) with the ray tracer's
+    sampler, kernel K (shade/sampling.py::sample_hits).
 
 raster/pipeline.py's edge_color_lanes calls it once a round.
 """

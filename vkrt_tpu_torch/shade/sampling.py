@@ -6,11 +6,18 @@ heap (vkrt_tpu/scene/textures.py build_material_heap): one gather per ray.
 Lane-major interface: slot_ids [Nb,128], uv [2,Nb,128] → three
 rgba [4,Nb,128]. The trilinear mip-LOD variant (config.mip_lod) blends
 two such samples at per-ray levels from lane-neighbour differentials.
+
+`sample_hits` is what the wavefront engine samples with at every depth
+(but mip_lod's depth 0): on a CUDA tensor kernel K (csrc/sample_hits.cu),
+which reads the heap row of a lane that hit alone; on a CPU tensor
+`sample_hits_plain`, `sample_material` on the hit lanes.
 """
 
 from __future__ import annotations
 
 import torch
+
+from vkrt_tpu_torch import kernels, tracing
 
 
 def sample_material(texels_tri, level_offset, level_width, level_height,
@@ -123,3 +130,82 @@ def sample_material_compact(texels_tri, level_offset, level_width,
                  for p in sample_material(texels_tri, level_offset,
                                           level_width, level_height, sid,
                                           uvm))
+
+
+def sample_hits_plain(tex, slot_ids, uv, hit):
+    """Plain PyTorch version of kernel K (same inputs and outputs as
+    `sample_hits`): `sample_material` at level 0 on inputs that are slot
+    0, uv (0, 0) where `hit` is False, of which base rgb, metallic (the
+    metallic-roughness map's blue) and normal rgb are kept where it is
+    True and zeroed elsewhere."""
+    sid = torch.where(hit, slot_ids, 0)
+    uvm = torch.where(hit[None], uv, 0.0)
+    base, mr, nmap = sample_material(tex.texels_tri, tex.level_offset,
+                                     tex.level_width, tex.level_height, sid,
+                                     uvm)
+    return (torch.where(hit[None], base[:3], 0.0),
+            torch.where(hit, mr[2], 0.0),
+            torch.where(hit[None], nmap[:3], 0.0))
+
+
+def _check_hits_inputs(tex, slot_ids, uv, hit) -> None:
+    dev = slot_ids.device
+    shape = slot_ids.shape
+    if (slot_ids.dtype != torch.int32 or len(shape) != 2
+            or shape[-1] != 128 or 7 * slot_ids.numel() >= 2 ** 31):
+        raise ValueError("sample_hits: slot_ids must be i32[Nb,128] "
+                         "(7 * Nb * 128 < 2^31)")
+    if uv.dtype != torch.float32 or uv.shape != (2, *shape):
+        raise ValueError("sample_hits: uv must be f32[2,Nb,128]")
+    if hit.dtype != torch.bool or hit.shape != shape:
+        raise ValueError("sample_hits: hit must be bool[Nb,128]")
+    texels = tex.texels_tri
+    if (texels.dtype != torch.uint8 or texels.dim() != 2
+            or texels.shape[1] != 48 or not texels.is_contiguous()
+            or texels.data_ptr() % 16):
+        raise ValueError("sample_hits: the heap must be a contiguous "
+                         "u8[N,48], 16-byte aligned")
+    levels = (tex.level_offset, tex.level_width, tex.level_height)
+    if any(t.dtype != torch.int32 or t.dim() != 2
+           or t.shape != levels[0].shape for t in levels):
+        raise ValueError("sample_hits: the level tables must be i32[M,L]")
+    if any(t.device != dev for t in (uv, hit, texels, *levels)):
+        raise ValueError("sample_hits: every input must be on one device")
+
+
+def sample_hits(tex, slot_ids, uv, hit):
+    """The level-0 material sample of the lanes that hit: slot_ids
+    i32[Nb,128] (mat_ids[0]), uv f32[2,Nb,128], hit bool[Nb,128] and the
+    heap `tex` (TextureArrays). Returns (base rgb f32[3,Nb,128], metallic
+    f32[Nb,128], normal map rgb f32[3,Nb,128]): where `hit`,
+    `sample_material`'s channels bit for bit; elsewhere 0. A CUDA tensor
+    launches kernel K (csrc/sample_hits.cu), which reads a hit lane's
+    48-byte heap row alone, and counts it in `sample_hits.launches`; a
+    CPU tensor runs `sample_hits_plain`. Either records the Nb * 128
+    lanes it is launched over (tracing.lanes). Raises ValueError on a
+    wrong dtype, shape or device, or a heap not 16-byte aligned."""
+    dev = slot_ids.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"sample_hits: unsupported device {dev}")
+    _check_hits_inputs(tex, slot_ids, uv, hit)
+    tracing.lanes("sample_hits", slot_ids.numel())
+    if dev.type == "cpu":
+        return sample_hits_plain(tex, slot_ids, uv, hit)
+    slot_ids, uv, hit = (t.contiguous() for t in (slot_ids, uv, hit))
+    off, wid, hgt = (t.contiguous() for t in (
+        tex.level_offset, tex.level_width, tex.level_height))
+    out = torch.empty((7, *slot_ids.shape), device=dev)
+    lib = kernels.library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.vkrt_sample_hits(
+            slot_ids.data_ptr(), uv.data_ptr(), hit.data_ptr(),
+            tex.texels_tri.data_ptr(), off.data_ptr(), wid.data_ptr(),
+            hgt.data_ptr(), off.shape[1], slot_ids.numel(), out.data_ptr(),
+            stream)
+    kernels.check(err, "sample_hits")
+    sample_hits.launches += 1
+    return out[:3], out[3], out[4:]
+
+
+sample_hits.launches = 0

@@ -61,12 +61,15 @@ shadow trace: up to three intervals a depth, around `sample_d{d}` and
 `trace_shadow_d{d}`. Counters per depth: `live_closest_d{d}` (the rays
 kernel A traces live) and `cast_shadow_d{d}` (the segments kernel B
 traces live, summed over the lights); summed over the depths they are
-the frame's ray count. With an accel update, `accel_cl_area`: the
+the frame's ray count. `sample_fetch_d{d}` (in `sample_d{d}`): the lanes
+that hit, whose heap row the material sample (kernel K) reads.
+`sample_d{d}` runs kernel K (shade/sampling.py::sample_hits), but with
+`mip_lod` at depth 0. With an accel update, `accel_cl_area`: the
 summed surface area of the updated tree's cluster boxes
 (accel/clusters.py::cluster_area_fixed, 1/2^16 squared world units),
 counted in `frame_body`'s `accel_area` span, outside `accel_update`,
-and not in `_update_tree`, which a caller may capture alone. Kernels A, A' and B record the lanes they are launched
-over (tracing.lanes).
+and not in `_update_tree`, which a caller may capture alone. Kernels
+A, A', B and K record the lanes they are launched over (tracing.lanes).
 """
 
 from __future__ import annotations
@@ -89,8 +92,7 @@ from vkrt_tpu_torch.rt.occl_multi import occluded_multi
 from vkrt_tpu_torch.scene import flatten_model, load_model
 from vkrt_tpu_torch.scene.textures import build_material_heap, material_slots
 from vkrt_tpu_torch.shade import shading
-from vkrt_tpu_torch.shade.sampling import (ray_diff_lod, sample_material,
-                                           sample_material_compact,
+from vkrt_tpu_torch.shade.sampling import (ray_diff_lod, sample_hits,
                                            sample_material_trilinear)
 from vkrt_tpu_torch.utils import layout as L
 from vkrt_tpu_torch.wavefront import lanesort, pack, resort
@@ -447,16 +449,12 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
                 base4, mr4, nmap4 = sample_material_trilinear(
                     tex.texels_tri, tex.level_offset, tex.level_width,
                     tex.level_height, mat_ids[0], uv, lod)
-            elif depth == 0:
-                base4, mr4, nmap4 = sample_material(
-                    tex.texels_tri, tex.level_offset, tex.level_width,
-                    tex.level_height, mat_ids[0], uv)
+                base, metallic, map_n = base4[:3], mr4[2], nmap4[:3]
             else:
-                # sparse depth>=1 wavefront: sample live rows only
-                base4, mr4, nmap4 = sample_material_compact(
-                    tex.texels_tri, tex.level_offset, tex.level_width,
-                    tex.level_height, mat_ids[0], uv, hit)
-        base = base4[:3]
+                # only hit lanes read the heap (kernel K on the card);
+                # every use below is masked by hit or reflective <= hit
+                tracing.count(f"sample_fetch_d{depth}", hit)
+                base, metallic, map_n = sample_hits(tex, mat_ids[0], uv, hit)
 
         if cfg.flat_albedo:
             with tracing.span(f"shade_d{depth}", dev):
@@ -465,8 +463,6 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
             break
 
         with tracing.span(f"shade_d{depth}", dev):
-            map_n = nmap4[:3]
-            metallic = mr4[2]
             pn = shading.perturbed_normal(normal, tangent, map_n)
             nl = cfg.num_lights
             geo = [shading.light_geometry(pos, lights[li])
