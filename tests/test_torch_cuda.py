@@ -1759,7 +1759,8 @@ def test_graph_true_raises_where_frames_wait_on_the_host(renderer, card):
         r.render_async(start_camera())
 
 
-@pytest.mark.parametrize("case", ["config4", "config5_full"])
+@pytest.mark.parametrize("case", ["config4", "config5_full",
+                                  "config5_refit"])
 def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
                                                         case):
     """A frame captured with tracing on (tracing.py), replayed 3 times
@@ -1768,7 +1769,8 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
     ops of one of the 3 graph launches, every kernel of a replay falls
     inside a span below `frame` (none in `frame` itself; a full
     rebuild's `accel_update` holds `accel_order` and runs the transform
-    and the packing itself; the area counter runs in `accel_area`, after
+    and the packing itself; a refit's holds one `accel_refit`, which
+    runs all of the refit; the area counter runs in `accel_area`, after
     `accel_update`), each runs some; the
     counters of the 3 replays are 3 times those of the same frame traced
     eagerly, whose ray counters add up to its ray count; the frames are
@@ -1817,14 +1819,19 @@ def test_traced_replays_put_every_kernel_in_a_leaf_span(renderer, card,
             ["frame", "accel_update"] if cfg.rebuild_per_frame
             else ["frame"])
         assert spans[0].ops == 0 and spans[0].self_ms == 0.0
+        refit = cfg.rebuild_per_frame and mode == "refit"
+        assert [s.parent for s in spans if s.name == "accel_refit"] == (
+            ["accel_update"] if refit else [])
         leaf = {}
         for s in spans[1:]:
             leaf[s.name] = leaf.get(s.name, 0) + s.ops
+        if refit:
+            assert leaf.pop("accel_update") == 0
+            assert "accel_refit" in leaf
         assert all(n > 0 for n in leaf.values()), leaf
-        assert ("accel_update" in leaf) == ("accel_area" in leaf) == (
-            cfg.rebuild_per_frame)
-        assert ("accel_order" in leaf) == (cfg.rebuild_per_frame
-                                           and mode != "refit")
+        assert ("accel_area" in leaf) == cfg.rebuild_per_frame
+        assert ("accel_update" in leaf) == ("accel_order" in leaf) == (
+            cfg.rebuild_per_frame and mode != "refit")
         assert {s.parent for s in spans if s.name == "accel_area"} <= {
             "frame"}
     for fb, rays in outs + [(want_fb, want_rays)]:

@@ -82,9 +82,10 @@ def leaves(cfg, update: bool) -> set:
 
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_frame_spans_nest_once_a_depth(renderers, name):
-    """The table nests: `frame` holds every other span, which hold none;
-    each depth opens its four spans (shade_d up to three times, around
-    the sample and the shadow trace), in the engine's order."""
+    """The table nests: `frame` holds every other span, which hold none
+    but a refit's `accel_update`, which holds one `accel_refit`; each
+    depth opens its four spans (shade_d up to three times, around the
+    sample and the shadow trace), in the engine's order."""
     r, m = renderers[name], CONFIGS[name][1]
     _, table, _ = traced_frame(r, m)
     stack = []
@@ -99,6 +100,10 @@ def test_frame_spans_nest_once_a_depth(renderers, name):
     assert table.spans[0] == ("frame", None, True)
     assert table.spans[-1] == ("frame", None, False)
     inner = [(s, p) for s, p, o in table.spans[1:-1] if o]
+    refit = [(s, p) for s, p in inner if s == "accel_refit"]
+    assert refit == ([("accel_refit", "accel_update")] if m is not None
+                     else [])
+    inner = [(s, p) for s, p in inner if s != "accel_refit"]
     assert all(p == "frame" for _, p in inner)
     assert {s for s, _ in inner} == leaves(r.cfg, m is not None)
     order = [s for s, _ in inner]

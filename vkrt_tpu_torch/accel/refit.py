@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from vkrt_tpu_torch import tracing
 from vkrt_tpu_torch.accel.clusters import (_INF, K1, K2, SUB_COL,
                                            ClusterTree, pack_boxes,
                                            subrun_boxes)
@@ -30,35 +31,39 @@ def refit_clusters(tree: ClusterTree, matrix) -> ClusterTree:
     Vertex normals (cols 9-17) and tangents (24-32) rotate with the 3x3
     part (a uniform scale is normalised away in shading; a non-uniform
     one would need the inverse transpose, which the reference's instance
-    transform never is); uvs and material ids stay."""
-    a = matrix[:3, :3]
-    b = matrix[:3, 3]
-    td = tree.tri_data                                   # [C1p, K1, ROWS]
-    c1p = td.shape[0]
+    transform never is); uvs and material ids stay. All of it runs in
+    the span `accel_refit` (tracing.py)."""
+    with tracing.span("accel_refit", tree.tri_data.device):
+        a = matrix[:3, :3]
+        b = matrix[:3, 3]
+        td = tree.tri_data                               # [C1p, K1, ROWS]
+        c1p = td.shape[0]
 
-    def rot(c):
-        return L.mat_rows3(td[:, :, c:c + 3], a)
+        def rot(c):
+            return L.mat_rows3(td[:, :, c:c + 3], a)
 
-    v0 = rot(0) + b
-    e1, e2 = rot(3), rot(6)
-    p1, p2 = v0 + e1, v0 + e2
-    lmin = torch.minimum(torch.minimum(v0, p1), p2)      # [C1p, K1, 3]
-    lmax = torch.maximum(torch.maximum(v0, p1), p2)
-    # padding slots (leaf_tri < 0, and whole padding clusters) neutral
-    valid = tree.leaf_tri >= 0
-    valid = torch.nn.functional.pad(valid, (0, c1p * K1 - valid.shape[0]))
-    valid = valid.reshape(c1p, K1, 1)
-    lmin = torch.where(valid, lmin, _INF)
-    lmax = torch.where(valid, lmax, -_INF)
+        v0 = rot(0) + b
+        e1, e2 = rot(3), rot(6)
+        p1, p2 = v0 + e1, v0 + e2
+        lmin = torch.minimum(torch.minimum(v0, p1), p2)  # [C1p, K1, 3]
+        lmax = torch.maximum(torch.maximum(v0, p1), p2)
+        # padding slots (leaf_tri < 0, and whole padding clusters) neutral
+        valid = tree.leaf_tri >= 0
+        valid = torch.nn.functional.pad(valid,
+                                        (0, c1p * K1 - valid.shape[0]))
+        valid = valid.reshape(c1p, K1, 1)
+        lmin = torch.where(valid, lmin, _INF)
+        lmax = torch.where(valid, lmax, -_INF)
 
-    sc_boxes, cl_boxes = pack_boxes(lmin.amin(dim=1), lmax.amax(dim=1),
-                                    tree.sc_boxes.shape[1])
-    out = td.clone()
-    out[:, :, 0:3], out[:, :, 3:6], out[:, :, 6:9] = v0, e1, e2
-    for c in (9, 12, 15, 24, 27, 30):                    # n0-n2, t0-t2
-        out[:, :, c:c + 3] = rot(c)
-    # the sub-run boxes (cols 40-45) follow the transform too
-    out[:, :, SUB_COL:SUB_COL + 6] = 0.0
-    subrun_boxes(out, lmin, lmax)
+        sc_boxes, cl_boxes = pack_boxes(lmin.amin(dim=1),
+                                        lmax.amax(dim=1),
+                                        tree.sc_boxes.shape[1])
+        out = td.clone()
+        out[:, :, 0:3], out[:, :, 3:6], out[:, :, 6:9] = v0, e1, e2
+        for c in (9, 12, 15, 24, 27, 30):                # n0-n2, t0-t2
+            out[:, :, c:c + 3] = rot(c)
+        # the sub-run boxes (cols 40-45) follow the transform too
+        out[:, :, SUB_COL:SUB_COL + 6] = 0.0
+        subrun_boxes(out, lmin, lmax)
     return ClusterTree(sc_boxes=sc_boxes, cl_boxes=cl_boxes, tri_data=out,
                        leaf_tri=tree.leaf_tri)

@@ -53,8 +53,10 @@ Spans (tracing.py; they survive the replay as marks on the card):
 and `resolve`; every kernel falls in one of them. A full rebuild's
 `accel_update` holds `accel_order` (the Morton sort or the device SAH
 order); the instance transform and the packing run in `accel_update`
-itself. While tracing is on, `accel_area` follows `accel_update` and
-counts the new tree's cluster area.
+itself. A refit's `accel_update` holds `accel_refit`, which runs all of
+the refit (accel/refit.py::refit_clusters: the transform, the boxes,
+the copy of the rows). While tracing is on, `accel_area` follows
+`accel_update` and counts the new tree's cluster area.
 `shade_d{d}` covers the miss shader, interpolation, the perturbed normal
 and light geometry, and the combine and reflection carry after the
 shadow trace: up to three intervals a depth, around `sample_d{d}` and
