@@ -44,12 +44,12 @@ every kernel node of a replay by name (graphs.kernel_launches):
               1920x1080, full procedural scene (262,267 triangles): one
               warm-up frame, then N_FRAMES timed frames along the
               fly-through camera path; exactly A 2, B 2, C 1, D 1, E 1,
-              F 1, K 2 launches per frame; device and host enqueue ms a
-              frame
+              F 1, K 2, L1-L3 2 each launches per frame; device and host
+              enqueue ms a frame
   8. flags off  the same frames with the three reorder flags off (the
-              path before C-F), as CUDA graphs: A 2, B 2, K 2 and no C-F
-              launches per frame; its u8 frames and ray counts must equal
-              phase 7's bit for bit
+              path before C-F), as CUDA graphs: A 2, B 2, K 2, L1-L3 2
+              each and no C-F launches per frame; its u8 frames and ray
+              counts must equal phase 7's bit for bit
   9. shapes   kernels A-F vs their plain versions on the inputs one
               main-path frame gives them (recorded from the engine), their
               times there (C-F on a filled queue, so that the device's
@@ -113,17 +113,17 @@ every kernel node of a replay by name (graphs.kernel_launches):
               origins and without attributes vs A's plain version, and with
               point origins equal to the broadcast origins' result
  15. per light  config 4 with DenseBackend.per_light (one A' dispatch per
-              light in place of B), as CUDA graphs: A 2, A' 8, C-F 1, K 2
-              launches per frame on the card and none of B; u8 frames and
-              ray counts bit-equal to phase 7's
+              light in place of B), as CUDA graphs: A 2, A' 8, C-F 1, K 2,
+              L1-L3 2 launches per frame on the card and none of B; u8
+              frames and ray counts bit-equal to phase 7's
               first frames; then A' vs plain and vs B on one frame's recorded
               segments, its time there beside B's, and its bound
  16. config 5   Renderer at config5_stress() (1920x1080, depth 4, 4 lights,
               rebuild_per_frame) with a y-rotation that grows every frame,
               for rebuild = refit, full (device SAH), full_morton: a warm-up
               frame + CONFIG5_FRAMES timed frames each (A 4, B 4, C-F 3,
-              K 4 launches per frame, and H 14 in full), the accel update's
-              own time (mean of 5),
+              K 4, L1-L3 4 each launches per frame, and H 14 in full), the
+              accel update's own time (mean of 5),
               then per mode two profiled frames and two frames whose engine
               ranges are timed with CUDA events (they partition the frame)
  17. config-5 gates  identity refit frame bit-equal to the frame without a
@@ -156,12 +156,21 @@ every kernel node of a replay by name (graphs.kernel_launches):
               out, a hit's slot and uv and the two 32-byte sectors of its
               48-byte heap row; OPS_K operations a hit); lanes and hits a
               depth
+ 31. L shapes kernel L's three steps (shade/shading.py::shade_interp,
+              shade_lights, shade_combine) on the inputs the engine hands
+              them at each depth of the same two frames; each bit-equal
+              to its plain version on every output and every in-place
+              update; ms a launch on a filled queue beside the plain
+              version's (CUDA events, mean of 5) and the bound (bytes:
+              BYTES_L per lane, live lane, hit and reflecting hit; OPS_L
+              operations a hit); lanes, live lanes, hits and reflecting
+              hits a depth
  19. CLI       app/cli.main(["--config", "4", "--frames", "9", "--metrics",
               "--output", png, "--checkpoint", json], scene=model) on the
               card: the pipelined fly-through (3 frames in flight,
               runtime.FrameScheduler) at 1920x1080, a CUDA graph a frame
-              (the CLI's default); exactly A 2, B 2, C-F 1, K 2 launches
-              a frame; its last frame bit-equal to the eager
+              (the CLI's default); exactly A 2, B 2, C-F 1, K 2, L1-L3 2
+              launches a frame; its last frame bit-equal to the eager
               Renderer.render of the ninth camera, the checkpoint at frame
               9; the FrameTimer summary (wall clock: device, u8 download
               and host work); then 40 frames, whose steady wall ms/frame
@@ -191,8 +200,8 @@ every kernel node of a replay by name (graphs.kernel_launches):
               card) and on [card] * 2, 4, 7 (7 pads the 16,320 rows by 4),
               eagerly, 1 + SHARD_FRAMES frames each: f32 frames and grids
               torch.equal to render_frame's on the same cameras, launches A
-              2k, B 2k, C-F k, K 2k a frame; per k the device ms a frame
-              back to back (CUDA events), the host's enqueue ms a frame
+              2k, B 2k, C-F k, K and L1-L3 2k a frame; per k the device ms
+              a frame back to back (CUDA events), the host's enqueue ms a frame
               (perf_counter, no wait; again from an idle stream), the
               device's busy ms a frame (torch.profiler) and peak memory,
               beside the unsharded frame's; the raster frame at 1600x1200,
@@ -369,8 +378,16 @@ SHARD_FRAMES = 3         # ... timed frames after a warm-up frame
 RASTER_SHARDS = (1, 4)
 G_CHUNK = 4              # phase 10: kernel G's work list cut to 4
                          # superclusters a chunk (the full scene has 33)
-CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1, K=2)  # a config-4 frame
-CONFIG5_LAUNCHES = dict(A=4, B=4, C=3, D=3, E=3, F=3, K=4)  # a config-5 frame
+def shade_launches(depths: int) -> dict:
+    """Kernel L's launches in a frame of `depths` depths: each of its three
+    steps (L1 shade_interp, L2 shade_lights, L3 shade_combine) once a
+    depth."""
+    return dict(L1=depths, L2=depths, L3=depths)
+
+
+# a config-4 frame, a config-5 frame
+CONFIG4_LAUNCHES = dict(A=2, B=2, C=1, D=1, E=1, F=1, K=2, **shade_launches(2))
+CONFIG5_LAUNCHES = dict(A=4, B=4, C=3, D=3, E=3, F=3, K=4, **shade_launches(4))
 SAH_ROUNDS = 14          # kernel H a device-SAH build (max_levels)
 SHARD_KEYS = ("device_ms", "host_enqueue_ms", "host_enqueue_ms_idle_stream",
               "device_busy_ms", "busy_share_profiled", "peak_mem_gb")
@@ -402,6 +419,8 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
            "F": lanesort.lane_unsort, "G": edge.raster_edge,
            "H": device_sah.cut_round, "I": rs.raster_sample_round,
            "J": clip_boxes, "K": sampling.sample_hits,
+           "L1": shading.shade_interp, "L2": shading.shade_lights,
+           "L3": shading.shade_combine,
            "A.sub_gate": ModeCount(trace_dense, "sub_gate"),
            "A.recheck": ModeCount(trace_dense, "recheck"),
            "B.sub_gate": ModeCount(occluded_multi, "sub_gate"),
@@ -412,7 +431,8 @@ COUNTED = {"A": trace_dense, "A'": trace_occluded, "B": occluded_multi,
 ON_CARD = {"A": "trace_closest", "A'": "trace_occluded", "B": "occl_multi",
            "C": "consolidate", "D": "scatter_back", "E": "lane_sort",
            "F": "lane_unsort", "G": "raster_edge", "H": "sah_cut",
-           "I": "raster_sample", "J": "raster_clip", "K": "sample_hits"}
+           "I": "raster_sample", "J": "raster_clip", "K": "sample_hits",
+           "L1": "shade_interp", "L2": "shade_lights", "L3": "shade_combine"}
 # kernel A's and B's modes: wrapper arguments
 MODES = {"sub_gate": dict(sub_gate=True), "recheck": dict(pregate="recheck")}
 # phase 25: the JAX kernels' remaining modes, each a wrapper's
@@ -1011,6 +1031,19 @@ PAIRS_G = 1 << 17   # (pixel, cluster) pairs evaluated at a time (bounds)
 LANE_BYTES_K = 1 + 7 * 4   # kernel K per lane: the hit mask, 7 channels out
 HIT_BYTES_K = 4 + 8 + 64   # per hit: slot, uv, two sectors of the heap row
 OPS_K = 90    # kernel K per hit: the bilinear weights and 7 four-term blends
+# kernel L's bytes per lane, per live lane, per hit and per reflecting hit
+# (step 2 also 4 a lane for the casts and 16 a light and lane for the
+# shadow segments where it writes them; step 3 also 1 a light and hit for
+# the blocked masks, and 16 a lane where it writes the colour and count
+# in place of adding them: then 2 a live lane, not 34)
+BYTES_L = {"shade_interp": (26, 1, 72, 0),     # masks, 24 out; u, v, 16 rows
+           "shade_lights": (13, 0, 104, 0),    # mask, pn; u, v, 18 rows,
+                                               # map_n, pos
+           "shade_combine": (1, 34, 44, 40)}   # mask; hitm, accum and count
+                                               # r/w, active; base, metallic,
+                                               # pn, pos, attenuation; carry
+OPS_L = {"shade_interp": (24, 0), "shade_lights": (70, 20),
+         "shade_combine": (40, 25)}   # a hit's operations, + per light
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -2132,6 +2165,158 @@ def sample_hits_shapes(renderer: Renderer, cam: Camera, transform=None,
     return rows
 
 
+def clone_args(args) -> tuple:
+    return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+
+def queued_once_ms(calls) -> dict:
+    """queued_ms for calls that update their inputs in place: each call
+    once, none warmed up (the kernel has run before), behind a spin four
+    times queued_ms's first."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4 * SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for f in calls:
+        f()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    filled = not start.query()
+    torch.cuda.synchronize()
+    if not filled:
+        raise AssertionError(f"the host took {host_ms:.1f} ms to enqueue "
+                             f"{len(calls)} calls: the queue never stayed "
+                             f"filled")
+    return {"ms": start.elapsed_time(end) / len(calls),
+            "enqueue_ms": host_ms / len(calls), "queue_filled": filled}
+
+
+def shade_bound(step: str, args, out, n: int, live: int, hits: int,
+                refl: int) -> dict:
+    """The bound (bytes, operations) of one call of kernel L's `step` on
+    its recorded arguments and its outputs (BYTES_L, OPS_L)."""
+    per_lane, per_live, per_hit, per_refl = BYTES_L[step]
+    nl, extra = 0, 0
+    if step == "shade_lights":
+        nl = 0 if args[6] is None else args[6].shape[0]
+        extra = (4 * (out[1] is not None) + 16 * nl * (out[2] is not None))
+    elif step == "shade_combine":
+        nl = 0 if args[6] is None else args[6].shape[0]
+        if args[11] is None:                   # colour and count written
+            per_lane, per_live = per_lane + 16, 2
+        per_hit += nl * (args[7] is not None)
+    base, per_light = OPS_L[step]
+    return bound(n * (per_lane + extra) + live * per_live + hits * per_hit
+                 + refl * per_refl, hits * (base + per_light * nl))
+
+
+def shade_hits_shapes(renderer: Renderer, cam: Camera, transform=None,
+                      label: str = "config 4") -> list:
+    """Phase 31: record the inputs the engine hands kernel L's three
+    steps (engine.shade_interp, shade_lights, shade_combine) at each
+    depth of one eager frame of `renderer` (with `transform`, on the tree
+    its accel update makes); each call against its plain version on
+    copies of the same tensors, every output and every in-place update
+    bit for bit; ms a launch on a filled queue (`queued_ms`; the combine,
+    which updates its inputs, on a copy a call, `queued_once_ms`) beside
+    the plain version's (CUDA events, mean of 5) and the bound of that
+    call's lanes, live lanes, hits and reflecting hits (`shade_bound`).
+    Rows in call order."""
+    backend = renderer.backend
+    if transform is not None:
+        backend = backend._replace(tree=renderer.update_tree(transform))
+    steps = ("shade_interp", "shade_lights", "shade_combine")
+    inner = {k: getattr(engine, k) for k in steps}
+    calls = []
+
+    def recorder(step):
+        def recorded(*args, **kw):
+            calls.append((step, clone_args(args), dict(kw)))
+            return inner[step](*args, **kw)
+        return recorded
+
+    for k in steps:
+        setattr(engine, k, recorder(k))
+    try:
+        render_frame_u8(backend, renderer.tex,
+                        engine.upload_matrix(cam.proj_inverse,
+                                             renderer.device),
+                        engine.upload_matrix(cam.view_inverse,
+                                             renderer.device),
+                        renderer.lights, renderer.cfg)
+        torch.cuda.synchronize()
+    finally:
+        for k in steps:
+            setattr(engine, k, inner[k])
+    depths = renderer.cfg.max_depth
+    if [c[0] for c in calls] != list(steps) * depths:
+        raise AssertionError(f"recorded {[c[0] for c in calls]} in one "
+                             f"frame ({label}), want {list(steps)} x "
+                             f"{depths}")
+    rows = []
+    for j, (step, args, kw) in enumerate(calls):
+        fn, plain = inner[step], getattr(shading, f"{step}_plain")
+        got_args, want_args = clone_args(args), clone_args(args)
+        got = fn(*got_args, **kw)
+        want = plain(*want_args, **kw)
+        outs = list(got or ()) + list(got_args)
+        wants = list(want or ()) + list(want_args)
+        equal = len(outs) == len(wants) and all(
+            (a is None and b is None) or (
+                torch.is_tensor(a) and torch.is_tensor(b)
+                and a.shape == b.shape and a.dtype == b.dtype
+                and torch.equal(a.view(torch.int32) if a.dtype ==
+                                torch.float32 else a,
+                                b.view(torch.int32) if b.dtype ==
+                                torch.float32 else b))
+            or (not torch.is_tensor(a) and a == b)
+            for a, b in zip(outs, wants))
+        errs = [float((a - b).abs().max()) for a, b in zip(outs, wants)
+                if torch.is_tensor(a) and a.dtype == torch.float32
+                and a.numel()]
+        active = args[0]
+        hit = (got[3] if step == "shade_interp" else
+               args[0] if step == "shade_lights" else args[1] & args[0])
+        n, live, hits = active.numel(), int(active.sum()), int(hit.sum())
+        refl = int(got_args[0].sum()) if step == "shade_combine" else 0
+        r = dict(depth=j // len(steps), step=step, lanes=n, live=live,
+                 hits=hits, reflecting=refl, equal=equal,
+                 max_abs_err=max(errs, default=0.0),
+                 **shade_bound(step, args, got or (), n, live, hits, refl))
+        del got, want, got_args, want_args, outs, wants
+        if step == "shade_combine":
+            copies = [clone_args(args) for _ in range(24)]
+            r.update(queued_once_ms([functools.partial(fn, *c, **kw)
+                                     for c in copies]))
+        else:
+            m = int(min(8, max(2, -(-2 * L2_BYTES // max(r["bytes"], 1.0)))))
+            copies = [clone_args(args) for _ in range(m)]
+            r.update(queued_ms([functools.partial(fn, *c, **kw)
+                                for c in copies]))
+        del copies
+        mine = clone_args(args)
+        r["plain_ms"] = cuda_ms(lambda: plain(*mine, **kw), 5)
+        del mine
+        log(f"  kernel L vs plain ({label}, depth {r['depth']}, {step}):",
+            json.dumps(r))
+        rows.append(r)
+    log(f"  kernel L ms per depth ({label}): " + "; ".join(
+        f"d{d} " + ", ".join(
+            f"{r['step'][6:]} {r['ms']:.4f} (bound {r['bound_ms']:.4f}, "
+            f"plain {r['plain_ms']:.3f})"
+            for r in rows if r["depth"] == d)
+        + f", live {rows[3 * d]['live'] / rows[3 * d]['lanes']:.1%}, hits "
+          f"{rows[3 * d]['hits'] / rows[3 * d]['lanes']:.1%}"
+        for d in range(depths)))
+    bad = [(r["depth"], r["step"]) for r in rows if not r["equal"]]
+    if bad:
+        raise AssertionError(f"kernel L differs from its plain version at "
+                             f"{bad} ({label})")
+    return rows
+
+
 def raster_sample_shapes(rast, cam) -> dict:
     """Phase 28: record kernel I's 32 calls of one raster frame (8 samples
     x 4 rounds); each against raster_sample_round_plain on the same
@@ -2794,7 +2979,8 @@ def reference_backend(sync, dev) -> None:
     fb, rays = engine.render_frame(ref, *args)
     torch.cuda.synchronize()
     frame_s = time.perf_counter() - t0
-    read_counts("reference backend (plain PyTorch)", {"K": cfg.max_depth})
+    read_counts("reference backend (plain PyTorch)",
+                {"K": cfg.max_depth, **shade_launches(cfg.max_depth)})
     want, want_rays = engine.render_frame(sync.backend, *args)
     fb, want = fb.cpu().numpy(), want.cpu().numpy()
     rays, want_rays = int(rays.sum()), int(want_rays.sum())
@@ -3051,7 +3237,8 @@ def frame_launches(cfg) -> dict:
     partition_shadows (resort_secondary and recheck_secondary turn the
     three reorders off, group_sort_shadows launches none) and again with
     partition_closest (which yields to resort_secondary); the modes of A
-    (recheck at depth >= 1) and B (every depth); K once a depth."""
+    (recheck at depth >= 1) and B (every depth); K and L's three steps
+    once a depth."""
     d = cfg.max_depth
     deeper = d - 1
     rs, rc = cfg.resort_secondary, cfg.recheck_secondary
@@ -3063,7 +3250,7 @@ def frame_launches(cfg) -> dict:
             "A.sub_gate": d * cfg.sub_gate_closest,
             "A.recheck": deeper * rc,
             "B.sub_gate": d * cfg.sub_gate_shadows, "B.recheck": d * rc,
-            "K": d}
+            "K": d, **shade_launches(d)}
 
 
 def closest_equal(tree, o, d, tmax, mode: str, label: str, block: int = 0):
@@ -3844,7 +4031,9 @@ def main() -> int:
     log("== 8. config 4 with the reorder flags off, same cameras (graphs)")
     off = graphed(renderer)
     off.cfg = dataclasses.replace(cfg, **REORDER_OFF)
-    res_off, outs_off = drive(off, cams, dict(A=2, B=2, K=2), "flags off")
+    res_off, outs_off = drive(off, cams,
+                              dict(A=2, B=2, K=2, **shade_launches(2)),
+                              "flags off")
     same_frames(outs_off, outs)
     off.free_graphs()
     off.graph = False            # the profile below reads per-range tables
@@ -3874,7 +4063,8 @@ def main() -> int:
     pl.backend = renderer.backend._replace(per_light=True)
     pl_cams = cams[:PER_LIGHT_FRAMES + 1]
     res_pl, outs_pl = drive(pl, pl_cams, {"A": 2, "A'": 8, "C": 1, "D": 1,
-                                          "E": 1, "F": 1, "K": 2},
+                                          "E": 1, "F": 1, "K": 2,
+                                          **shade_launches(2)},
                             "per-light main path")
     same_frames(outs_pl, first_outs, "per-light")
     pl.free_graphs()
@@ -3918,6 +4108,12 @@ def main() -> int:
               "config5_full": sample_hits_shapes(r5s["full"], cam,
                                                  rot_y(0.02),
                                                  "config 5, full")}
+
+    log("== 31. kernel L at the main path's shapes: config 4, config 5 full")
+    res_31 = {"config4": shade_hits_shapes(renderer, cam),
+              "config5_full": shade_hits_shapes(r5s["full"], cam,
+                                                rot_y(0.02),
+                                                "config 5, full")}
     del r5, r5s
 
     log("== 24. the secondary-dispatch options: kernel modes, then config 4 "
@@ -4159,6 +4355,26 @@ def main() -> int:
          "library_ms": None,
          "design": "one thread a lane; a hit reads its 48-byte heap row as "
                    "three 16-byte loads, a miss writes zeros"},
+        {"name": "shade_hits", "route": "cuda",
+         "source": "vkrt_tpu_torch/csrc/shade_hits.cu",
+         "replaces": "none: vkrt_tpu/shade/shading.py and the engine's "
+                     "combine (vkrt_tpu/wavefront/engine.py:700-736) are XLA",
+         "launches": sum(main_launches["config4"][k]
+                         for k in ("L1", "L2", "L3")),
+         "max_abs_err": max(r["max_abs_err"] for rows in res_31.values()
+                            for r in rows),
+         "ms": sum(r["ms"] for r in res_31["config4"]),
+         "ms_config5_full": sum(r["ms"] for r in res_31["config5_full"]),
+         "plain_ms": sum(r["plain_ms"] for r in res_31["config4"]),
+         **{k: add_bounds(res_31["config4"])[k]
+            for k in ("bound_ms", "bound_by")},
+         "bound_ms_config5_full": add_bounds(
+             res_31["config5_full"])["bound_ms"],
+         "plain_ms_config5_full": sum(r["plain_ms"]
+                                      for r in res_31["config5_full"]),
+         "library_ms": None,
+         "design": "three steps a depth, one thread a lane each; a lane "
+                   "that did not hit writes zeros or nothing"},
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

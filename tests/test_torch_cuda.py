@@ -1,4 +1,4 @@
-"""Kernels A-K and A' on the card vs their plain PyTorch versions (A, A'
+"""Kernels A-L and A' on the card vs their plain PyTorch versions (A, A'
 and B in each of their modes also vs their default mode; A's and A''s
 stats within the plain version's bounds), the
 per-frame accel update (refit, device SAH in every mode, and Morton
@@ -13,7 +13,7 @@ covered on the CPU by test_torch_trace.py, test_torch_pack.py,
 test_torch_lanesort.py, test_torch_raster_edge.py,
 test_torch_device_build.py, test_torch_raster_frames.py and
 test_torch_shade.py). C-F move f32 values without arithmetic, so they
-must equal their plain versions exactly; so must H, I, J and K, which
+must equal their plain versions exactly; so must H, I, J, K and L, which
 round each operation as theirs do.
 Imports no JAX, so it runs on a machine without it:
 
@@ -65,6 +65,7 @@ from vkrt_tpu_torch.runtime import FrameScheduler
 from vkrt_tpu_torch.scene import Image
 from vkrt_tpu_torch.scene.procedural import procedural_model
 from vkrt_tpu_torch.scene.textures import build_material_heap
+from vkrt_tpu_torch.shade import shading
 from vkrt_tpu_torch.shade.sampling import (sample_hits, sample_hits_plain,
                                            sample_material)
 from vkrt_tpu_torch.utils import layout as L
@@ -115,7 +116,11 @@ WRAPPERS = {"trace_closest": dense.trace_dense,
             "lane_unsort": lanesort.lane_unsort,
             "raster_edge": edge.raster_edge, "sah_cut": cut_round,
             "raster_sample": rs.raster_sample_round,
-            "raster_clip": clip_boxes, "sample_hits": sample_hits}
+            "raster_clip": clip_boxes, "sample_hits": sample_hits,
+            "shade_interp": shading.shade_interp,
+            "shade_lights": shading.shade_lights,
+            "shade_combine": shading.shade_combine}
+SHADE_STEPS = ("shade_interp", "shade_lights", "shade_combine")
 
 
 def counted(fn):
@@ -782,6 +787,208 @@ def test_graph_frames_equal_plain_sample_frames(renderer, card, case,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     k_graph.free_graphs()
     p_graph.free_graphs()
+
+
+def same_bits(got, want) -> bool:
+    """Equal shapes and dtypes and equal bits (a float32 NaN equals a NaN
+    of the same bits), or both None."""
+    if got is None or want is None:
+        return got is None and want is None
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return torch.equal(got, want)
+
+
+L_CASES = ("lights4", "lights1", "lights0", "no_shadows", "no_reflections",
+           "segments_off", "partitioned", "flat", "all_dead", "all_miss",
+           "all_hit", "edges")
+
+
+def kernel_l_case(card, case):
+    """Kernel L's inputs on 64 x 128 lanes of the card: a random depth's
+    trace outputs (80% live, 70% hit, the material rows integers), sample,
+    carry, lights and blocked masks (dict), and the step options (lights
+    at 4, 1 or 0, without shadows, reflections or shadow segments, the
+    lane-sorted iteration's written colour, flat albedo; all-dead,
+    all-miss and all-hit wavefronts; and `edges`: zero-length normals,
+    tangents and map normals, hits on a light's own position, NaN
+    attributes)."""
+    rng = np.random.default_rng(23)
+    shape = (64, 128)
+    nl = {"lights1": 1, "lights0": 0, "flat": 0}.get(case, 4)
+    live = {"all_dead": 0.0, "all_miss": 1.0, "all_hit": 1.0}.get(case, 0.8)
+    hits = {"all_miss": 0.0, "all_hit": 1.0}.get(case, 0.7)
+    attrs = rng.normal(size=(36, *shape)).astype(np.float32)
+    attrs[0:9] *= 6.0
+    attrs[33:36] = rng.integers(0, 5, (3, *shape))
+    d = rng.normal(size=(3, *shape)).astype(np.float32)
+    w = dict(
+        active=rng.random(shape) < live, hitm=rng.random(shape) < hits,
+        u=rng.uniform(0, 0.5, shape).astype(np.float32),
+        v=rng.uniform(0, 0.5, shape).astype(np.float32), attrs=attrs,
+        base=rng.uniform(0, 1, (3, *shape)).astype(np.float32),
+        metallic=rng.uniform(0, 0.3, shape).astype(np.float32),
+        map_n=rng.uniform(0, 1, (3, *shape)).astype(np.float32),
+        origins=rng.normal(size=(3, *shape)).astype(np.float32),
+        dirs=(d / np.linalg.norm(d, axis=0)).astype(np.float32),
+        attenuation=rng.uniform(0.05, 1, shape).astype(np.float32),
+        accum=rng.uniform(0, 2, (3, *shape)).astype(np.float32),
+        ray_count=rng.integers(0, 5, shape).astype(np.int32),
+        lights=C.LIGHT_POSITIONS[:nl].astype(np.float32),
+        occ=rng.random((nl, *shape)) < 0.4)
+    if case == "edges":
+        attrs[9:18, 0] = 0.0                      # zero-length normals
+        attrs[24:33, 1] = 0.0                     # zero-length tangents
+        w["map_n"][:, 2] = 0.5                    # map normal 0
+        attrs[0:3, 3] = C.LIGHT_POSITIONS[1][:, None]   # on light 1
+        attrs[3:9, 3] = 0.0
+        attrs[:, 4, :32] = np.nan                 # NaN attributes
+        attrs[33, 4, 32:64] = np.nan              # a NaN slot alone
+        w["metallic"][5] = C.METALLIC_THRESHOLD   # the threshold itself
+    opts = dict(shadows=case not in ("no_shadows", "flat") and nl > 0,
+                reflections=case != "no_reflections",
+                segments=case != "segments_off",
+                partitioned=case == "partitioned", flat=case == "flat")
+    return {k: torch.as_tensor(x, device=card) for k, x in w.items()}, opts
+
+
+def shade_steps(w, opts, steps):
+    """One depth's three steps through `steps` (the wrappers, or the plain
+    versions), each on its own copy of the carry: every output of each
+    step, by name. The later steps take the earlier steps' outputs of the
+    same `steps`."""
+    interp, lights_fn, combine = steps
+    carry = {k: w[k].clone() for k in ("active", "origins", "dirs",
+                                       "attenuation", "accum", "ray_count")}
+    pos, uv, slot, hit = interp(w["active"], w["hitm"], w["u"], w["v"],
+                                w["attrs"])
+    out = dict(pos=pos, uv=uv, slot=slot, hit=hit)
+    if opts["flat"]:
+        combine(carry["active"], w["hitm"], w["base"], None, None, None,
+                None, None, None, None, None, carry["accum"],
+                carry["ray_count"], flat=True)
+        return {**out, **carry}
+    pn, castmask, sd, st = lights_fn(
+        hit, w["u"], w["v"], w["attrs"], w["map_n"], pos,
+        w["lights"] if opts["shadows"] else None, opts["segments"])
+    out.update(pn=pn, castmask=castmask, sd=sd, st=st)
+    acc = ((None, None) if opts["partitioned"]
+           else (carry["accum"], carry["ray_count"]))
+    res = combine(carry["active"], w["hitm"], w["base"], w["metallic"], pn,
+                  pos, w["lights"], w["occ"] if opts["shadows"] else None,
+                  carry["origins"], carry["dirs"], carry["attenuation"],
+                  *acc, opts["reflections"])
+    if res is not None:
+        out.update(dacc=res[0], dcount=res[1])
+    return {**out, **carry}
+
+
+PLAIN_STEPS = (shading.shade_interp_plain, shading.shade_lights_plain,
+               shading.shade_combine_plain)
+KERNEL_STEPS = (shading.shade_interp, shading.shade_lights,
+                shading.shade_combine)
+
+
+@pytest.mark.parametrize("case", L_CASES)
+def test_kernel_l_matches_plain(card, case):
+    """Kernel L's three steps (shade_interp, shade_lights, shade_combine
+    on CUDA tensors) vs their plain versions on the same tensors, the
+    later steps on the earlier steps' outputs of each: every output and
+    every in-place update bit-equal on every lane, on each case of
+    `kernel_l_case`; one launch of each step on the card and one counted
+    (no shade_lights with flat albedo); each case holds what it is there
+    for."""
+    w, opts = kernel_l_case(card, case)
+    want = shade_steps(w, opts, PLAIN_STEPS)
+    launches = {k: 1 for k in SHADE_STEPS
+                if not (opts["flat"] and k == "shade_lights")}
+    got, on_card, host = counted_again(
+        lambda: shade_steps(w, opts, KERNEL_STEPS), launches)
+    assert on_card == host == launches
+    assert got.keys() == want.keys()
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    assert not bad, bad
+    hit = want["hit"]
+    if case == "all_dead":
+        assert not w["active"].any() and torch.equal(got["accum"],
+                                                     w["accum"])
+    elif case == "all_miss":
+        assert w["active"].all() and not hit.any()
+    elif case == "all_hit":
+        assert hit.all()
+    elif case == "edges":
+        assert hit[0].any() and hit[1].any() and hit[2].any()
+        assert (got["pos"][:, 3][:, hit[3]] == w["lights"][1][:, None]).all()
+        assert torch.isnan(got["pn"][:, 4, :32][:, hit[4, :32]]).all()
+        assert (got["slot"][4, 32:64][hit[4, 32:64]] == 0).all()
+    if opts["shadows"] and hit.any():
+        assert got["castmask"].max() > 0
+    if opts["partitioned"]:
+        assert torch.equal(got["accum"], w["accum"])
+
+
+SHADE_FRAME_CASES = {
+    **{f"config4_{o}": ("config4", o) for o in (
+        "defaults", "partition_closest", "resort_secondary", "no_shadows",
+        "no_reflections")},
+    **{f"config5_{o}": ("config5", o) for o in (
+        "defaults", "partition_closest", "resort_secondary", "no_shadows",
+        "no_reflections")},
+    "config1_flat": ("config1", "defaults"),
+    "config3_one_light": ("config3", "defaults"),
+    "config4_mip_lod": ("config4", "mip_lod"),
+    "config4_per_light": ("config4", "per_light"),
+    "config4_reference": ("config4", "reference"),
+}
+SHADE_OPTIONS = {"defaults": {}, "partition_closest":
+                 dict(partition_closest=True),
+                 "resort_secondary": dict(resort_secondary=True),
+                 "no_shadows": dict(enable_shadows=False),
+                 "no_reflections": dict(enable_reflections=False),
+                 "mip_lod": dict(mip_lod=True)}
+
+
+@pytest.mark.parametrize("case", sorted(SHADE_FRAME_CASES))
+def test_shade_frames_equal_plain_shade_frames(renderer, card, case,
+                                               monkeypatch):
+    """Eager 64x48 frames (config 4; config 5 with its refit, under a
+    rotation) at the defaults and with partition_closest,
+    resort_secondary, shadows off and reflections off; config 1 (flat
+    albedo), config 3 (one light), and config 4 with mip_lod, with the
+    per-light shadow dispatch and on the reference backend: the frame and
+    ray count with kernel L equal those with its plain versions forced in
+    the engine, bit for bit; kernel L launches each step once a depth
+    (no shade_lights with flat albedo), the plain versions none."""
+    conf, option = SHADE_FRAME_CASES[case]
+    make = {"config1": C.config1_primary, "config3": C.config3_reflections,
+            "config4": C.config4_flythrough,
+            "config5": C.config5_stress}[conf]
+    cfg = dataclasses.replace(make(), width=64, height=48,
+                              **SHADE_OPTIONS.get(option, {}))
+    r = Renderer(renderer.model, cfg, card, quantize=True, rebuild="refit",
+                 backend="reference" if option == "reference" else "dense",
+                 graph=False)
+    if option == "per_light":
+        r.backend = r.backend._replace(per_light=True)
+    cam = start_camera()
+    tf = rot_y(0.05) if cfg.rebuild_per_frame else None
+    depth = 1 if cfg.flat_albedo else cfg.max_depth
+    want_l = {k: 0 if cfg.flat_albedo and k == "shade_lights" else depth
+              for k in SHADE_STEPS}
+    for _ in range(3):     # the profiler may drop a record (counted_again)
+        got, on_card, host = counted(lambda: r.render_async(cam, tf))
+        if {k: on_card.get(k, 0) for k in SHADE_STEPS} == want_l:
+            break
+    assert {k: on_card.get(k, 0) for k in SHADE_STEPS} == want_l
+    assert {k: host.get(k, 0) for k in SHADE_STEPS} == want_l
+    for k, plain in zip(SHADE_STEPS, PLAIN_STEPS):
+        monkeypatch.setattr(engine, k, plain)
+    want, on_card, _ = counted(lambda: r.render_async(cam, tf))
+    assert not any(on_card.get(k) for k in SHADE_STEPS)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(got[1].sum()) > 0
 
 
 @pytest.fixture(scope="module")

@@ -219,13 +219,22 @@ def test_kernel_launches_read_the_profiler_names():
                         device_type=cuda),
         SimpleNamespace(key="vkrt::sample_hits_kernel(int const*, float "
                             "const*)", count=4, device_type=cuda),
+        SimpleNamespace(key="vkrt::shade_interp_kernel(unsigned char "
+                            "const*)", count=4, device_type=cuda),
+        SimpleNamespace(key="void vkrt::shade_lights_kernel<4>(unsigned "
+                            "char const*)", count=3, device_type=cuda),
+        SimpleNamespace(key="void vkrt::shade_lights_kernel<1>(unsigned "
+                            "char const*)", count=1, device_type=cuda),
+        SimpleNamespace(key="void vkrt::shade_combine_kernel<4>(unsigned "
+                            "char*)", count=4, device_type=cuda),
         SimpleNamespace(key="cudaGraphLaunch", count=2, device_type=cpu)]
     assert graphs.kernel_name(events[0].key) == "trace_closest"
     assert graphs.kernel_name(events[5].key) is None
     assert graphs.kernel_launches(events) == dict(
         trace_closest=5, trace_occluded=0, occl_multi=4, consolidate=0,
         scatter_back=0, lane_sort=3, lane_unsort=2, raster_edge=0,
-        sah_cut=0, raster_sample=32, raster_clip=1, sample_hits=4)
+        sah_cut=0, raster_sample=32, raster_clip=1, sample_hits=4,
+        shade_interp=4, shade_lights=4, shade_combine=4)
 
 
 @pytest.mark.parametrize("shards", [2, 5, 7])

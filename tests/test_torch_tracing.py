@@ -124,7 +124,10 @@ def test_counters_add_up_to_the_ray_count(renderers, name):
     kernels A, K and B are launched over: the whole wavefront, B once per
     light. A frame that updates its tree also counts the tree's cluster
     area (accel_cl_area), and every depth the lanes whose heap row the
-    sample fetches (sample_fetch_d{d}, at most the live rays): no rays."""
+    sample fetches (sample_fetch_d{d}, at most the live rays): no rays.
+    Kernel L's three steps (shade_hits) are launched over the whole
+    wavefront too, the first and the second in shade_d{d} before the
+    sample and the shadow trace, the third after them."""
     r, m = renderers[name], CONFIGS[name][1]
     (fb8, rays), table, counts = traced_frame(r, m)
     area = counts.pop("accel_cl_area", None)
@@ -143,8 +146,11 @@ def test_counters_add_up_to_the_ray_count(renderers, name):
     assert table.lanes == [
         x for d in range(r.cfg.max_depth)
         for x in (("trace_closest", f"trace_closest_d{d}", n),
+                  ("shade_hits", f"shade_d{d}", n),
                   ("sample_hits", f"sample_d{d}", n),
-                  ("occl_multi", f"trace_shadow_d{d}", r.cfg.num_lights * n))]
+                  ("shade_hits", f"shade_d{d}", n),
+                  ("occl_multi", f"trace_shadow_d{d}", r.cfg.num_lights * n),
+                  ("shade_hits", f"shade_d{d}", n))]
 
 
 def test_tracing_off_records_nothing_and_changes_no_bit(renderers):

@@ -76,11 +76,12 @@ def resolve(graph: bool | None, device, host_wait: str = "") -> bool:
 
 
 # --- launches on the card ----------------------------------------------
-# kernels A, A', B, C, D, E, F, G, H, I, J, K: csrc/'s __global__ functions,
-# named without their "_kernel" suffix
+# kernels A, A', B, C, D, E, F, G, H, I, J, K and L's three steps: csrc/'s
+# __global__ functions, named without their "_kernel" suffix
 KERNELS = ("trace_closest", "trace_occluded", "occl_multi", "consolidate",
            "scatter_back", "lane_sort", "lane_unsort", "raster_edge",
-           "sah_cut", "raster_sample", "raster_clip", "sample_hits")
+           "sah_cut", "raster_sample", "raster_clip", "sample_hits",
+           "shade_interp", "shade_lights", "shade_combine")
 _KERNEL = re.compile(r"\bvkrt::(\w+)_kernel\b")
 
 

@@ -15,9 +15,10 @@ occl_multi.cu (B), pack.cu (C, D), lanesort.cu (E, F), raster_edge.cu (G),
 sah_cut.cu (H, the device SAH build's cut round), raster_sample.cu (I,
 the raster discard round's material sample), raster_clip.cu (J, the
 raster setup's clip of triangles that cross w = 0), sample_hits.cu (K,
-the ray tracer's material sample on the lanes that hit), span_mark.cu
+the ray tracer's material sample on the lanes that hit), shade_hits.cu
+(L, the ray tracer's hit shading in three steps a depth), span_mark.cu
 (tracing.py's empty mark kernel); headers common.cuh
-(shared by A, A', B, G, I and K) and walk.cuh (the front-to-back group
+(shared by A, A', B, G, I, K and L) and walk.cuh (the front-to-back group
 walk of A, A' and B).
 
 Flags: -O3 -std=c++17 for sm_90a, -fmad=false so that no a*b+c is
@@ -44,7 +45,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("trace_closest.cu", "trace_occluded.cu", "occl_multi.cu",
            "pack.cu", "lanesort.cu", "raster_edge.cu", "sah_cut.cu",
            "raster_sample.cu", "raster_clip.cu", "sample_hits.cu",
-           "span_mark.cu")
+           "shade_hits.cu", "span_mark.cu")
 HEADERS = ("common.cuh", "walk.cuh")
 GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -151,12 +152,19 @@ def library() -> ctypes.CDLL:
     lib.vkrt_raster_clip.argtypes = [_P, _P, _I, _D, _D, _P, _P]
     lib.vkrt_sample_hits.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P,
                                      _P]
+    lib.vkrt_shade_interp.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P, _P]
+    lib.vkrt_shade_lights.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _P, _P]
+    lib.vkrt_shade_combine.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P,
+                                       _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _P]
     lib.vkrt_span_mark.argtypes = [_P]
     for fn in (lib.vkrt_consolidate, lib.vkrt_scatter_back,
                lib.vkrt_lane_sort, lib.vkrt_lane_unsort,
                lib.vkrt_raster_edge, lib.vkrt_sah_cut, lib.vkrt_raster_sample,
                lib.vkrt_raster_clip, lib.vkrt_sample_hits,
-               lib.vkrt_span_mark):
+               lib.vkrt_shade_interp, lib.vkrt_shade_lights,
+               lib.vkrt_shade_combine, lib.vkrt_span_mark):
         fn.restype = _I
     return lib
 

@@ -2,9 +2,9 @@
 
 Flat wavefront rounds over the whole frame, as in the JAX package:
 
-  ray gen → closest-hit trace with attributes (kernel A) → shade →
-  one shadow trace for all lights (kernel B) → reflection carry →
-  repeat up to max_depth → framebuffer
+  ray gen → closest-hit trace with attributes (kernel A) → shade
+  (kernels L and K) → one shadow trace for all lights (kernel B) →
+  reflection carry (kernel L) → repeat up to max_depth → framebuffer
 
 Per-ray state is lane-major ([Nb,128] scalars, [3,Nb,128] vectors) in
 the engine's tiled ray order (16x32-pixel tiles, one 8x16 subtile per
@@ -57,13 +57,14 @@ itself. A refit's `accel_update` holds `accel_refit`, which runs all of
 the refit (accel/refit.py::refit_clusters: the transform, the boxes,
 the copy of the rows). While tracing is on, `accel_area` follows
 `accel_update` and counts the new tree's cluster area.
-`shade_d{d}` covers the miss shader, interpolation, the perturbed normal
-and light geometry, and the combine and reflection carry after the
-shadow trace: up to three intervals a depth, around `sample_d{d}` and
-`trace_shadow_d{d}`. Counters per depth: `live_closest_d{d}` (the rays
-kernel A traces live) and `cast_shadow_d{d}` (the segments kernel B
-traces live, summed over the lights); summed over the depths they are
-the frame's ray count. `sample_fetch_d{d}` (in `sample_d{d}`): the lanes
+`shade_d{d}` covers the three steps of kernel L (shade/shading.py):
+the interpolation before `sample_d{d}`, the perturbed normal and the
+shadow rays before `trace_shadow_d{d}`, and after it the miss shader,
+the light sum, the colour and ray count and the reflection carry (which
+it updates in place): up to three intervals a depth. Counters per
+depth: `live_closest_d{d}` (the rays kernel A traces live) and
+`cast_shadow_d{d}` (the segments kernel B traces live, summed over the
+lights); summed over the depths they are the frame's ray count. `sample_fetch_d{d}` (in `sample_d{d}`): the lanes
 that hit, whose heap row the material sample (kernel K) reads.
 `sample_d{d}` runs kernel K (shade/sampling.py::sample_hits), but with
 `mip_lod` at depth 0. With an accel update, `accel_cl_area`: the
@@ -71,7 +72,8 @@ summed surface area of the updated tree's cluster boxes
 (accel/clusters.py::cluster_area_fixed, 1/2^16 squared world units),
 counted in `frame_body`'s `accel_area` span, outside `accel_update`,
 and not in `_update_tree`, which a caller may capture alone. Kernels
-A, A', B and K record the lanes they are launched over (tracing.lanes).
+A, A', B, K and L record the lanes they are launched over
+(tracing.lanes).
 """
 
 from __future__ import annotations
@@ -94,6 +96,8 @@ from vkrt_tpu_torch.rt.occl_multi import occluded_multi
 from vkrt_tpu_torch.scene import flatten_model, load_model
 from vkrt_tpu_torch.scene.textures import build_material_heap, material_slots
 from vkrt_tpu_torch.shade import shading
+from vkrt_tpu_torch.shade.shading import (cast_bits, shade_combine,
+                                          shade_interp, shade_lights)
 from vkrt_tpu_torch.shade.sampling import (ray_diff_lod, sample_hits,
                                            sample_material_trilinear)
 from vkrt_tpu_torch.utils import layout as L
@@ -387,12 +391,15 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
     nb = dirs.shape[1]
     shape = (nb, L.LANES)
     with tracing.span("camera_rays", dev):
+        # the carry, which shade_combine updates in place, is the rounds'
+        # own: the caller's dirs and valid are left as they are
         accum = torch.zeros((3,) + shape, device=dev)
         attenuation = torch.ones(shape, device=dev)
-        active = valid
+        active = valid.clone(memory_format=torch.contiguous_format)
         ray_count = torch.zeros(shape, dtype=torch.int32, device=dev)
         lights = lights[:cfg.num_lights]
         origins = origin_pt[:, None, None].expand((3,) + shape).contiguous()
+        dirs = dirs.clone(memory_format=torch.contiguous_format)
     cblk = _occl_block(nb * L.LANES)
 
     for depth in range(cfg.max_depth):
@@ -431,96 +438,55 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
                 t, u, v, attrs, hitm = (resort.permute_rays(x, inv)
                                         for x in (t, u, v, attrs, hitm))
         with tracing.span(f"shade_d{depth}", dev):
-            dcount = active.to(torch.float32)
-            hit = hitm & active
-            miss = active & ~hitm
-
-            # miss shader: sky, unattenuated (ref: shader.rmiss:17);
-            # Python scalars, so no host-to-device copy waits for the card
-            dacc = torch.stack([torch.where(miss, float(c), 0.0)
-                                for c in C.SKY_COLOR])
-
-            pos, normal, uv, tangent, mat_ids = shading.interpolate(attrs, u,
-                                                                    v)
+            # kernel L's first step on the card: what the sample needs,
+            # zeros on lanes that did not hit
+            pos, uv, slot, hit = shade_interp(active, hitm, u, v, attrs)
         with tracing.span(f"sample_d{depth}", dev):
             if depth == 0 and cfg.mip_lod:
                 # beyond parity: trilinear at a per-ray level from
                 # lane-neighbour differentials (config.mip_lod)
-                lod = ray_diff_lod(uv, hit, mat_ids[0], tex.level_width,
-                                   tex.level_height, mat_ids[0])
+                lod = ray_diff_lod(uv, hit, slot, tex.level_width,
+                                   tex.level_height, slot)
                 base4, mr4, nmap4 = sample_material_trilinear(
                     tex.texels_tri, tex.level_offset, tex.level_width,
-                    tex.level_height, mat_ids[0], uv, lod)
+                    tex.level_height, slot, uv, lod)
                 base, metallic, map_n = base4[:3], mr4[2], nmap4[:3]
             else:
                 # only hit lanes read the heap (kernel K on the card);
                 # every use below is masked by hit or reflective <= hit
                 tracing.count(f"sample_fetch_d{depth}", hit)
-                base, metallic, map_n = sample_hits(tex, mat_ids[0], uv, hit)
+                base, metallic, map_n = sample_hits(tex, slot, uv, hit)
 
         if cfg.flat_albedo:
             with tracing.span(f"shade_d{depth}", dev):
-                accum = accum + dacc + torch.where(hit[None], base, 0.0)
-                ray_count = ray_count + dcount.to(torch.int32)
+                shade_combine(active, hitm, base, None, None, None, None,
+                              None, None, None, None, accum, ray_count,
+                              flat=True)
             break
 
+        shadows = cfg.enable_shadows and cfg.num_lights > 0
         with tracing.span(f"shade_d{depth}", dev):
-            pn = shading.perturbed_normal(normal, tangent, map_n)
-            nl = cfg.num_lights
-            geo = [shading.light_geometry(pos, lights[li])
-                   for li in range(nl)]
-            ndotls = [L.dot3(pn, g[0]) for g in geo]
-            occs = [None] * nl
-            shadows = cfg.enable_shadows and nl > 0
-            if shadows:
-                casts = [hit & (nd > 0) for nd in ndotls]
+            # the shadow rays in kernel B's layout, unless the depth's
+            # repartition makes its own from the moved points
+            pn, castmask, sd, st = shade_lights(
+                hit, u, v, attrs, map_n, pos, lights if shadows else None,
+                segments=not _moves_points(backend, cfg, depth))
+        occ = None
         if shadows:
             with tracing.span(f"trace_shadow_d{depth}", dev):
                 if tracing.enabled():
                     tracing.count(f"cast_shadow_d{depth}",
-                                  torch.stack(casts))
-                occs = list(trace_shadows(backend, lights, pos, geo, hit,
-                                          casts, cfg, depth))
+                                  cast_bits(castmask, len(lights)))
+                occ = trace_shadows(backend, lights, pos, hit, castmask, sd,
+                                    st, cfg, depth)
         with tracing.span(f"shade_d{depth}", dev):
-            total_light = torch.zeros(shape, device=dev)
-            if shadows:
-                for c in casts:
-                    dcount = dcount + c.to(torch.float32)
-
-            if cfg.enable_reflections:
-                reflective = hit & (metallic > C.METALLIC_THRESHOLD)
-                # attenuation updates BEFORE the (1 - attenuation) scale —
-                # order quirk preserved (ref: shader.rchit:165-167)
-                new_att = attenuation * (C.REFLECT_SCALE * metallic)
-                att_updated = torch.where(reflective, new_att, attenuation)
-            else:
-                reflective = torch.zeros_like(hit)
-                att_updated = attenuation
-
-            for li in range(nl):
-                diffuse = torch.clamp(ndotls[li], 0.0, 1.0)
-                mult = torch.ones(shape, device=dev)
-                if cfg.enable_shadows:
-                    cast = hit & (ndotls[li] > 0)
-                    mult = torch.where(cast & occs[li], C.SHADOW_MULTIPLIER,
-                                       1.0)
-                total_light = total_light + diffuse * geo[li][2] * mult
-
-            hit_value = (base * (total_light * attenuation)[None]
-                         + base * C.AMBIENT)
-            if cfg.enable_reflections:
-                hit_value = torch.where(reflective[None],
-                                        hit_value * (1.0 - att_updated)[None],
-                                        hit_value)
-            dacc = dacc + torch.where(hit[None], hit_value, 0.0)
-
-            attenuation = att_updated
-            origins = L.where3(reflective, pos, origins)
-            dirs = L.where3(reflective, shading.reflect(dirs, pn), dirs)
-            active = reflective
             if pt_closest:
                 # one inverse returns the contributions, and the reflection
                 # carry while depths remain, to the original ray order
+                dacc, dcount = shade_combine(
+                    active, hitm, base, metallic, pn, pos, lights, occ,
+                    origins, dirs, attenuation, None, None,
+                    reflections=cfg.enable_reflections)
                 more = depth + 1 < cfg.max_depth
                 back = unpartition_rays(dacc, dcount, origins, dirs,
                                         attenuation, active, undo_c, more)
@@ -530,8 +496,10 @@ def wavefront_rounds(backend, tex: TextureArrays, origin_pt, dirs, lights,
                     origins, dirs = back[4:7], back[7:10]
                     attenuation, active = back[10], back[11] > 0.5
             else:
-                accum = accum + dacc
-                ray_count = ray_count + dcount.to(torch.int32)
+                shade_combine(
+                    active, hitm, base, metallic, pn, pos, lights, occ,
+                    origins, dirs, attenuation, accum, ray_count,
+                    reflections=cfg.enable_reflections)
 
     return accum, ray_count
 
@@ -580,12 +548,22 @@ def unpartition_rays(dacc, dcount, origins, dirs, attenuation, active,
                                 block=undo.block)
 
 
-def trace_shadows(backend, lights, pos, geo, hit, casts,
+def _moves_points(backend, cfg: C.RenderConfig, depth: int) -> bool:
+    """Whether trace_shadows repartitions the depth's surface points
+    (`partition_points`) and makes the segments from the moved points."""
+    return (cfg.partition_shadows and depth >= 1
+            and not isinstance(backend, ReferenceBackend)
+            and not cfg.resort_secondary and not cfg.recheck_secondary)
+
+
+def trace_shadows(backend, lights, pos, hit, castmask, sd, st,
                   cfg: C.RenderConfig, depth: int):
     """Blocked masks bool[L,Nb,128] of all lights' shadow segments in ONE
     kernel-B dispatch (or one kernel-A' dispatch per light where the
     backend has `per_light` set), traced from the light toward the point;
-    rays a hit does not cast (`casts`) park at tmax 0.
+    rays a hit does not cast (bit s of `castmask` clear) park at tmax 0.
+    pos, hit, castmask, sd and st are shade_lights' (sd and st
+    None where `_moves_points`).
 
     The reorders and modes follow the JAX engine's conditions
     (vkrt_tpu/wavefront/engine.py:511-701). resort_secondary, at every
@@ -599,17 +577,13 @@ def trace_shadows(backend, lights, pos, geo, hit, casts,
     segment channels (consolidate_secondary), each optional. Partition
     and pack serve the dense kernels only: the reference backend gets the
     sorts alone. sub_gate_shadows is B's sub-run mode."""
-    nl = len(casts)
+    nl = lights.shape[0]
     oblk = _occl_block(pos.shape[1] * L.LANES)
     dense = not isinstance(backend, ReferenceBackend)
     rs = cfg.resort_secondary
     pregate = "recheck" if cfg.recheck_secondary else ""
     modes = dict(block=oblk, sub_gate=cfg.sub_gate_shadows, pregate=pregate)
-    if (cfg.partition_shadows and depth >= 1 and dense and not rs
-            and not pregate):
-        castmask = casts[0].to(torch.float32)
-        for s in range(1, nl):
-            castmask = castmask + casts[s].to(torch.float32) * float(1 << s)
+    if _moves_points(backend, cfg, depth):
         pos_p, cmi, undo = partition_points(
             pos, castmask, backend.scene_aabb, cfg.consolidate_secondary,
             oblk)
@@ -625,9 +599,6 @@ def trace_shadows(backend, lights, pos, geo, hit, casts,
                                      torch.stack(st), **modes)
         return unpartition(occ, undo)
 
-    sd = torch.stack([-g[0] for g in geo])                  # [L,3,Nb,128]
-    st = torch.stack([torch.where(c, g[1] - C.RAY_TMIN, 0.0)
-                      for c, g in zip(casts, geo)])         # [L,Nb,128]
     gsort = cfg.group_sort_shadows and depth >= 1 and not rs
     cons = (cfg.consolidate_secondary and depth >= 1 and dense and not rs
             and not pregate)
